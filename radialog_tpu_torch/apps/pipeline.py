@@ -3,11 +3,13 @@ radialog_tpu/apps/pipeline.py ``RaDialogPipeline``).
 
 Covered: mock construction (tiny seeded models, real interface contract:
 32 <IMG> slots, 32 queries) and synthetic full-width construction (Vicuna-7B,
-BioViL-T, BERT-base Q-Former and the CheXpert classifier with random
-weights from a seeded ``torch.Generator``), both with W8A8 weights and the
-int8 KV cache; ``embed_images``, ``classify_findings``, the shared-prefix
-rule and greedy ``generate_texts``. Loading real checkpoints, the CheXbert
-labeler, beams and the continuous-batching ring are not ported yet.
+BioViL-T, BERT-base Q-Former, the CheXpert classifier and the BERT-base
+CheXbert labeler with random weights from a seeded ``torch.Generator``),
+both with W8A8 weights and the int8 KV cache; ``embed_images``,
+``classify_findings``, ``label_reports``, the shared-prefix rule and greedy
+``generate_texts`` (the engine's ``prefill`` picks the direct or the
+cache-free prefill by batch size). Loading real checkpoints, beams and the
+continuous-batching ring are not ported yet.
 """
 from __future__ import annotations
 
@@ -19,8 +21,10 @@ import torch
 
 from ..decode.engine import (DecodeParams, GenerationResult, generate,
                              generate_shared_prefix)
+from ..models.bert import BertConfig
 from ..models.biovil_t import biovil_t_apply, biovil_t_init, patch_tokens_for_qformer
 from ..models.blip2 import Blip2Config, blip2_forward_image
+from ..models.chexbert import chexbert_apply, chexbert_init, logits_to_labels
 from ..models.chexpert import (CHEXPERT_CLASSES, chexpert_classifier_apply,
                                chexpert_classifier_init, predicted_findings)
 from ..models.llama import TINY_LLAMA, VICUNA_7B, llama_init, lora_init
@@ -31,6 +35,8 @@ from .tokenization import WhitespaceTokenizer, pad_batch_right
 
 # shortest common prefix worth a separate prefix prefill (as in the JAX package)
 SHARED_PREFIX_MIN = 16
+MOCK_CHEXBERT = BertConfig(vocab_size=512, hidden_size=32, num_layers=2, num_heads=4,
+                           intermediate_size=64, max_position=128)
 
 
 @dataclasses.dataclass
@@ -65,7 +71,8 @@ class RaDialogPipeline:
                 TINY_LLAMA, num_img_tokens=32, max_position=512,
                 qformer_dim=TINY_QFORMER.bert.hidden_size)
             host_gen = torch.Generator().manual_seed(cfg.seed)
-            self.llama = quantize_llama_host(llama_init(host_gen, self.llama_cfg), device=dev)
+            self.llama = quantize_llama_host(llama_init(host_gen, self.llama_cfg, device="cpu"),
+                                             device=dev)
             self.qformer_cfg = dataclasses.replace(TINY_QFORMER, num_query_tokens=32)
             lora_dtype = torch.float32
         else:
@@ -82,6 +89,9 @@ class RaDialogPipeline:
         self.visual, self.visual_state = biovil_t_init(
             gen, dev, joint_feature_size=self.qformer_cfg.encoder_width)
         self.classifier, self.classifier_state = chexpert_classifier_init(gen, dev)
+        self.chexbert_cfg = MOCK_CHEXBERT if cfg.mock else BertConfig()
+        self.chexbert = chexbert_init(gen, self.chexbert_cfg, dev)
+        self.bert_tokenizer = WhitespaceTokenizer(vocab_size=self.chexbert_cfg.vocab_size)
 
     def to(self, device) -> "RaDialogPipeline":
         """Move every parameter to ``device`` (the same weights on another
@@ -96,7 +106,7 @@ class RaDialogPipeline:
         if self.device.type == "cuda":
             set_precision()
         for name in ("llama", "lora", "blip2", "visual", "visual_state",
-                     "classifier", "classifier_state"):
+                     "classifier", "classifier_state", "chexbert"):
             setattr(self, name, move(getattr(self, name)))
         return self
 
@@ -119,6 +129,26 @@ class RaDialogPipeline:
         mask = predicted_findings(logits).cpu().numpy()
         return [[CHEXPERT_CLASSES[j] for j in range(len(CHEXPERT_CLASSES)) if row[j]]
                 for row in mask]
+
+    # ------------------------------------------------------------ labeling
+    @torch.no_grad()
+    def label_reports(self, texts: Sequence[str], batch_size: int = 16) -> np.ndarray:
+        """CheXbert labels (N, 14) in {nan, 1, 0, -1}, CHEXBERT_CONDITIONS
+        order. Texts are cut to the labeler's max_position (512 at BERT-base,
+        as the JAX package cuts them)."""
+        max_len = min(512, self.chexbert_cfg.max_position)
+        out = []
+        for i in range(0, len(texts), batch_size):
+            ids = [self.bert_tokenizer(t, truncation=True, max_length=max_len)["input_ids"]
+                   for t in texts[i:i + batch_size]]
+            toks, lengths = pad_batch_right(ids, 0)
+            mask = (np.arange(toks.shape[1])[None] < lengths[:, None]).astype(np.int32)
+            logits = chexbert_apply(self.chexbert, self.chexbert_cfg,
+                                    torch.as_tensor(toks, device=self.device),
+                                    torch.as_tensor(mask, device=self.device),
+                                    policy=self.policy)
+            out.append(logits_to_labels([lg.cpu().numpy() for lg in logits]))
+        return np.concatenate(out, axis=0)
 
     # ------------------------------------------------------------ generate
     def _shared_prefix_len(self, ids: List[List[int]],

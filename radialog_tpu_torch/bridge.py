@@ -18,7 +18,7 @@ import torch
 from .ops.q8_matmul import PackedQ8
 
 
-def to_torch(tree: Any, device="cpu") -> Any:
+def to_torch(tree: Any, device="cuda") -> Any:
     """numpy leaves (bfloat16 included) -> tensors; dicts/lists/tuples kept."""
     if isinstance(tree, dict):
         return {k: to_torch(v, device) for k, v in tree.items()}
@@ -30,7 +30,7 @@ def to_torch(tree: Any, device="cpu") -> Any:
     return torch.from_numpy(np.array(arr)).to(device)   # a writable copy
 
 
-def packed_q8(d: Dict, k: int, device="cpu") -> PackedQ8:
+def packed_q8(d: Dict, k: int, device="cuda") -> PackedQ8:
     """A JAX PackedQ8 as {"w_t" (kt,nt,bk,bn) int8, "scale" (Np,), "n", "b"}
     with true input width ``k`` -> PackedQ8 (N, K) int8 rows."""
     w_t = np.asarray(d["w_t"])
@@ -44,7 +44,7 @@ def packed_q8(d: Dict, k: int, device="cpu") -> PackedQ8:
                     None if b is None else to_torch(np.asarray(b)[:n], device))
 
 
-def llama_serving(tree: Dict, cfg, device="cpu") -> Dict:
+def llama_serving(tree: Dict, cfg, device="cuda") -> Dict:
     """quantize_llama_host(bits=8, fuse=True) output, with each PackedQ8 as
     a dict (see ``packed_q8``) -> the port's serving params."""
     h, inter = cfg.hidden_size, cfg.intermediate_size
@@ -63,28 +63,33 @@ def llama_serving(tree: Dict, cfg, device="cpu") -> Dict:
     return out
 
 
-def llama(params: Dict, device="cpu") -> Dict:
+def llama(params: Dict, device="cuda") -> Dict:
     """llama_init's stacked float tree (for ops/quant.quantize_llama_host)."""
     return to_torch(params, device)
 
 
-def lora(tree: Dict, device="cpu") -> Dict:
+def lora(tree: Dict, device="cuda") -> Dict:
     """lora_init's tree: stacked a/b per target, img_proj and the scale."""
     return to_torch(tree, device)
 
 
-def biovil_t(params: Dict, state: Dict, device="cpu") -> Tuple[Dict, Dict]:
+def biovil_t(params: Dict, state: Dict, device="cuda") -> Tuple[Dict, Dict]:
     """biovil_t_init's (params, batchnorm state)."""
     return to_torch(params, device), to_torch(state, device)
 
 
-def qformer(qformer_params: Dict, ln_vision: Dict, device="cpu") -> Dict:
+def qformer(qformer_params: Dict, ln_vision: Dict, device="cuda") -> Dict:
     """qformer_init's tree plus ln_vision -> the params blip2_forward_image
     reads ({"qformer", "ln_vision"})."""
     return {"qformer": to_torch(qformer_params, device),
             "ln_vision": to_torch(ln_vision, device)}
 
 
-def chexpert(params: Dict, state: Dict, device="cpu") -> Tuple[Dict, Dict]:
+def chexpert(params: Dict, state: Dict, device="cuda") -> Tuple[Dict, Dict]:
     """chexpert_classifier_init's (params, state)."""
     return to_torch(params, device), to_torch(state, device)
+
+
+def chexbert(params: Dict, device="cuda") -> Dict:
+    """chexbert_init's tree: {"bert": embeddings + encoder layers, "heads"}."""
+    return to_torch(params, device)

@@ -21,10 +21,11 @@
 //   * blocks past a lane's live bound max(len-1, b1, b2) are never read;
 //   * the shared prefix (rows < p0, common to every lane) is read once per
 //     launch per head by `prefix_kernel` (one warp per lane after that
-//     read), which leaves each lane's online softmax state (m, l, acc)
-//     after the prefix block in a small scratch; `lane_kernel` starts from
-//     that state, so the blocks are still walked in the TPU kernel's order
-//     (prefix first, then slot blocks);
+//     read, in chunks of up to 512 rows so that a prefix of any length up
+//     to max_position fits shared memory), which leaves each lane's online
+//     softmax state (m, l, acc) after the prefix in a small scratch;
+//     `lane_kernel` starts from that state, so the blocks are still walked
+//     in the TPU kernel's order (prefix first, then slot blocks);
 //   * one block per (head, lane) streams that head's 128-byte row segments
 //     with 4-byte loads per thread (K, dp4a) and 1-byte loads (V), and the
 //     1792 blocks of the decode shape (56 lanes x 32 heads) keep every SM
@@ -38,6 +39,7 @@ namespace {
 
 constexpr int THREADS = 128;
 constexpr int PREFIX_THREADS = 512;
+constexpr int PREFIX_CHUNK = 512;     // prefix rows held in shared memory at once
 constexpr int MAX_BS = 256;
 constexpr float NEG_INF = -1e30f;
 
@@ -77,11 +79,14 @@ __device__ __forceinline__ float warp_fsum(float v) {
 
 // The shared-prefix block for every lane of head h (one block per head),
 // starting from the empty softmax state. The head's prefix K/V rows are read
-// from device memory once into shared memory; then each warp takes one lane
-// at a time: a thread scores whole rows (K rows padded to D + 4 bytes so the
-// 32 rows a warp reads at once sit in 32 banks), max and sum are warp
-// shuffles, and the warp's threads split D for p @ V. No block barrier is
-// needed after the load, so the lanes of a head proceed in parallel.
+// from device memory once, in chunks of at most PREFIX_CHUNK rows, into
+// shared memory; for each chunk every warp takes one lane at a time: a
+// thread scores whole rows (K rows padded to D + 4 bytes so the 32 rows a
+// warp reads at once sit in 32 banks), max and sum are warp shuffles, and
+// the warp's threads split D for p @ V. A lane's online-softmax state
+// (m, l, acc) lives in pm/pl/pacc between chunks; lane b is always served
+// by warp b % WARPS, so no other warp touches it. A prefix of at most
+// PREFIX_CHUNK rows is one chunk, the TPU kernel's single prefix block.
 __global__ void __launch_bounds__(PREFIX_THREADS)
 prefix_kernel(const int8_t* __restrict__ q8, const float* __restrict__ qs,
               const int8_t* __restrict__ k0, const uint16_t* __restrict__ ks0,
@@ -90,63 +95,76 @@ prefix_kernel(const int8_t* __restrict__ q8, const float* __restrict__ qs,
               float* __restrict__ pm, float* __restrict__ pl, float* __restrict__ pacc) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int h = blockIdx.x;
+  const int ch = min(p0p, PREFIX_CHUNK);                        // rows per chunk
   const int kstr = D / 4 + 1;                                   // K row stride, words
-  int* k_tile = reinterpret_cast<int*>(smem);                   // p0p * kstr
-  int8_t* v_tile = reinterpret_cast<int8_t*>(k_tile + p0p * kstr);  // p0p * D
-  float* kscale = reinterpret_cast<float*>(v_tile + p0p * D);   // p0p
-  float* vscale = kscale + p0p;                                 // p0p
+  int* k_tile = reinterpret_cast<int*>(smem);                   // ch * kstr
+  int8_t* v_tile = reinterpret_cast<int8_t*>(k_tile + ch * kstr);  // ch * D
+  float* kscale = reinterpret_cast<float*>(v_tile + ch * D);    // ch
+  float* vscale = kscale + ch;                                  // ch
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
   constexpr int WARPS = PREFIX_THREADS / 32;
-  float* sbuf = vscale + p0p + warp * p0p;                      // per warp: p0p
-  int* qbuf = reinterpret_cast<int*>(vscale + p0p + WARPS * p0p) + warp * (D / 4);
+  float* sbuf = vscale + ch + warp * ch;                        // per warp: ch
+  int* qbuf = reinterpret_cast<int*>(vscale + ch + WARPS * ch) + warp * (D / 4);
   const int hd = H * D;
 
-  for (int i = tid; i < p0p * (D / 4); i += PREFIX_THREADS) {
-    const int r = i / (D / 4);
-    const int w = i % (D / 4);
-    k_tile[r * kstr + w] = reinterpret_cast<const int*>(k0 + (size_t)r * hd + h * D)[w];
-    reinterpret_cast<int*>(v_tile)[i] = reinterpret_cast<const int*>(v0 + (size_t)r * hd + h * D)[w];
-  }
-  for (int r = tid; r < p0p; r += PREFIX_THREADS) {
-    kscale[r] = bf16_bits_to_float(ks0[(size_t)r * sl0 + h]);
-    vscale[r] = bf16_bits_to_float(vs0[(size_t)r * sl0 + h]);
-  }
-  __syncthreads();
+  // rows at or past p0 are masked: chunks that hold none of the first p0
+  // rows change no state and are not read (the first chunk always runs, so
+  // p0 = 0 still leaves the empty state m = -1e30, l = 0, acc = 0)
+  for (int c0 = 0; c0 == 0 || c0 < min(p0, p0p); c0 += ch) {
+    const int rows = min(ch, p0p - c0);
+    __syncthreads();                                            // last chunk consumed
+    for (int i = tid; i < rows * (D / 4); i += PREFIX_THREADS) {
+      const int r = i / (D / 4);
+      const int w = i % (D / 4);
+      const size_t src = (size_t)(c0 + r) * hd + h * D;
+      k_tile[r * kstr + w] = reinterpret_cast<const int*>(k0 + src)[w];
+      reinterpret_cast<int*>(v_tile)[i] = reinterpret_cast<const int*>(v0 + src)[w];
+    }
+    for (int r = tid; r < rows; r += PREFIX_THREADS) {
+      kscale[r] = bf16_bits_to_float(ks0[(size_t)(c0 + r) * sl0 + h]);
+      vscale[r] = bf16_bits_to_float(vs0[(size_t)(c0 + r) * sl0 + h]);
+    }
+    __syncthreads();
 
-  for (int b = warp; b < B; b += WARPS) {
-    const int* qrow = reinterpret_cast<const int*>(q8 + (size_t)b * hd + h * D);
-    for (int w = lane; w < D / 4; w += 32) qbuf[w] = qrow[w];
-    __syncwarp();
-    const float qscale = qs[b * H + h];
-    float m_cur = NEG_INF;
-    for (int r = lane; r < p0p; r += 32) {
-      int dot = 0;
-      for (int w = 0; w < D / 4; ++w) dot = __dp4a(k_tile[r * kstr + w], qbuf[w], dot);
-      const float s = r < p0 ? static_cast<float>(dot) * kscale[r] * qscale * scale : NEG_INF;
-      sbuf[r] = s;
-      m_cur = fmaxf(m_cur, s);
+    for (int b = warp; b < B; b += WARPS) {
+      const int* qrow = reinterpret_cast<const int*>(q8 + (size_t)b * hd + h * D);
+      for (int w = lane; w < D / 4; w += 32) qbuf[w] = qrow[w];
+      __syncwarp();
+      const float qscale = qs[b * H + h];
+      const float m_prev = c0 == 0 ? NEG_INF : pm[b * H + h];
+      float m_cur = NEG_INF;
+      for (int r = lane; r < rows; r += 32) {
+        int dot = 0;
+        for (int w = 0; w < D / 4; ++w) dot = __dp4a(k_tile[r * kstr + w], qbuf[w], dot);
+        const float s = c0 + r < p0 ? static_cast<float>(dot) * kscale[r] * qscale * scale
+                                    : NEG_INF;
+        sbuf[r] = s;
+        m_cur = fmaxf(m_cur, s);
+      }
+      const float m_new = fmaxf(m_prev, warp_max(m_cur));
+      const float alpha = expf(m_prev - m_new);
+      float psum = 0.0f;
+      for (int r = lane; r < rows; r += 32) {
+        const float p = c0 + r < p0 ? expf(sbuf[r] - m_new) : 0.0f;
+        psum += p;
+        sbuf[r] = round_bf16(p * vscale[r]);                    // pv, in place
+      }
+      const float l_blk = warp_fsum(psum);
+      __syncwarp();
+      for (int d = lane; d < D; d += 32) {
+        float o = 0.0f;
+        for (int r = 0; r < rows; ++r) o += sbuf[r] * static_cast<float>(v_tile[r * D + d]);
+        float* a = pacc + ((size_t)b * H + h) * D + d;
+        *a = c0 == 0 ? o : *a * alpha + o;
+      }
+      if (lane == 0) {
+        pm[b * H + h] = m_new;
+        pl[b * H + h] = c0 == 0 ? l_blk : pl[b * H + h] * alpha + l_blk;
+      }
+      __syncwarp();
     }
-    const float m_new = fmaxf(NEG_INF, warp_max(m_cur));
-    float psum = 0.0f;
-    for (int r = lane; r < p0p; r += 32) {
-      const float p = r < p0 ? expf(sbuf[r] - m_new) : 0.0f;
-      psum += p;
-      sbuf[r] = round_bf16(p * vscale[r]);                      // pv, in place
-    }
-    const float l = warp_fsum(psum);
-    __syncwarp();
-    for (int d = lane; d < D; d += 32) {
-      float o = 0.0f;
-      for (int r = 0; r < p0p; ++r) o += sbuf[r] * static_cast<float>(v_tile[r * D + d]);
-      pacc[((size_t)b * H + h) * D + d] = o;                    // 0 * alpha + block sum
-    }
-    if (lane == 0) {
-      pm[b * H + h] = m_new;
-      pl[b * H + h] = l;
-    }
-    __syncwarp();
   }
 }
 
@@ -230,12 +248,13 @@ lane_kernel(const int8_t* __restrict__ q8, const float* __restrict__ qs,
 
 }  // namespace
 
-// Dynamic shared memory of prefix_kernel: the K tile (rows padded by one
-// word), the V tile, two scale rows, and per warp a score row and a q row.
+// Dynamic shared memory of prefix_kernel for one chunk: the K tile (rows
+// padded by one word), the V tile, two scale rows, and per warp a score row
+// and a q row. At most 168 KB (512 rows, D = 128).
 static size_t prefix_smem(int p0p, int d) {
   constexpr int warps = PREFIX_THREADS / 32;
-  return static_cast<size_t>(p0p) * (d + 4) + static_cast<size_t>(p0p) * d +
-         static_cast<size_t>(p0p) * (2 + warps) * sizeof(float) +
+  const size_t ch = static_cast<size_t>(p0p < PREFIX_CHUNK ? p0p : PREFIX_CHUNK);
+  return ch * (d + 4) + ch * d + ch * (2 + warps) * sizeof(float) +
          static_cast<size_t>(warps) * d;
 }
 

@@ -1,6 +1,7 @@
 """Autoregressive generation: prefill + greedy decode over the int8 cache
-(port of radialog_tpu/decode/engine.py: ``generate_shared_prefix``,
-``prefix_kv``, ``generate`` and ``decode_loop``, greedy only).
+(port of radialog_tpu/decode/engine.py: ``prefill``,
+``generate_shared_prefix``, ``prefix_kv``, ``generate`` and
+``decode_loop``, greedy only).
 
 The JAX ``lax.while_loop`` becomes a Python loop with the same early exit:
 it stops once every lane has emitted EOS. ``DecodeParams.unroll`` is kept
@@ -18,7 +19,14 @@ import torch.nn.functional as F
 from ..models.llama import (KVCache, LlamaConfig, PrefixKV, find_img_start, init_cache,
                             llama_apply, prefill_bias, quantize_kv)
 from ..ops.layers import DTypePolicy, FP32
-from .kvcache import bucket_length
+from .kvcache import bucket_length, install_prefill
+
+# at this batch and above the prompt is prefilled straight into the int8
+# cache; below it, without a cache and then installed. The value is the
+# JAX engine's, copied so that both take the same path at every batch; it
+# was not tuned for this port (tools/time_prefill_paths.py times both
+# paths on the card)
+DIRECT_PREFILL_MIN_BATCH = 30
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,6 +54,36 @@ def _select_token(logits: torch.Tensor, dp: DecodeParams) -> torch.Tensor:
     if dp.do_sample:
         raise NotImplementedError("sampling is not ported yet; greedy only")
     return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def prefill(params: Dict, cfg: LlamaConfig, tokens: torch.Tensor, lengths: torch.Tensor,
+            cache_len: int, img_embs: Optional[torch.Tensor] = None,
+            lora: Optional[Dict] = None, policy: DTypePolicy = FP32):
+    """The prompt pass: returns (cache, last_logits (B, V)). tokens (B, T)
+    right-padded with lengths (B,); cache_len >= T + max_new.
+
+    At batch >= DIRECT_PREFILL_MIN_BATCH each layer quantizes its K/V
+    straight into the int8 cache. Below it the prefill runs without a
+    cache (flash attention, K3, at T >= 256) and ``install_prefill``
+    quantizes the fresh K/V into the cache afterwards, as the JAX engine
+    does. Below 256 tokens both paths leave the same cache bytes and
+    logits."""
+    b, t = tokens.shape
+    dev = tokens.device
+    if img_embs is not None and img_embs.shape[1] != cfg.num_img_tokens:
+        raise ValueError(f"img_embs provides {img_embs.shape[1]} embeddings but the "
+                         f"prompt contract reserves {cfg.num_img_tokens} <IMG> slots")
+    positions = torch.arange(t, device=dev)[None].repeat(b, 1)
+    img_start = find_img_start(tokens, cfg.img_token_id) if img_embs is not None else None
+    cache = init_cache(cfg, b, cache_len, device=dev)
+    direct = b >= DIRECT_PREFILL_MIN_BATCH
+    logits, out = llama_apply(params, cfg, tokens, positions, prefill_bias(lengths, t),
+                              cache=cache if direct else None, write_pos=0,
+                              img_embs=img_embs, img_start=img_start, lora=lora,
+                              policy=policy, lengths=lengths, last_pos=lengths - 1)
+    if not direct:
+        cache = install_prefill(cache, out)
+    return cache, logits[:, 0]
 
 
 def prefix_kv(params: Dict, cfg: LlamaConfig, prefix_tokens: torch.Tensor,
@@ -126,25 +164,13 @@ def generate(params: Dict, cfg: LlamaConfig, tokens: torch.Tensor, lengths: torc
              dp: DecodeParams = DecodeParams(), img_embs: Optional[torch.Tensor] = None,
              lora: Optional[Dict] = None, policy: DTypePolicy = FP32,
              cache_len: Optional[int] = None) -> GenerationResult:
-    """Prefill straight into the int8 cache, then greedy decode. (The JAX
-    engine installs a small batch's prefill in a second pass; both give the
-    same cache contents.)"""
-    b, t = tokens.shape
-    dev = tokens.device
+    """``prefill`` (direct or cache-free by batch size), then greedy decode."""
     if cache_len is None:
-        cache_len = default_cache_len(t, dp)
-    if img_embs is not None and img_embs.shape[1] != cfg.num_img_tokens:
-        raise ValueError(f"img_embs provides {img_embs.shape[1]} embeddings but the "
-                         f"prompt contract reserves {cfg.num_img_tokens} <IMG> slots")
-    cache = init_cache(cfg, b, cache_len, device=dev)
-    img_start = find_img_start(tokens, cfg.img_token_id) if img_embs is not None else None
-    logits, cache = llama_apply(params, cfg, tokens,
-                                torch.arange(t, device=dev)[None].repeat(b, 1),
-                                prefill_bias(lengths, t), cache=cache, write_pos=0,
-                                img_embs=img_embs, img_start=img_start, lora=lora,
-                                policy=policy, lengths=lengths, last_pos=lengths - 1)
-    return decode_loop(params, cfg, cache, logits[:, 0], lengths, dp, lora=lora,
-                       policy=policy, prompt_pad=t)
+        cache_len = default_cache_len(tokens.shape[1], dp)
+    cache, first = prefill(params, cfg, tokens, lengths, cache_len, img_embs=img_embs,
+                           lora=lora, policy=policy)
+    return decode_loop(params, cfg, cache, first, lengths, dp, lora=lora, policy=policy,
+                       prompt_pad=tokens.shape[1])
 
 
 def decode_step(params: Dict, cfg: LlamaConfig, cache: KVCache, last_tok: torch.Tensor,

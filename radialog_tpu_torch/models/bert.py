@@ -1,5 +1,7 @@
-"""BERT pieces the Q-Former uses (port of part of radialog_tpu/models/bert.py):
-the config, the post-norm attention block's parameters and the FFN."""
+"""BERT encoder, inference (port of radialog_tpu/models/bert.py): the
+config, the embeddings, the post-norm attention block and FFN, and the
+stacked encoder that the CheXbert labeler and the Q-Former use. Dropout is
+not ported (training)."""
 from __future__ import annotations
 
 import dataclasses
@@ -7,8 +9,9 @@ from typing import Dict, Optional
 
 import torch
 
-from ..ops.layers import (DTypePolicy, FP32, gelu_exact, layernorm, layernorm_init,
-                          linear, linear_init)
+from ..ops.attention import mha, padding_mask_bias
+from ..ops.layers import (DTypePolicy, FP32, embedding_lookup, gelu_exact, layernorm,
+                          layernorm_init, linear, linear_init, normal)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,6 +31,22 @@ class BertConfig:
         return self.hidden_size // self.num_heads
 
 
+def bert_embeddings_init(gen, cfg: BertConfig, device) -> Dict:
+    return {"word": normal(gen, (cfg.vocab_size, cfg.hidden_size), 0.02, device),
+            "position": normal(gen, (cfg.max_position, cfg.hidden_size), 0.02, device),
+            "token_type": normal(gen, (cfg.type_vocab_size, cfg.hidden_size), 0.02, device),
+            "ln": layernorm_init(cfg.hidden_size, device)}
+
+
+def bert_embeddings(p: Dict, cfg: BertConfig, input_ids: torch.Tensor) -> torch.Tensor:
+    """Word + position + token-type embeddings (every token of segment 0),
+    then LayerNorm."""
+    t = input_ids.shape[-1]
+    x = embedding_lookup(p["word"], input_ids) + p["position"][:t][None]
+    x = x + embedding_lookup(p["token_type"], torch.zeros_like(input_ids))
+    return layernorm(p["ln"], x, cfg.layer_norm_eps)
+
+
 def bert_self_attention_init(gen, cfg: BertConfig, device,
                              kv_width: Optional[int] = None) -> Dict:
     kv_width = kv_width or cfg.hidden_size
@@ -38,6 +57,24 @@ def bert_self_attention_init(gen, cfg: BertConfig, device,
         "out": linear_init(gen, cfg.hidden_size, cfg.hidden_size, device),
         "out_ln": layernorm_init(cfg.hidden_size, device),
     }
+
+
+def bert_self_attention(p: Dict, cfg: BertConfig, x: torch.Tensor,
+                        kv: Optional[torch.Tensor] = None,
+                        bias: Optional[torch.Tensor] = None,
+                        policy: DTypePolicy = FP32) -> torch.Tensor:
+    """Post-norm BERT attention block: attn -> dense -> LN(res + x). ``kv``
+    is the source of keys and values for cross-attention."""
+    b, t, _ = x.shape
+    src = kv if kv is not None else x
+    s = src.shape[1]
+    h, hd = cfg.num_heads, cfg.head_dim
+    q = linear(p["q"], x, policy).reshape(b, t, h, hd)
+    k = linear(p["k"], src, policy).reshape(b, s, h, hd)
+    v = linear(p["v"], src, policy).reshape(b, s, h, hd)
+    o = mha(q, k, v, bias=bias).reshape(b, t, cfg.hidden_size)
+    o = linear(p["out"], o, policy)
+    return layernorm(p["out_ln"], o + x, cfg.layer_norm_eps)
 
 
 def bert_ffn_init(gen, cfg: BertConfig, device) -> Dict:
@@ -53,3 +90,30 @@ def bert_ffn(p: Dict, cfg: BertConfig, x: torch.Tensor,
     h = gelu_exact(linear(p["inter"], x, policy))
     h = linear(p["out"], h, policy)
     return layernorm(p["out_ln"], h + x, cfg.layer_norm_eps)
+
+
+def bert_encoder_init(gen, cfg: BertConfig, device) -> Dict:
+    return {"layers": [{"attn": bert_self_attention_init(gen, cfg, device),
+                        "ffn": bert_ffn_init(gen, cfg, device)}
+                       for _ in range(cfg.num_layers)]}
+
+
+def bert_init(gen, cfg: BertConfig, device) -> Dict:
+    """Embeddings and encoder (no pooler: CheXbert reads the CLS row)."""
+    return {"embeddings": bert_embeddings_init(gen, cfg, device),
+            "encoder": bert_encoder_init(gen, cfg, device)}
+
+
+def bert_apply(p: Dict, cfg: BertConfig, input_ids: torch.Tensor,
+               attention_mask: Optional[torch.Tensor] = None,
+               policy: DTypePolicy = FP32) -> torch.Tensor:
+    """Last hidden state (B, T, H); padded keys (attention_mask 0) are
+    masked in every layer."""
+    if attention_mask is None:
+        attention_mask = torch.ones_like(input_ids)
+    bias = padding_mask_bias(attention_mask)
+    x = bert_embeddings(p["embeddings"], cfg, input_ids)
+    for lp in p["encoder"]["layers"]:
+        x = bert_self_attention(lp["attn"], cfg, x, bias=bias, policy=policy)
+        x = bert_ffn(lp["ffn"], cfg, x, policy=policy)
+    return x

@@ -5,9 +5,11 @@ Covered: prefill straight into the int8 token-flat cache (attention on the
 layer's own compute-dtype K/V, optionally merged with a shared prefix in one
 softmax), single-token decode over the cache through the flash-decode
 kernel (ops/flash_decode.py, K2) with the static-slot mask and the shared
-int8 prefix, and the cache-free prefill that ``prefix_kv`` runs. The
-stacked-scan training layout, speculative ``verify``, ``defer_kv`` and
-tensor parallelism are not ported yet.
+int8 prefix, and the cache-free prefill that ``prefix_kv`` and the engine's
+small-batch ``prefill`` run, whose attention at 256 tokens or more is the
+flash-attention kernel (ops/flash_attention.py, K3). The stacked-scan
+training layout, speculative ``verify``, ``defer_kv`` and tensor
+parallelism are not ported yet.
 
 The int8 KV cache is updated IN PLACE (a PyTorch tensor is mutable; the JAX
 package returns a new cache from dynamic_update_slice): ``llama_apply``
@@ -23,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.attention import NEG_INF, mha, mha_shared_prefix
+from ..ops.flash_attention import flash_attention
 from ..ops.flash_decode import flash_decode_int8
 from ..ops.layers import DTypePolicy, FP32, embedding_lookup, linear, rmsnorm
 from ..ops.rotary import apply_rope, rope_tables
@@ -111,7 +114,7 @@ def quantize_kv(x: torch.Tensor, scale_dtype=torch.bfloat16) -> Tuple[torch.Tens
 
 
 # --------------------------------------------------------------------- init
-def llama_init(gen: torch.Generator, cfg: LlamaConfig, device="cpu",
+def llama_init(gen: torch.Generator, cfg: LlamaConfig, device="cuda",
                dtype=torch.float32) -> Dict:
     """Stacked float params (leading layer axis), as the JAX ``llama_init``
     lays them out; ops/quant.quantize_llama_host packs them for serving."""
@@ -178,6 +181,14 @@ def _lora_delta(lora_layer: Dict, name: str, x, lora_scale, policy):
     return lora_scale * linear({"w": la["b"]}, linear({"w": la["a"]}, x, policy), policy)
 
 
+def _use_flash(lengths, t: int) -> bool:
+    """Flash attention (K3) for a cache-free prefill (the only caller) of
+    256 tokens or more with lengths given, on any device (the kernel on a
+    card, its plain version on the CPU). The JAX package also asks for a TPU
+    backend; that test is of its hardware, not of the function."""
+    return lengths is not None and t >= 256
+
+
 def _attention_block(lp: Dict, lora_layer, lora_scale, cfg: LlamaConfig, x, positions,
                      rope, bias, cache: Optional[KVCache], layer_idx: int, write_pos,
                      policy: DTypePolicy, lengths=None, slot_info=None, shared_layer=None):
@@ -195,9 +206,12 @@ def _attention_block(lp: Dict, lora_layer, lora_scale, cfg: LlamaConfig, x, posi
     q = apply_rope(q, cos, sin, positions)
     k = apply_rope(k, cos, sin, positions)
 
-    if cache is None:   # cache-free prefill (prefix_kv): return the fresh K/V
-        o = mha(q, k, v, bias=bias).reshape(b, t, nh * hd)
-        return linear(lp["wo"], o, policy), (k, v)
+    if cache is None:   # cache-free prefill: return the fresh K/V
+        if _use_flash(lengths, t):
+            o = flash_attention(q, k, v, lengths, causal=True)
+        else:
+            o = mha(q, k, v, bias=bias)
+        return linear(lp["wo"], o.reshape(b, t, nh * hd), policy), (k, v)
 
     k8, ks = quantize_kv(k)
     v8, vs = quantize_kv(v)

@@ -12,10 +12,10 @@ from typing import Dict, Optional
 
 import torch
 
-from ..ops.attention import mha, padding_mask_bias
-from ..ops.layers import (DTypePolicy, FP32, layernorm, layernorm_init, linear,
-                          linear_init, normal)
-from .bert import BertConfig, bert_ffn, bert_ffn_init, bert_self_attention_init
+from ..ops.attention import padding_mask_bias
+from ..ops.layers import DTypePolicy, FP32, layernorm, layernorm_init, normal
+from .bert import (BertConfig, bert_ffn, bert_ffn_init, bert_self_attention,
+                   bert_self_attention_init)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,20 +52,6 @@ def qformer_init(gen, cfg: QFormerConfig, device) -> Dict:
             "query_tokens": normal(gen, (cfg.num_query_tokens, b.hidden_size), 0.02, device)}
 
 
-def _attention(p: Dict, cfg: BertConfig, x: torch.Tensor, src: torch.Tensor,
-               bias: Optional[torch.Tensor], policy: DTypePolicy) -> torch.Tensor:
-    """Post-norm BERT attention: attn -> dense -> LN(res + x)."""
-    bsz, t, _ = x.shape
-    s = src.shape[1]
-    h, hd = cfg.num_heads, cfg.head_dim
-    q = linear(p["q"], x, policy).reshape(bsz, t, h, hd)
-    k = linear(p["k"], src, policy).reshape(bsz, s, h, hd)
-    v = linear(p["v"], src, policy).reshape(bsz, s, h, hd)
-    o = mha(q, k, v, bias=bias).reshape(bsz, t, cfg.hidden_size)
-    o = linear(p["out"], o, policy)
-    return layernorm(p["out_ln"], o + x, cfg.layer_norm_eps)
-
-
 def qformer_image_grounded(params: Dict, cfg: QFormerConfig, image_embeds: torch.Tensor,
                            image_mask: Optional[torch.Tensor] = None,
                            policy: DTypePolicy = FP32) -> torch.Tensor:
@@ -77,8 +63,9 @@ def qformer_image_grounded(params: Dict, cfg: QFormerConfig, image_embeds: torch
     x = layernorm(params["embeddings"]["ln"], x, bert.layer_norm_eps)
     image_bias = padding_mask_bias(image_mask) if image_mask is not None else None
     for lp in params["layers"]:
-        x = _attention(lp["attn"], bert, x, x, None, policy)
+        x = bert_self_attention(lp["attn"], bert, x, policy=policy)
         if "cross" in lp:
-            x = _attention(lp["cross"], bert, x, image_embeds, image_bias, policy)
+            x = bert_self_attention(lp["cross"], bert, x, kv=image_embeds, bias=image_bias,
+                                    policy=policy)
         x = bert_ffn(lp["ffn_query"], bert, x, policy)
     return x

@@ -143,8 +143,6 @@ def flash_decode_int8_kernel(q8, qs, k8, ks, v8, vs, masks, layer_idx: int,
         if k0.shape != (p0p, hd) or v0.shape != k0.shape or vs0.shape != ks0.shape \
                 or sl0 < h or ks0.dtype != torch.bfloat16 or vs0.dtype != torch.bfloat16:
             raise ValueError(f"bad shared prefix {k0.shape} {ks0.shape}")
-        if p0p * (2 * d + 4) + p0p * 18 * 4 + 16 * d > 227 * 1024:   # prefix_smem()
-            raise ValueError(f"shared prefix of {p0p} rows does not fit shared memory")
         pm = torch.empty((b, h), dtype=torch.float32, device=q8.device)
         pl = torch.empty_like(pm)
         pacc = torch.empty((b, h, d), dtype=torch.float32, device=q8.device)

@@ -34,7 +34,7 @@ def _cache(seed):
     j = dict(k8=k8.reshape(L, B, S, H * D), ks=ks, v8=v8.reshape(L, B, S, H * D), vs=vs,
              shared=(k0.reshape(P0P, H * D), ks0, v0.reshape(P0P, H * D), vs0))
     t = bridge.to_torch({name: (tuple(np.asarray(x) for x in a) if name == "shared"
-                                else np.asarray(a)) for name, a in j.items()})
+                                else np.asarray(a)) for name, a in j.items()}, device="cpu")
     return q, j, t
 
 
@@ -90,3 +90,24 @@ def test_empty_lane_without_prefix_is_zero_not_nan():
 def test_block_size_rule_matches_jax():
     assert tfd.default_bs(384) == 64 and tfd.default_bs(32) == 32
     assert tfd.resolve_bs(448, 256) == 224 and tfd.resolve_bs(16, 8) == 8
+
+
+def test_long_shared_prefix_matches_pallas_interpret():
+    """A 700-row shared prefix (past one shared-memory chunk of the card's
+    kernel): the plain version keeps it as one block, as the JAX kernel."""
+    _, j, t = _cache(11)
+    rng = np.random.default_rng(12)
+    p0, p0p = 700, 704
+    k0, ks0 = jquantize_kv(jnp.asarray(rng.normal(size=(p0p, H, D)), jnp.float32))
+    v0, vs0 = jquantize_kv(jnp.asarray(rng.normal(size=(p0p, H, D)), jnp.float32))
+    shared = (k0.reshape(p0p, H * D), ks0, v0.reshape(p0p, H * D), vs0)
+    q = (rng.normal(size=(B, H, D)) * 3).astype(np.float32)
+    lens = np.asarray([5, 0, 12], np.int32)
+    ref = np.asarray(jflash(jnp.asarray(q), j["k8"], j["ks"], j["v8"], j["vs"],
+                            jnp.asarray(lens), 12, 2, layer_idx=1, bs=8, interpret=True,
+                            shared=tuple(x[None] for x in shared), p0=p0))
+    tshared = bridge.to_torch(tuple(np.asarray(x) for x in shared), device="cpu")
+    got = tfd.flash_decode_int8(torch.from_numpy(q), t["k8"], t["ks"], t["v8"], t["vs"],
+                                torch.from_numpy(lens), 12, 2, layer_idx=1, bs=8,
+                                shared=tshared, p0=p0).numpy()
+    np.testing.assert_allclose(got, ref, **TOL)

@@ -7,6 +7,7 @@ in another order, and pv rounds to bf16 where an ulp of p can flip it)."""
 import pytest
 import torch
 
+from radialog_tpu_torch.ops import flash_attention as tfa
 from radialog_tpu_torch.ops import flash_decode as tfd
 from radialog_tpu_torch.ops import q8_matmul as tq8
 
@@ -60,3 +61,70 @@ def test_flash_decode_kernel_matches_plain(card, step, shared, hb, db):
     torch.cuda.synchronize()
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, ref, atol=2e-3, rtol=2e-3)
+
+
+@pytest.mark.parametrize("p0", [700, 2047])
+def test_flash_decode_kernel_long_shared_prefix(card, p0):
+    """A prefix longer than one shared-memory chunk (512 rows) is walked in
+    chunks; the plain version keeps it as one block."""
+    g = torch.Generator(device=card).manual_seed(p0)
+    lb, sb, h, d = 4, 128, 32, 128
+    p0p = -(-p0 // 32) * 32
+    k8 = torch.randint(-127, 128, (2, lb, sb, h * d), generator=g, device=card, dtype=torch.int8)
+    v8 = torch.randint(-127, 128, k8.shape, generator=g, device=card, dtype=torch.int8)
+    ks = (torch.rand((2, lb, sb, h), generator=g, device=card) / 50).to(torch.bfloat16)
+    vs = (torch.rand((2, lb, sb, h), generator=g, device=card) / 50).to(torch.bfloat16)
+    pre = (torch.randint(-127, 128, (p0p, h * d), generator=g, device=card, dtype=torch.int8),
+           (torch.rand((p0p, h), generator=g, device=card) / 50).to(torch.bfloat16),
+           torch.randint(-127, 128, (p0p, h * d), generator=g, device=card, dtype=torch.int8),
+           (torch.rand((p0p, h), generator=g, device=card) / 50).to(torch.bfloat16))
+    q8, qs = tfd.quantize_q(torch.randn((lb, h, d), generator=g, device=card))
+    lens = torch.tensor([5, 0, 17, 9], dtype=torch.int32, device=card)
+    args = (q8, qs, k8, ks, v8, vs, tfd.slot_masks(lens, 20, 3), 1, d ** -0.5, 64)
+    got = tfd.flash_decode_int8_kernel(*args, shared=pre, p0=p0)
+    ref = tfd.flash_decode_int8_plain(*args, shared=pre, p0=p0)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, ref, atol=2e-3, rtol=2e-3)
+
+
+K3_TOL = {torch.bfloat16: dict(atol=1e-2, rtol=1e-2), torch.float32: dict(atol=1e-5, rtol=1e-5)}
+
+
+@pytest.mark.parametrize("b,t,h,d,dtype,causal,ragged", [
+    (1, 256, 32, 128, torch.bfloat16, True, False),
+    (1, 431, 32, 128, torch.bfloat16, True, False),
+    (1, 433, 32, 128, torch.bfloat16, True, False),
+    (1, 436, 32, 128, torch.bfloat16, True, False),
+    (12, 448, 32, 128, torch.bfloat16, True, True),
+    (2, 300, 4, 16, torch.float32, True, True),
+    (2, 300, 4, 128, torch.float32, False, True),
+    (3, 200, 8, 64, torch.bfloat16, False, True),
+])
+def test_flash_attention_kernel_matches_plain(card, b, t, h, d, dtype, causal, ragged):
+    g = torch.Generator(device=card).manual_seed(t + b)
+    # q, k, v as strided views of one fused projection, as the model has them
+    qkv = torch.randn((b, t, 3, h, d), generator=g, device=card).to(dtype)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    lens = torch.full((b,), t, dtype=torch.int32, device=card)
+    if ragged:
+        lens = torch.randint(t * 2 // 3, t + 1, (b,), generator=g, device=card,
+                             dtype=torch.int32)
+    before = tfa.flash_attention_kernel.launches
+    got, lse = tfa.flash_attention_kernel(q, k, v, lens, causal=causal, with_lse=True)
+    ref, ref_lse = tfa.flash_attention_plain(q, k, v, lens, causal=causal, with_lse=True)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention_kernel.launches == before + 1
+    assert got.dtype == dtype and torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), ref.float(), **K3_TOL[dtype])
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-5)
+
+
+def test_flash_attention_kernel_dead_lane(card):
+    """A lane of length 0 emits zeros and lse = LSE_DEAD."""
+    q = torch.randn((2, 70, 2, 32), device=card, dtype=torch.bfloat16)
+    lens = torch.tensor([0, 33], dtype=torch.int32, device=card)
+    out, lse = tfa.flash_attention_kernel(q, q, q, lens, with_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out[0], torch.zeros_like(out[0]))
+    assert bool((lse[0] == tfa.LSE_DEAD).all()) and bool(torch.isfinite(out[1].float()).all())

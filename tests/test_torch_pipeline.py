@@ -55,9 +55,9 @@ def _embeddings():
     patch = jlayernorm(qf["ln_vision"], jb.patch_tokens_for_qformer(out.projected_patch_embeddings))
     jemb = jblip.blip2_forward_image(qf, jblip.Blip2Config(qformer=jcfg), patch)
     tvp, tvs = bridge.biovil_t(jax.tree_util.tree_map(np.asarray, vp),
-                               jax.tree_util.tree_map(np.asarray, vs))
+                               jax.tree_util.tree_map(np.asarray, vs), device="cpu")
     tqf = bridge.qformer(jax.tree_util.tree_map(np.asarray, qf["qformer"]),
-                         jax.tree_util.tree_map(np.asarray, qf["ln_vision"]))
+                         jax.tree_util.tree_map(np.asarray, qf["ln_vision"]), device="cpu")
     from radialog_tpu_torch.ops.image import expand_cxr_u8
     tout = tb.biovil_t_apply(tvp, tvs, expand_cxr_u8(torch.from_numpy(u8)))
     tpatch = layernorm(tqf["ln_vision"], tb.patch_tokens_for_qformer(tout.projected_patch_embeddings))
@@ -166,6 +166,53 @@ def test_mock_pipeline_generates_on_cpu():
     assert p._shared_prefix_len(ids, embs[:1].expand(3, -1, -1)) == (21, False)
     texts = p.generate_texts(prompts, img_embs=embs)
     assert [t.startswith(q) for t, q in zip(texts, prompts)] == [True] * 3
+
+
+@pytest.mark.parametrize("batch,words,installs,flash_calls", [(2, 300, 1, 2), (30, 12, 0, 0)])
+def test_generate_ids_prefill_rule(monkeypatch, batch, words, installs, flash_calls):
+    """Prompts that share no prefix go through the engine's prefill: below
+    batch 30 cache-free (K3's plain version at 256+ tokens, once per layer)
+    and then installed; at 30 and above straight into the cache."""
+    from radialog_tpu_torch.decode import engine as te_mod
+    from radialog_tpu_torch.ops import flash_attention as tfa
+    seen = {"install": 0, "flash": 0}
+    install, plain = te_mod.install_prefill, tfa.flash_attention_plain
+
+    def counted(name, fn):
+        def call(*a, **kw):
+            seen[name] += 1
+            return fn(*a, **kw)
+        return call
+    monkeypatch.setattr(te_mod, "install_prefill", counted("install", install))
+    monkeypatch.setattr(tfa, "flash_attention_plain", counted("flash", plain))
+    p = RaDialogPipeline(PipelineConfig(mock=True, device="cpu"))
+    ids = [p.tokenizer(" ".join(f"p{j}w{i}" for i in range(words)))["input_ids"]
+           for j in range(batch)]
+    assert p._shared_prefix_len(ids, None)[0] == 1          # BOS only: below SHARED_PREFIX_MIN
+    res = p.generate_ids(ids, None, p.decode_params(max_new_tokens=3, eos_token_id=-1))
+    assert res.tokens.shape == (batch, 3) and bool((res.lengths == 3).all())
+    assert seen == {"install": installs, "flash": flash_calls}
+
+
+def test_mock_label_reports():
+    p = RaDialogPipeline(PipelineConfig(mock=True, device="cpu"))
+    labels = p.label_reports(["no acute process", "large effusion " * 100] + ["x"] * 17)
+    assert labels.shape == (19, 14)
+    assert set(np.unique(labels[~np.isnan(labels)])) <= {-1.0, 0.0, 1.0}
+    assert np.isnan(labels[:, 13]).any() or (labels[:, 13] == 1).any()
+
+
+def test_entry_points_default_to_the_card():
+    """Every entry point that makes or moves parameters or tensors runs on
+    the card unless the caller asks for the CPU."""
+    import inspect
+    from radialog_tpu_torch.models import chexbert as tcb
+    fns = [tl.llama_init, tl.lora_init, tl.init_cache, tcb.chexbert_init, bridge.to_torch,
+           bridge.packed_q8, bridge.llama_serving, bridge.llama, bridge.lora, bridge.biovil_t,
+           bridge.qformer, bridge.chexpert, bridge.chexbert]
+    for fn in fns:
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
+    assert PipelineConfig().device == "cuda"
 
 
 def test_port_imports_no_jax():

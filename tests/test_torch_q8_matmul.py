@@ -34,7 +34,7 @@ def _inputs(m, k, n, seed):
 def test_pack_matches_jax_bitwise(m, k, n):
     _, w = _inputs(m, k, n, 0)
     mine = tq8.pack_q8(w)
-    theirs = bridge.packed_q8(_packed_dict(jq8.pack_q8(w)), k)
+    theirs = bridge.packed_q8(_packed_dict(jq8.pack_q8(w)), k, device="cpu")
     assert mine.w.shape == (n, k) and mine.w.dtype == torch.int8
     assert torch.equal(mine.w, theirs.w)
     assert torch.equal(mine.scale, theirs.scale)
@@ -57,7 +57,7 @@ def test_q8_matmul_matches_jax_reference_bitwise(m, k, n, bias):
     x, w = _inputs(m, k, n, 2)
     b = np.linspace(-1, 1, n).astype(np.float32) if bias else None
     jp = jq8.pack_q8(w, b=None if b is None else jnp.asarray(b))
-    tp = bridge.packed_q8(_packed_dict(jp), k)
+    tp = bridge.packed_q8(_packed_dict(jp), k, device="cpu")
     ref = np.asarray(jq8.q8_matmul_reference(jnp.asarray(x), jp, out_dtype=jnp.float32))
     got = tq8.q8_matmul(torch.from_numpy(x), tp, out_dtype=torch.float32).numpy()
     np.testing.assert_array_equal(got, ref)
@@ -74,7 +74,7 @@ def test_q8_matmul_matches_pallas_interpret_bitwise(m, k, n):
     jp = jq8.pack_q8(w)
     ref = np.asarray(jq8.q8_matmul_packed(jnp.asarray(x), jp, out_dtype=jnp.float32,
                                           interpret=True))
-    got = tq8.q8_matmul(torch.from_numpy(x), bridge.packed_q8(_packed_dict(jp), k),
+    got = tq8.q8_matmul(torch.from_numpy(x), bridge.packed_q8(_packed_dict(jp), k, device="cpu"),
                         out_dtype=torch.float32).numpy()
     np.testing.assert_array_equal(got, ref)
 

@@ -39,7 +39,7 @@ def test_config_matches_jax():
 
 def test_image_grounded_with_and_without_mask():
     jcfg, tcfg, params, _, tokens = _setup()
-    tp = bridge.to_torch(jax.tree_util.tree_map(np.asarray, params))
+    tp = bridge.to_torch(jax.tree_util.tree_map(np.asarray, params), device="cpu")
     mask = np.asarray([[1, 1, 1, 1, 0, 0], [1] * 6], np.int32)
     for m in (None, mask):
         ref, _ = jq.qformer_image_grounded(params, jcfg, jnp.asarray(tokens),
@@ -54,7 +54,7 @@ def test_blip2_forward_image_after_ln_vision():
     patch = jlayernorm(ln, jnp.asarray(tokens))
     ref = jblip.blip2_forward_image({"qformer": params, "ln_vision": ln},
                                     jblip.Blip2Config(qformer=jcfg), patch)
-    tp = bridge.qformer(jax.tree_util.tree_map(np.asarray, params), ln)
+    tp = bridge.qformer(jax.tree_util.tree_map(np.asarray, params), ln, device="cpu")
     got = tblip.blip2_forward_image(tp, tblip.Blip2Config(qformer=tcfg),
                                     layernorm(tp["ln_vision"], torch.from_numpy(tokens)))
     assert got.shape == (2, 32, 32)

@@ -29,7 +29,7 @@ def _np(tree):
 def test_biovil_t_and_patch_tokens(bottleneck, size):
     params, state = jb.biovil_t_init(jax.random.PRNGKey(1), joint_feature_size=48,
                                      resnet_layers=(1, 1, 1, 1), bottleneck=bottleneck)
-    tp, ts = bridge.biovil_t(_np(params), _np(state))
+    tp, ts = bridge.biovil_t(_np(params), _np(state), device="cpu")
     x = np.random.default_rng(0).random((2, size, size, 3)).astype(np.float32)
     ref, _ = jb.biovil_t_apply(params, state, jnp.asarray(x))
     got = tb.biovil_t_apply(tp, ts, torch.from_numpy(x))
@@ -47,7 +47,7 @@ def test_vit_pooler_with_prior():
     cur = rng.normal(size=(2, 2, 3, 32)).astype(np.float32)
     prev = rng.normal(size=(2, 2, 3, 32)).astype(np.float32)
     ref = jv.vit_pooler_apply(p, jnp.asarray(cur), jnp.asarray(prev), num_heads=4)
-    got = tv.vit_pooler_apply(bridge.to_torch(_np(p)), torch.from_numpy(cur),
+    got = tv.vit_pooler_apply(bridge.to_torch(_np(p), device="cpu"), torch.from_numpy(cur),
                               torch.from_numpy(prev), num_heads=4)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
     np.testing.assert_allclose(tv.sine_position_embedding((2, 3), 16).numpy(),
@@ -65,7 +65,7 @@ def test_chexpert_classifier_at_488():
     x = np.random.default_rng(2).random((1, jc.CLASSIFIER_CROP, jc.CLASSIFIER_CROP, 3))
     x = x.astype(np.float32)
     ref, _ = jc.chexpert_classifier_apply(params, state, jnp.asarray(x))
-    tp, ts = bridge.chexpert(_np(params), _np(state))
+    tp, ts = bridge.chexpert(_np(params), _np(state), device="cpu")
     got = tc.chexpert_classifier_apply(tp, ts, torch.from_numpy(x))
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
     np.testing.assert_array_equal(tc.predicted_findings(got).numpy(),
