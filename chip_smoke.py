@@ -8,24 +8,37 @@ each; any failing phase exits non-zero:
   device  card name and power limit, torch/CUDA versions; builds every
           kernel from csrc/ (one nvcc per source, started together)
   k1      W8A8 GEMM kernel vs its plain version, bitwise, at the five
-          Vicuna-7B weight shapes x M in {1, 56, 48, 56*80}; times
+          Vicuna-7B weight shapes x M in {1, 16, 56, 48, 256, 56*80} (16 and
+          256: the serve phase's decode lanes and a full admission); times
   k2      int8 flash-decode kernel vs its plain version (atol=rtol=2e-3) at
-          B=56, H=32, D=128, S=384, L=32, shared prefix P0=48, and at the
-          binary-QA prefix (B=14, P0=427 of 448 rows); times
+          B=56, H=32, D=128, S=384, L=32, shared prefix P0=48, at the
+          binary-QA prefix (B=14, P0=427 of 448 rows), and with the serving
+          ring's per-lane slot intervals and no prefix (B=16, S=384, prompts
+          of 100-256 rows: a window inside the ring, a wrapped window, a full
+          ring, a lane with no valid slot, a full prompt region); times
   k3      flash-attention kernel vs its plain version (K3_TOL, beside the
           plain version's own spread between key blocks of 64 and 256) at
-          H=32, D=128, bf16, causal: B=1 with T=S in {256, 448, 1024}, B=12
+          H=32, D=128, bf16, causal: B=1 with T=S in {256, 448, 1024}, the
+          serve phase's admission (B=1, T=S=256, length 230, fused views), B=12
           with T=S=448 and lengths 300-448, and the qa phase's B=1 shapes
           T=S in {431, 436} with q/k/v as views of one fused projection;
           and H=4, D=16, f32, B=2, T=300; times, with
           scaled_dot_product_attention as the yardstick
+  k4      W4A8 GEMM kernel vs its plain version (bitwise: each group's
+          integer sum is exact and both add the groups in K order with
+          single rounded f32 operations) at the four Vicuna-7B layer shapes,
+          asymmetric and symmetric grids, M in {16, 56, 256}, and at the
+          mock model's shapes; times
   small   the mock pipeline on the card vs the same weights on the CPU:
           query embeddings, prefill and teacher-forced decode logits, for
           the report batch (48-token shared prefix), for a batch whose
           shared prefix holds the image and is 273 tokens long (K3 in the
           prefix prefill, K2 over the long prefix), and for a batch of 2
           300-token prompts sharing only BOS (K3, then install_prefill);
-          every kernel call held against its plain version there
+          then, with W8A8 and with W4A8 weights, the mock pipeline through
+          RaDialogServer over the int8 ring with staggered submits until the
+          ring wraps, and teacher-forced logits of a hand-stepped ring
+          schedule; every kernel call held against its plain version there
   slice   the full-width pipeline (Vicuna-7B W8A8, 32 layers, int8 KV,
           BioViL-T at 448, BERT-base Q-Former, CheXpert classifier at 488)
           with random weights from a seeded generator: 56 uint8 X-rays,
@@ -40,6 +53,16 @@ each; any failing phase exits non-zero:
           shape: prefill without a cache, then install_prefill) and the
           BERT-base CheXbert labels of 16 reports; seconds, launches per
           kernel (K3 exactly 32 x 3) and the metrics
+
+  serve   the multi-session server at full width on the slice's weights:
+          RaDialogServer over the int8 ring, 16 lanes, prompt region 256,
+          ring 128, 8 steps per chunk; 4 client threads submit 32 sessions
+          (image prompts of 100-250 tokens with the pipeline's own image
+          embeddings, 64 new tokens, EOS disabled) and one oversized prompt;
+          every future, every streamed delta and every kernel's launch count
+          is checked; aggregate tokens/s, seconds to the first token, peak
+          memory. Then 16 sessions x 32 tokens with W4A8 layers (K4 128
+          times and K1 once per forward)
 
 The line before the last is a JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}. A kernel's time is the
@@ -70,6 +93,10 @@ K2_TOL = dict(atol=2e-3, rtol=2e-3)
 K3_TOL = {"bfloat16": dict(atol=1e-2, rtol=1e-2), "float32": dict(atol=1e-5, rtol=1e-5)}
 QA_STUDIES, ALL_QA_STUDIES, LABELED, FOLLOW_UP_NEW = 2, 5, 16, 32
 LOGIT_TOL = {"mean": 3e-2, "max": 0.3}   # why: phase_small's docstring
+# the serve phase: lanes, prompt region, cache length (ring 128), steps per chunk
+LANES, PROMPT_REGION, CACHE_LEN, CHUNK = 16, 256, 384, 8
+SESSIONS, SESSION_NEW, CLIENTS = 32, 64, 4
+W4_SESSIONS, W4_NEW = 16, 32
 
 
 def emit(phase: str, **kw) -> None:
@@ -105,16 +132,20 @@ def timed_ms(fn, iters: int, flush) -> float:
 
 
 def phase_k1(torch, tq8, flush):
-    """Every LLaMA projection shape at decode, prefix and prefill rows."""
+    """Every LLaMA projection shape at the report path's decode, prefix and
+    prefill rows and at the serve phase's: 16 lanes at decode, a batch-1
+    admission of a full prompt region (256 rows). The summary is one decoder
+    layer's four projections at M = 56, with the same sum at M = 16."""
     h, inter, v = 4096, 11008, 32001
     shapes = {"wqkv": (h, 3 * h), "wo": (h, h), "gateup": (h, 2 * inter),
               "down": (inter, h), "lm_head": (h, v)}
     g = torch.Generator(device="cuda").manual_seed(1)
     summary = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
                "max_abs_err": 0, "bytes_bound": 0}
+    serve = {"kernel_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
     for name, (k, n) in shapes.items():
         w8 = torch.randint(-127, 128, (n, k), generator=g, device="cuda", dtype=torch.int8)
-        for m in (1, 56, 48, BATCH * (PROMPT - SHARED)):
+        for m in (1, LANES, 56, 48, PROMPT_REGION, BATCH * (PROMPT - SHARED)):
             x8 = torch.randint(-127, 128, (m, k), generator=g, device="cuda", dtype=torch.int8)
             got = tq8.q8_matmul_int32(x8, w8)
             ref = tq8.q8_matmul_int32_plain(x8, w8)
@@ -141,7 +172,14 @@ def phase_k1(torch, tq8, flush):
                 summary["library_ms"] += lib_ms
                 summary["bound_ms"] += max(b_bytes, b_ops)
                 summary["bytes_bound"] += b_bytes >= b_ops
+            if m == LANES and name != "lm_head":
+                serve["kernel_ms"] += ms
+                serve["plain_ms"] += plain_ms
+                serve["bound_ms"] += max(b_bytes, b_ops)
         del w8
+    emit("k1", layer_sum="one decoder layer's 4 projections at the serve phase's decode",
+         m=LANES, roofline_share=serve["bound_ms"] / serve["kernel_ms"], **serve)
+    summary["ms_m16"], summary["bound_ms_m16"] = serve["kernel_ms"], serve["bound_ms"]
     summary["bound_by"] = "bytes" if summary.pop("bytes_bound") == 4 else "operations"
     return summary
 
@@ -200,15 +238,123 @@ def _k2_case(torch, tfd, flush, b, s, p0, t1, steps, seed):
     return out
 
 
+def _k2_ring_case(torch, tfd, flush):
+    """K2 with the serving ring's per-lane closed slot intervals and no
+    shared prefix, at the serve phase's cache shape: 16 lanes of 384 slots,
+    prompt region [0, 256), ring [256, 384). Lane 0: a window inside the
+    ring; 1: a wrapped window, both intervals live, with a dead gap of a
+    former session's rows between its prompt and the ring; 2: a full ring;
+    3: no session, no valid slot (zeros expected); 4: a prompt that fills the
+    prompt region; the rest: windows of 1-120 writes ending at ring position
+    70, some wrapped."""
+    h, d, L, layer = 32, 128, 32, 16
+    b, s, p, ring = LANES, CACHE_LEN, PROMPT_REGION, CACHE_LEN - PROMPT_REGION
+    g = torch.Generator(device="cuda").manual_seed(6)
+    k8 = torch.randint(-127, 128, (L, b, s, h * d), generator=g, device="cuda", dtype=torch.int8)
+    v8 = torch.randint(-127, 128, (L, b, s, h * d), generator=g, device="cuda", dtype=torch.int8)
+    ks = (torch.rand((L, b, s, h), generator=g, device="cuda") * 0.01 + 0.002).to(torch.bfloat16)
+    vs = (torch.rand((L, b, s, h), generator=g, device="cuda") * 0.01 + 0.002).to(torch.bfloat16)
+    q = torch.randn((b, h, d), generator=g, device="cuda", dtype=torch.float32)
+    from radialog_tpu_torch.decode.continuous import ring_intervals
+    lens = torch.randint(100, 257, (b,), generator=g, device="cuda", dtype=torch.int32)
+    e = 70
+    writes = torch.randint(1, 121, (b,), generator=g, device="cuda", dtype=torch.int32)
+    writes[0], writes[1], writes[2], lens[4] = 31, 100, ring, p
+    lens[3], writes[3] = 0, 0
+    a1, b1, a2, b2 = ring_intervals(writes, e, p, ring)
+    assert int(b2[1]) == s - 1 and int(b2[0]) == -1 and int(a2[2]) == p + e + 1
+    q8, qs = tfd.quantize_q(q)
+    masks = tfd.slot_masks(lens, gen_intervals=(a1, b1, a2, b2))
+    args = (q8, qs, k8, ks, v8, vs, masks, layer, d ** -0.5, tfd.default_bs(s))
+    got = tfd.flash_decode_int8_kernel(*args)
+    ref = tfd.flash_decode_int8_plain(*args)
+    torch.cuda.synchronize()
+    if not torch.isfinite(got).all() or bool((got[3] != 0).any()):
+        raise AssertionError("K2 intervals: a lane with no valid slot must give zeros")
+    torch.testing.assert_close(got, ref, **K2_TOL)
+    err = float((got - ref).abs().max())
+    ms = timed_ms(lambda: tfd.flash_decode_int8_kernel(*args), 20, flush)
+    plain_ms = timed_ms(lambda: tfd.flash_decode_int8_plain(*args), 3, flush)
+    # bytes this run's data needs: each lane's valid rows (K, V, both
+    # scales), q in and out once
+    pos = torch.arange(s, device="cuda")[None]
+    lm, m1, n1, m2, n2 = (x[:, None] for x in masks)
+    rows = int(((pos < lm) | ((pos >= m1) & (pos <= n1)) | ((pos >= m2) & (pos <= n2))).sum())
+    b_bytes = (rows * (2 * h * d + 4 * h) + 2 * 4 * b * h * d) / HBM_BYTES_PER_S * 1e3
+    b_ops = 4 * rows * h * d / INT8_OPS_PER_S * 1e3
+    out = {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(b_bytes, b_ops),
+           "bound_by": "bytes" if b_bytes >= b_ops else "operations", "max_abs_err": err}
+    emit("k2", mode="ring intervals", batch=b, slots=s, valid_rows=rows,
+         bs=tfd.default_bs(s), max_abs_err=err, kernel_ms=ms, plain_ms=plain_ms,
+         library_ms=None, bound_ms=out["bound_ms"], bound_by=out["bound_by"],
+         roofline_share=out["bound_ms"] / ms)
+    return out
+
+
 def phase_k2(torch, tfd, flush):
-    """The report path's decode shape (B=56, P0=48) and the binary-QA
-    pass's (14 lanes of one study, the whole 427-token history in the
-    prefix, a 10-token answer in a 128-slot cache)."""
+    """The report path's decode shape (B=56, P0=48), the binary-QA pass's
+    (14 lanes of one study, the whole 427-token history in the prefix, a
+    10-token answer in a 128-slot cache) and the serving ring's (per-lane
+    intervals). Returns the summaries of the static-slot and the interval
+    mode."""
     report = _k2_case(torch, tfd, flush, BATCH, 384, SHARED, PROMPT - SHARED,
                       (0, 150, NEW - 1), seed=2)
     qa = _k2_case(torch, tfd, flush, 14, 128, 427, 8, (0, 9), seed=4)
     summary = dict(report[150])
     summary["max_abs_err"] = max(r["max_abs_err"] for r in [*report.values(), *qa.values()])
+    return summary, _k2_ring_case(torch, tfd, flush)
+
+
+def phase_k4(torch, tq4, flush):
+    """K4 at every W4A8 layer shape of Vicuna-7B, on both grids, at the
+    serve phase's decode rows (16), the report batch's (56) and a prefill's
+    (256); then the mock model's shapes. Held bitwise: each group's integer
+    sum is exact, and kernel and plain version add the groups in K order
+    with one rounded f32 multiply and add each. No single PyTorch call
+    computes this function, so library_ms is null. The summary is one
+    decoder layer's four projections at M = 16 on the asymmetric grid."""
+    h, inter = 4096, 11008
+    shapes = {"wqkv": (h, 3 * h), "wo": (h, h), "gateup": (h, 2 * inter), "down": (inter, h)}
+    tiny = {"tiny_wqkv": (64, 192), "tiny_gateup": (64, 256), "tiny_down": (128, 64)}
+    g = torch.Generator(device="cuda").manual_seed(8)
+    summary = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0,
+               "bytes_bound": 0}
+    for name, (k, n) in {**shapes, **tiny}.items():
+        bk = tq4.pick_bk(k)
+        group = tq4.GROUP if bk % tq4.GROUP == 0 else bk
+        groups = -(-k // bk) * bk // group
+        w = torch.randint(-128, 128, (n, k // 2), generator=g, device="cuda", dtype=torch.int8)
+        gscale = (torch.rand((groups, n), generator=g, device="cuda") + 0.5) / (4.6 * k ** 0.5)
+        offsets = (torch.rand((groups, n), generator=g, device="cuda") - 0.5) * gscale
+        for mode, goff in (("asym", offsets), ("sym", None)):
+            for m in (16, 56, 256):
+                x8 = torch.randint(-127, 128, (m, k), generator=g, device="cuda",
+                                   dtype=torch.int8)
+                got = tq4.q4_matmul_acc(x8, w, gscale, goff, group)
+                ref = tq4.q4_matmul_acc_plain(x8, w, gscale, goff, group)
+                torch.cuda.synchronize()
+                err = float((got - ref).abs().max())
+                if not torch.isfinite(got).all() or err != 0.0:
+                    raise AssertionError(f"K4 {name} {mode} M={m}: differs from plain by {err}")
+                ms = timed_ms(lambda: tq4.q4_matmul_acc(x8, w, gscale, goff, group), 20, flush)
+                plain_ms = timed_ms(
+                    lambda: tq4.q4_matmul_acc_plain(x8, w, gscale, goff, group), 3, flush)
+                nbytes = m * k + n * k // 2 + 4 * groups * n * (2 if goff is not None else 1) \
+                    + 4 * m * n
+                b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+                b_ops = 2 * m * n * k / INT8_OPS_PER_S * 1e3
+                emit("k4", weight=name, mode=mode, m=m, k=k, n=n, group=group, bitwise=True,
+                     max_abs_err=err, kernel_ms=ms, plain_ms=plain_ms, library_ms=None,
+                     bound_ms=max(b_bytes, b_ops),
+                     bound_by="bytes" if b_bytes >= b_ops else "operations",
+                     roofline_share=max(b_bytes, b_ops) / ms)
+                if m == LANES and mode == "asym" and name in shapes:
+                    summary["ms"] += ms
+                    summary["plain_ms"] += plain_ms
+                    summary["bound_ms"] += max(b_bytes, b_ops)
+                    summary["bytes_bound"] += b_bytes >= b_ops
+        del w
+    summary["bound_by"] = "bytes" if summary.pop("bytes_bound") == 4 else "operations"
     return summary
 
 
@@ -225,11 +371,14 @@ def _k3_bound(b, t, h, d, lens, elt, ops_per_s):
 
 
 def phase_k3(torch, tfa, flush):
-    """Square shapes, and the qa phase's own: the binary-QA prefix (431
-    tokens) and the batch-1 follow-up (436), both ending in a partial
-    64-row tile, with q/k/v read as views of one fused (B, T, 3*H*D)
-    projection as models/llama.py hands them over."""
+    """Square shapes; the serve phase's admission of a 230-token prompt in
+    its 256-row bucket (a partial last key tile, query rows past the
+    length); and the qa phase's own: the binary-QA prefix (431 tokens) and
+    the batch-1 follow-up (436), both ending in a partial 64-row tile, with
+    q/k/v read as views of one fused (B, T, 3*H*D) projection as
+    models/llama.py hands them over."""
     shapes = [(1, 256, 32, 128, "bfloat16", False, False),
+              (1, 256, 32, 128, "bfloat16", [230], True),
               (1, 448, 32, 128, "bfloat16", False, False),
               (1, 1024, 32, 128, "bfloat16", False, False),
               (12, 448, 32, 128, "bfloat16", True, False),
@@ -249,7 +398,9 @@ def phase_k3(torch, tfa, flush):
             q, k, v = (torch.randn((b, t, h, d), generator=g, device="cuda").to(dtype)
                        for _ in range(3))
         lens = torch.full((b,), t, dtype=torch.int32, device="cuda")
-        if ragged:
+        if isinstance(ragged, list):
+            lens = torch.tensor(ragged, dtype=torch.int32, device="cuda")
+        elif ragged:
             lens = torch.randint(t * 2 // 3, t + 1, (b,), generator=g, device="cuda",
                                  dtype=torch.int32)
         got = tfa.flash_attention_kernel(q, k, v, lens)
@@ -307,6 +458,10 @@ class _Checked:
         self.launches = 0
 
     def __call__(self, *args, **kw):
+        if not args[0].is_cuda:
+            # the CPU pipeline's call: the wrapper takes its plain version,
+            # which is no launch and proves nothing about the kernel
+            return self.kernel(*args, **kw)
         got = self.kernel(*args, **kw)
         ref = self.plain(*args, **kw)
         self.calls += 1
@@ -315,7 +470,7 @@ class _Checked:
         return got
 
 
-def phase_small(torch, te, pipeline_mod, tq8, tfd, tfa):
+def phase_small(torch, te, pipeline_mod, tq8, tfd, tfa, tq4):
     """Mock pipeline on the card vs the same weights on the CPU.
 
     The tolerance is loose on purpose. W8A8 rounds every activation row to
@@ -335,12 +490,15 @@ def phase_small(torch, te, pipeline_mod, tq8, tfd, tfa):
     k1 = _Checked(tq8.q8_matmul_int32, tq8.q8_matmul_int32_plain)
     k2 = _Checked(tfd.flash_decode_int8_kernel, tfd.flash_decode_int8_plain)
     k3 = _Checked(tfa.flash_attention_kernel, tfa.flash_attention_plain)
+    k4 = _Checked(tq4.q4_matmul_acc, tq4.q4_matmul_acc_plain)
     tq8.q8_matmul_int32, tfd.flash_decode_int8_kernel, tfa.flash_attention_kernel = k1, k2, k3
+    tq4.q4_matmul_acc = k4
     try:
         _small_run(torch, te, pipeline_mod, cpu, gpu, k1, k2, k3)
+        _small_serve(torch, pipeline_mod, {8: (cpu, gpu)}, k1, k2, k4)
     finally:
         tq8.q8_matmul_int32, tfd.flash_decode_int8_kernel = k1.kernel, k2.kernel
-        tfa.flash_attention_kernel = k3.kernel
+        tfa.flash_attention_kernel, tq4.q4_matmul_acc = k3.kernel, k4.kernel
 
 
 def _teacher_forced(torch, te, pipeline_mod, p, ids, emb, forced, dp):
@@ -443,6 +601,117 @@ def _small_run(torch, te, pipeline_mod, cpu, gpu, k1, k2, k3):
                   for c in cases.values()))
     if not ok:
         raise AssertionError("card and CPU disagree on the mock pipeline")
+
+
+def _ring_run(torch, p, requests, new, chunk):
+    """The requests through RaDialogServer on pipeline p's device: int8
+    ring of 32 slots behind a 64-slot prompt region, 2 lanes; two submits,
+    the rest after the first result. Returns (tokens per request, ring_pos)."""
+    from radialog_tpu_torch.apps.serve import RaDialogServer
+    from radialog_tpu_torch.decode.engine import DecodeParams
+    srv = RaDialogServer(p.llama, p.llama_cfg, lanes=2, cache_len=96, prompt_len=64,
+                         dp=DecodeParams(max_new_tokens=new, eos_token_id=-1), lora=p.lora,
+                         policy=p.policy, steps_per_call=chunk, kv_int8=True, device=p.device)
+    try:
+        futs = [srv.submit(ids, img_embs=emb.to(p.device)) for ids, emb in requests[:2]]
+        futs[0].result(timeout=300)
+        futs += [srv.submit(ids, img_embs=emb.to(p.device)) for ids, emb in requests[2:]]
+        tokens = [f.result(timeout=300) for f in futs]
+    finally:
+        srv.shutdown()
+    return tokens, srv._rb.ring_pos
+
+
+def _ring_teacher_forced(torch, p, requests, forced):
+    """Per-step logits of pipeline p's ring path with the ids ``forced``
+    (steps, 2) fed back, a schedule stepped by hand over the batcher's own
+    prefill and the model's interval mode: lane 0 decodes steps 0-24 and is
+    admitted again at step 30; lane 1 has no session until step 20 (no valid
+    slot), then decodes to the end, its window wrapping the 32-slot ring.
+    Returns the logits of the lanes with a session, (n, V)."""
+    from radialog_tpu_torch.decode.continuous import RingBatcher, ring_intervals
+    from radialog_tpu_torch.decode.engine import DecodeParams
+    from radialog_tpu_torch.models.llama import llama_apply
+    dev, prompt, ring = p.device, 64, 32
+    rb = RingBatcher(p.llama, p.llama_cfg, lanes=2, cache_len=prompt + ring, prompt_len=prompt,
+                     dp=DecodeParams(max_new_tokens=26, eos_token_id=-1), lora=p.lora,
+                     policy=p.policy, kv_int8=True, device=dev)
+    lens = torch.zeros(2, dtype=torch.int32, device=dev)
+    cur, writes = lens.clone(), lens.clone()
+    active = torch.zeros(2, dtype=torch.bool, device=dev)
+
+    def admit(lane, req):
+        ids, emb = req
+        tokens = torch.tensor([ids + [0] * (prompt - len(ids))], dtype=torch.int32, device=dev)
+        rb._prefill_fn(tokens, len(ids), lane, emb.to(dev))
+        lens[lane], cur[lane], writes[lane], active[lane] = len(ids), len(ids), 0, True
+
+    out = []
+    admit(0, requests[0])
+    with torch.no_grad():
+        for step in range(forced.shape[0]):
+            if step == 20:
+                admit(1, requests[1])
+            if step == 25:
+                active[0] = False
+            if step == 30:
+                admit(0, requests[2])
+            e = step % ring
+            writes = writes + active
+            logits, _ = llama_apply(p.llama, p.llama_cfg, forced[step].to(dev)[:, None],
+                                    cur[:, None], None, cache=rb.cache, write_pos=prompt + e,
+                                    lora=p.lora, policy=p.policy, lengths=lens,
+                                    slot_info=ring_intervals(writes, e, prompt, ring))
+            out.append(logits[:, 0][active].cpu())
+            cur = cur + active
+    return torch.cat(out)
+
+
+def _small_serve(torch, pipeline_mod, pipes, k1, k2, k4):
+    """The mock pipeline through RaDialogServer over the int8 ring, on the
+    card and on the CPU, with W8A8 and with W4A8 weights: six image prompts
+    of 12 new tokens through 2 lanes in chunks of 4, so the 32-slot ring
+    wraps; then teacher-forced logits of the hand-stepped ring schedule
+    under phase_small's bound. Greedy agreement is reported, not held: a
+    rounding edge may flip a token (phase_small's docstring)."""
+    cfg4 = pipeline_mod.PipelineConfig(mock=True, device="cpu", seed=5, weight_bits=4)
+    pipes[4] = (pipeline_mod.RaDialogPipeline(cfg4),
+                pipeline_mod.RaDialogPipeline(cfg4).to("cuda"))
+    cpu = pipes[8][0]
+    from radialog_tpu_torch.ops.image import expand_cxr_u8
+    u8 = torch.randint(0, 256, (6, 64, 64), generator=torch.Generator().manual_seed(9),
+                       dtype=torch.uint8)
+    embs = cpu.embed_images(expand_cxr_u8(u8))
+    requests = [(cpu.tokenizer(f"s{j} t{j} " + "<IMG> " * 32
+                               + " ".join(f"r{j}w{i}" for i in range(2 + 4 * j)))["input_ids"],
+                 embs[j:j + 1]) for j in range(6)]
+    forced = torch.randint(3, 240, (45, 2), generator=torch.Generator().manual_seed(10),
+                           dtype=torch.int32)
+    cases, ok = {}, True
+    for bits, (cpu_p, gpu_p) in pipes.items():
+        before = (k1.calls, k2.calls, k4.calls)
+        tok_cpu, _ = _ring_run(torch, cpu_p, requests, 12, 4)
+        tok_gpu, ring_pos = _ring_run(torch, gpu_p, requests, 12, 4)
+        a = _ring_teacher_forced(torch, cpu_p, requests, forced)
+        b = _ring_teacher_forced(torch, gpu_p, requests, forced)
+        diff = (a - b).abs()
+        agree = sum(x == y for tc_, tg in zip(tok_cpu, tok_gpu) for x, y in zip(tc_, tg))
+        cases[f"w{bits}"] = {
+            "sessions": len(tok_gpu), "ring_pos": ring_pos, "ring_len": 32,
+            "greedy_agreement": agree / (12 * len(requests)),
+            "teacher_forced_logit_max_abs_err": float(diff.max()),
+            "teacher_forced_logit_mean_abs_err": float(diff.mean()),
+            "logit_std": float(a.std()), "k1_calls": k1.calls - before[0],
+            "k2_calls": k2.calls - before[1], "k4_calls": k4.calls - before[2]}
+        ok = (ok and ring_pos > 32 and all(len(t) == 12 for t in tok_gpu)
+              and a.shape == b.shape and bool(torch.isfinite(b).all())
+              and float(diff.mean()) < LOGIT_TOL["mean"] and float(diff.max()) < LOGIT_TOL["max"]
+              and k2.calls > before[1] and k1.calls > before[0]
+              and (k4.calls > before[2]) == (bits == 4))
+    emit("small_serve", logit_tol=LOGIT_TOL, cases=cases, k1_max_abs_err=k1.err,
+         k2_max_abs_err=k2.err, k4_calls=k4.calls, k4_max_abs_err=k4.err)
+    if not (ok and k1.err == 0 and k2.err < K2_TOL["atol"] and k4.err == 0):
+        raise AssertionError("card and CPU disagree on the mock pipeline's ring serving")
 
 
 def phase_slice(torch, te, pipeline_mod, tq8, tfd):
@@ -562,6 +831,145 @@ def phase_qa(torch, tq8, tfd, tfa, sl):
     return launches
 
 
+def _serve_requests(pipe, embs, n, seed):
+    """n image prompts of 100-250 tokens (BOS included): words, the <IMG>
+    run, words; each with one row of the pipeline's own image embeddings."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    img = pipe.llama_cfg.num_img_tokens
+    out = []
+    for j in range(n):
+        total = int(rng.integers(100, 251))
+        head = int(rng.integers(5, 40))
+        text = (" ".join(f"c{j}h{i}" for i in range(head)) + " " + "<IMG> " * img
+                + " ".join(f"c{j}w{i}" for i in range(total - 1 - head - img)))
+        ids = pipe.tokenizer(text)["input_ids"]
+        assert len(ids) == total, (len(ids), total)
+        out.append((ids, embs[j % embs.shape[0]][None]))
+    return out
+
+
+def _serve_run(torch, counted, params, pipe, requests, new, clients, bad=None):
+    """One server over ``params``: warm-up, then ``clients`` threads submit
+    the requests (each streams its deltas) and, with ``bad``, one oversized
+    prompt. Returns the numbers and whether every check held."""
+    import threading
+    from radialog_tpu_torch.apps.serve import RaDialogServer
+    from radialog_tpu_torch.decode.continuous import _bucket32
+    from radialog_tpu_torch.decode.engine import DecodeParams
+    cfg = pipe.llama_cfg
+    srv = RaDialogServer(params, cfg, lanes=LANES, cache_len=CACHE_LEN,
+                         prompt_len=PROMPT_REGION,
+                         dp=DecodeParams(max_new_tokens=new, eos_token_id=-1), lora=pipe.lora,
+                         policy=pipe.policy, steps_per_call=CHUNK, kv_int8=True,
+                         device=pipe.device)
+    rb = srv._rb
+    results, streamed, first_s, errors = {}, {}, {}, []
+    try:
+        warm_s = srv.warmup(prompt_buckets=(128, 256), timeout=600)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counted.values():
+            fn.launches = 0
+        ring0 = rb.ring_pos
+        t0 = time.time()
+
+        def client(c):
+            try:
+                futs = []
+                for j in range(c, len(requests), clients):
+                    ids, emb = requests[j]
+                    streamed[j] = []
+                    submitted = time.time()
+
+                    def on_tokens(delta, done, j=j, submitted=submitted):
+                        if delta and j not in first_s:
+                            first_s[j] = time.time() - submitted
+                        streamed[j].append((list(delta), done))
+                    futs.append((j, srv.submit(ids, img_embs=emb, on_tokens=on_tokens)))
+                for j, f in futs:
+                    results[j] = f.result(timeout=900)
+            except Exception as exc:   # reported by the caller, which fails the phase
+                errors.append(repr(exc))
+
+        threads = [threading.Thread(target=client, args=(c,)) for c in range(clients)]
+        for t in threads:
+            t.start()
+        bad_error = None
+        if bad is not None:
+            try:
+                srv.submit(bad).result(timeout=900)
+            except ValueError as exc:
+                bad_error = str(exc)
+        for t in threads:
+            t.join(timeout=900)
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+    finally:
+        srv.shutdown()
+    steps = rb.ring_pos - ring0
+    forwards = steps + len(requests)            # decode steps and batch-1 prefills
+    launches = {name: fn.launches for name, fn in counted.items()}
+    k3_prefills = sum(_bucket32(len(ids)) >= 256 for ids, _ in requests)
+    firsts = sorted(first_s.values())
+    ok = (not errors and not any(t.is_alive() for t in threads)
+          and sorted(results) == list(range(len(requests)))
+          and all(len(results[j]) == new for j in results)
+          and all([x for d, _ in streamed[j] for x in d] == results[j]
+                  and [done for _, done in streamed[j]].count(True) == 1
+                  and streamed[j][-1][1] for j in results)
+          and all(0 <= x < cfg.vocab_size for r in results.values() for x in r)
+          and (bad is None or (bad_error is not None and "prompt region" in bad_error))
+          and launches["flash_decode_int8"] == cfg.num_layers * steps
+          and launches["flash_attention"] == cfg.num_layers * k3_prefills
+          and len(firsts) == len(requests) and rb.active_lanes == 0 and not rb.finished)
+    numbers = {"sessions": len(requests), "new_tokens": new, "clients": clients,
+               "lanes": LANES, "prompt_region": PROMPT_REGION, "ring_len": rb.ring_len,
+               "steps_per_call": CHUNK, "seconds": seconds, "warmup_s": warm_s,
+               "tokens_per_s": len(requests) * new / seconds,
+               "first_token_s_median": statistics.median(firsts) if firsts else None,
+               "first_token_s_max": max(firsts) if firsts else None,
+               "decode_steps": steps, "ms_per_decode_step_and_admissions": seconds / steps * 1e3,
+               "ring_pos": rb.ring_pos, "prompt_tokens": [len(ids) for ids, _ in requests],
+               "k3_prefills": k3_prefills, "launches": launches, "oversized_error": bad_error,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "errors": errors}
+    return numbers, ok, forwards
+
+
+def phase_serve(torch, tq8, tfd, tfa, tq4, sl):
+    """Interactive multi-session serving at Vicuna-7B width on the slice's
+    weights and image embeddings, W8A8 and then W4A8 layers."""
+    from radialog_tpu_torch.ops.quant import random_serving_params
+    pipe, embs = sl["pipe"], sl["embs"]
+    cfg = pipe.llama_cfg
+    counted = {"q8_matmul": tq8.q8_matmul_int32, "flash_decode_int8": tfd.flash_decode_int8_kernel,
+               "flash_attention": tfa.flash_attention_kernel, "q4_matmul": tq4.q4_matmul_acc}
+    requests = _serve_requests(pipe, embs, SESSIONS, seed=11)
+    bad = list(range(3, 3 + PROMPT_REGION + 44))        # 300 tokens: over the prompt region
+    w8, ok8, forwards = _serve_run(torch, counted, pipe.llama, pipe, requests, SESSION_NEW,
+                                   CLIENTS, bad=bad)
+    per_forward = 4 * cfg.num_layers
+    ok8 = (ok8 and w8["ring_pos"] > w8["ring_len"]
+           and w8["launches"]["q8_matmul"] == (per_forward + 1) * forwards
+           and w8["launches"]["q4_matmul"] == 0)
+    emit("serve", weights="W8A8", ok=ok8, **w8)
+    if not ok8:
+        raise AssertionError("the full-width serve phase (W8A8) failed a check")
+    t0 = time.time()
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    params4 = random_serving_params(cfg, gen, bits=4)
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    w4, ok4, forwards = _serve_run(torch, counted, params4, pipe, requests[:W4_SESSIONS], W4_NEW,
+                                   CLIENTS)
+    ok4 = (ok4 and w4["launches"]["q4_matmul"] == per_forward * forwards
+           and w4["launches"]["q8_matmul"] == forwards)
+    emit("serve", weights="W4A8", ok=ok4, params_build_s=build_s, **w4)
+    if not ok4:
+        raise AssertionError("the full-width serve phase (W4A8) failed a check")
+    return w8["launches"], w4["launches"]
+
+
 def main() -> int:
     try:
         import torch
@@ -578,6 +986,7 @@ def main() -> int:
         from radialog_tpu_torch.ops import _build
         from radialog_tpu_torch.ops import flash_attention as tfa
         from radialog_tpu_torch.ops import flash_decode as tfd
+        from radialog_tpu_torch.ops import q4_matmul as tq4
         from radialog_tpu_torch.ops import q8_matmul as tq8
         from radialog_tpu_torch.ops.layers import set_precision
     except ImportError as e:
@@ -600,21 +1009,25 @@ def main() -> int:
         flush_buf.zero_()
 
     k1 = phase_k1(torch, tq8, flush)
-    k2 = phase_k2(torch, tfd, flush)
+    k2, k2_ring = phase_k2(torch, tfd, flush)
     k3 = phase_k3(torch, tfa, flush)
-    phase_small(torch, te, pipeline_mod, tq8, tfd, tfa)
+    k4 = phase_k4(torch, tq4, flush)
+    phase_small(torch, te, pipeline_mod, tq8, tfd, tfa, tq4)
     del flush_buf
     torch.cuda.empty_cache()
     launches, sl = phase_slice(torch, te, pipeline_mod, tq8, tfd)
     qa_launches = phase_qa(torch, tq8, tfd, tfa, sl)
+    serve_launches, serve4_launches = phase_serve(torch, tq8, tfd, tfa, tq4, sl)
 
     kernels = [
         {"name": "q8_matmul", "route": "cuda", "source": "radialog_tpu_torch/csrc/q8_matmul.cu",
          "replaces": "radialog_tpu/ops/q8_matmul.py:102", "launches": launches["q8_matmul"],
          "max_abs_err": k1["max_abs_err"], "ms": k1["ms"], "plain_ms": k1["plain_ms"],
          "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
-         "library_ms": k1["library_ms"],
-         "work": "one decoder layer's 4 projections at decode, M=56"},
+         "library_ms": k1["library_ms"], "ms_m16": k1["ms_m16"],
+         "bound_ms_m16": k1["bound_ms_m16"],
+         "work": "one decoder layer's 4 projections at decode, M=56 (report batch); "
+                 "ms_m16 and bound_ms_m16: the same at the serve phase's 16 lanes"},
         {"name": "flash_decode_int8", "route": "cuda",
          "source": "radialog_tpu_torch/csrc/flash_decode.cu",
          "replaces": "radialog_tpu/ops/flash_decode.py:128",
@@ -622,6 +1035,15 @@ def main() -> int:
          "ms": k2["ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
          "bound_by": k2["bound_by"], "library_ms": None,
          "work": "one layer at decode step 150, B=56, S=384, P0=48"},
+        {"name": "flash_decode_int8_intervals", "route": "cuda",
+         "source": "radialog_tpu_torch/csrc/flash_decode.cu",
+         "replaces": "radialog_tpu/ops/flash_decode.py:521",
+         "launches": serve_launches["flash_decode_int8"],
+         "max_abs_err": k2_ring["max_abs_err"], "ms": k2_ring["ms"],
+         "plain_ms": k2_ring["plain_ms"], "bound_ms": k2_ring["bound_ms"],
+         "bound_by": k2_ring["bound_by"], "library_ms": None,
+         "work": "one layer, the ring's per-lane slot intervals, no prefix, B=16, S=384, "
+                 "prompts of 100-256 rows; launches of the serve phase (W8A8)"},
         {"name": "flash_attention", "route": "cuda",
          "source": "radialog_tpu_torch/csrc/flash_attention.cu",
          "replaces": "radialog_tpu/ops/flash_attention.py:44",
@@ -630,6 +1052,13 @@ def main() -> int:
          "bound_by": k3["bound_by"], "library_ms": k3["library_ms"],
          "work": "one layer's binary-QA prefix attention, B=1, T=S=431, H=32, D=128, bf16, "
                  "causal, q/k/v views of the fused projection; launches of the qa phase"},
+        {"name": "q4_matmul", "route": "cuda", "source": "radialog_tpu_torch/csrc/q4_matmul.cu",
+         "replaces": "radialog_tpu/ops/q4_matmul.py:177",
+         "launches": serve4_launches["q4_matmul"], "max_abs_err": k4["max_abs_err"],
+         "ms": k4["ms"], "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],
+         "bound_by": k4["bound_by"], "library_ms": None,
+         "work": "one decoder layer's 4 projections at decode, M=16, asymmetric grid; "
+                 "launches of the serve phase (W4A8)"},
     ]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

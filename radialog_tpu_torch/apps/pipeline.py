@@ -5,11 +5,13 @@ Covered: mock construction (tiny seeded models, real interface contract:
 32 <IMG> slots, 32 queries) and synthetic full-width construction (Vicuna-7B,
 BioViL-T, BERT-base Q-Former, the CheXpert classifier and the BERT-base
 CheXbert labeler with random weights from a seeded ``torch.Generator``),
-both with W8A8 weights and the int8 KV cache; ``embed_images``,
-``classify_findings``, ``label_reports``, the shared-prefix rule and greedy
-``generate_texts`` (the engine's ``prefill`` picks the direct or the
-cache-free prefill by batch size). Loading real checkpoints, beams and the
-continuous-batching ring are not ported yet.
+both with W8A8 weights (or, with ``weight_bits=4``, W4A8 layers) and the
+int8 KV cache; ``embed_images``, ``classify_findings``, ``label_reports``,
+the shared-prefix rule, greedy ``generate_texts`` (the engine's ``prefill``
+picks the direct or the cache-free prefill by batch size) and
+``generate_texts_ring`` through the continuous-batching ring with either KV
+dtype. Loading real checkpoints, beams and the speculative ring are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -44,11 +46,22 @@ class PipelineConfig:
     mock: bool = False              # tiny seeded models
     synthetic: bool = False         # full widths, random weights
     bf16: bool = True
+    kv_int8: Optional[bool] = None  # None: the serving default, int8
+    weight_bits: int = 8            # 4: W4A8 nibble-packed layers (ops/q4_matmul.py), opt-in
     shared_prefix: bool = True
     max_new_tokens: int = 300
     decode_unroll: Optional[int] = None
     seed: int = 42
     device: str = "cuda"
+
+    def use_kv_int8(self) -> bool:
+        """The pipeline's weights are always the quantized serving layout,
+        so the int8 cache is the default; an explicit False keeps bf16."""
+        return self.kv_int8 is None or bool(self.kv_int8)
+
+    def __post_init__(self):
+        if self.weight_bits not in (4, 8):
+            raise ValueError(f"weight_bits must be 4 or 8, got {self.weight_bits}")
 
 
 class RaDialogPipeline:
@@ -72,12 +85,13 @@ class RaDialogPipeline:
                 qformer_dim=TINY_QFORMER.bert.hidden_size)
             host_gen = torch.Generator().manual_seed(cfg.seed)
             self.llama = quantize_llama_host(llama_init(host_gen, self.llama_cfg, device="cpu"),
-                                             device=dev)
+                                             device=dev, bits=cfg.weight_bits)
             self.qformer_cfg = dataclasses.replace(TINY_QFORMER, num_query_tokens=32)
             lora_dtype = torch.float32
         else:
             self.llama_cfg = VICUNA_7B
-            self.llama = random_serving_params(self.llama_cfg, gen, device=dev)
+            self.llama = random_serving_params(self.llama_cfg, gen, device=dev,
+                                               bits=cfg.weight_bits)
             self.qformer_cfg = QFormerConfig()
             lora_dtype = torch.bfloat16
         self.tokenizer = WhitespaceTokenizer(vocab_size=self.llama_cfg.vocab_size,
@@ -101,7 +115,7 @@ class RaDialogPipeline:
                 return {k: move(v) for k, v in tree.items()}
             if isinstance(tree, (list, tuple)):
                 return type(tree)(move(v) for v in tree)
-            return tree.to(device)   # tensors and PackedQ8
+            return tree.to(device)   # tensors, PackedQ8 and PackedQ4
         self.device = torch.device(device)
         if self.device.type == "cuda":
             set_precision()
@@ -183,6 +197,9 @@ class RaDialogPipeline:
                      dp: DecodeParams) -> GenerationResult:
         """Token ids of each prompt -> greedy generation (shared-prefix
         serving when the batch's common prefix is long enough)."""
+        if not self.cfg.use_kv_int8():
+            raise NotImplementedError("the batch engine's bf16 KV cache is not ported; "
+                                      "generate_texts_ring serves kv_int8=False")
         pad = self.tokenizer.pad_token_id
         sp = self._shared_prefix_len(ids, img_embs)
         if sp[0] >= SHARED_PREFIX_MIN:
@@ -222,3 +239,47 @@ class RaDialogPipeline:
         lens = res.lengths.cpu().numpy()
         return [p + " " + self.tokenizer.decode(gen[i][:int(lens[i])], skip_special_tokens=True)
                 for i, p in enumerate(prompts)]
+
+    def generate_texts_ring(self, prompts: Sequence[str],
+                            max_new_tokens: Optional[int] = None, lanes: int = 12,
+                            steps_per_call: int = 4,
+                            img_embs: Optional[torch.Tensor] = None,
+                            spec_k: Optional[int] = None) -> List[str]:
+        """``generate_texts`` through the continuous-batching ring
+        (decode/continuous.RingBatcher) instead of one fixed batch: requests
+        of very different prompt lengths stream through shared lanes. Same
+        greedy numerics; outputs in the order of ``prompts``. img_embs:
+        (len(prompts), n_img, qformer_dim), spliced at each prompt's <IMG>
+        run at admission. The cache dtype follows ``cfg.kv_int8``."""
+        if spec_k is not None:
+            raise NotImplementedError("batched speculation (decode/spec_ring.py) is not "
+                                      "ported yet")
+        from ..decode.continuous import RingBatcher
+        ids = [self.tokenizer(p)["input_ids"] for p in prompts]
+        max_new = max_new_tokens or self.cfg.max_new_tokens
+        tpad = max(-(-max(len(x) for x in ids) // 32) * 32, 32)
+        nv = -(-max(max_new - 1, 1) // steps_per_call) * steps_per_call + steps_per_call
+        dp = DecodeParams(max_new_tokens=max_new, eos_token_id=self.tokenizer.eos_token_id,
+                          seed=self.cfg.seed)
+        # the ring must exceed a session's chunk-rounded span
+        ring = max(-(-nv // 32) * 32, 64)
+        rb = RingBatcher(self.llama, self.llama_cfg, lanes=min(lanes, len(ids)),
+                         cache_len=tpad + ring, prompt_len=tpad, dp=dp, lora=self.lora,
+                         policy=self.policy, steps_per_call=steps_per_call,
+                         kv_int8=self.cfg.use_kv_int8(), device=self.device)
+        embs = None
+        if img_embs is not None:
+            e = img_embs.to(self.device)
+            embs = e.reshape(len(ids), 1, *e.shape[-2:])
+        sids = [rb.submit(x, img_embs=None if embs is None else embs[i])
+                for i, x in enumerate(ids)]
+        done = rb.run()
+        out = []
+        eos = self.tokenizer.eos_token_id
+        for p, sid in zip(prompts, sids):
+            toks = done[sid].tokens
+            if eos in toks:
+                toks = toks[:toks.index(eos) + 1]
+            out.append(p + " " + self.tokenizer.decode(np.asarray(toks, np.int32),
+                                                       skip_special_tokens=True))
+        return out

@@ -5,8 +5,9 @@ The port keeps the JAX package's tree layout and names (linear weights
 (in, out), conv weights (kh, kw, Cin, Cout), stacked LLaMA/LoRA leaves), so
 most of a tree converts leaf by leaf. The one layout that changes is the
 W8A8 weight: the TPU's (kt, nt, bk, bn) int8 tiles, padded in K and N, are
-unpacked into the port's (N, K) rows. The port never sees a JAX object:
-callers convert with ``np.asarray`` on their side.
+unpacked into the port's (N, K) rows, and likewise the W4A8 weight's
+(kt, nt, bk/2, bn) nibble tiles into (N, K/2) rows. The port never sees a
+JAX object: callers convert with ``np.asarray`` on their side.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
+from .ops.q4_matmul import PackedQ4
 from .ops.q8_matmul import PackedQ8
 
 
@@ -44,14 +46,37 @@ def packed_q8(d: Dict, k: int, device="cuda") -> PackedQ8:
                     None if b is None else to_torch(np.asarray(b)[:n], device))
 
 
+def packed_q4(d: Dict, k: int, device="cuda") -> PackedQ4:
+    """A JAX PackedQ4 as {"w_t" (kt,nt,bk/2,bn) int8 nibble pairs, "gscale"
+    and "goff" (G, Np) f32 (goff None on the symmetric grid), "n", "group",
+    "b"} with true input width ``k`` -> PackedQ4 (N, K/2) byte rows. The
+    scales keep every group of the padded K."""
+    w_t = np.asarray(d["w_t"])
+    kt, nt, bk2, bn = w_t.shape
+    n = int(d["n"])
+    w = w_t.transpose(0, 2, 1, 3).reshape(kt * bk2, nt * bn)[:k // 2, :n]
+    b, goff = d.get("b"), d.get("goff")
+
+    def scales(x):
+        return torch.from_numpy(np.array(np.asarray(x, np.float32)[:, :n])).to(device)
+    return PackedQ4(torch.from_numpy(np.ascontiguousarray(w.T)).to(device),
+                    scales(d["gscale"]), int(d["group"]),
+                    None if goff is None else scales(goff),
+                    None if b is None else to_torch(np.asarray(b)[:n], device))
+
+
 def llama_serving(tree: Dict, cfg, device="cuda") -> Dict:
-    """quantize_llama_host(bits=8, fuse=True) output, with each PackedQ8 as
-    a dict (see ``packed_q8``) -> the port's serving params."""
+    """quantize_llama_host(bits=8 or 4, fuse=True) output, with each
+    PackedQ8 / PackedQ4 as a dict (see ``packed_q8`` and ``packed_q4``; a
+    dict with "gscale" is a PackedQ4) -> the port's serving params."""
     h, inter = cfg.hidden_size, cfg.intermediate_size
     k_of = {"wqkv": h, "wo": h, "gateup": h, "down": inter}
+
+    def packed(d, k):
+        return (packed_q4 if "gscale" in d else packed_q8)(d, k, device)
     layers = []
     for lp in tree["layers"]:
-        layer = {name: packed_q8(lp[name], k, device) for name, k in k_of.items()}
+        layer = {name: packed(lp[name], k) for name, k in k_of.items()}
         layer["input_ln"] = to_torch(lp["input_ln"], device)
         layer["post_ln"] = to_torch(lp["post_ln"], device)
         layers.append(layer)

@@ -5,13 +5,16 @@ Covered: prefill straight into the int8 token-flat cache (attention on the
 layer's own compute-dtype K/V, optionally merged with a shared prefix in one
 softmax), single-token decode over the cache through the flash-decode
 kernel (ops/flash_decode.py, K2) with the static-slot mask and the shared
-int8 prefix, and the cache-free prefill that ``prefix_kv`` and the engine's
-small-batch ``prefill`` run, whose attention at 256 tokens or more is the
-flash-attention kernel (ops/flash_attention.py, K3). The stacked-scan
-training layout, speculative ``verify``, ``defer_kv`` and tensor
-parallelism are not ported yet.
+int8 prefix or with the ring batcher's per-lane slot intervals, the
+cache-free prefill that ``prefix_kv``, the engine's small-batch ``prefill``
+and the ring batcher's admission run, whose attention at 256 tokens or more
+is the flash-attention kernel (ops/flash_attention.py, K3), and the bf16
+cache of the ring batcher (``mha`` over the layer's cache rows with the
+caller's bias). Layer projections are W8A8 (K1) or W4A8 (K4) leaves. The
+stacked-scan training layout, speculative ``verify``, ``defer_kv`` and
+tensor parallelism are not ported yet.
 
-The int8 KV cache is updated IN PLACE (a PyTorch tensor is mutable; the JAX
+The KV cache is updated IN PLACE (a PyTorch tensor is mutable; the JAX
 package returns a new cache from dynamic_update_slice): ``llama_apply``
 writes each layer's quantized K/V rows into ``cache`` and returns the same
 object.
@@ -65,16 +68,21 @@ TINY_LLAMA = LlamaConfig(vocab_size=256, hidden_size=64, num_layers=2,
 class KVCache:
     """int8 token-flat cache: k/v (L, B, S, H*D) int8, per-token-per-head
     scales k_scale/v_scale (L, B, S, H) bf16. The port stores the scales at
-    their H lanes (the JAX package pads them to 128 lanes for XLA's sake)."""
+    their H lanes (the JAX package pads them to 128 lanes for XLA's sake).
+    Without scales: the bf16 cache, k/v (L, B, S, H, D)."""
 
     k: torch.Tensor
     v: torch.Tensor
-    k_scale: torch.Tensor
-    v_scale: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
 
     @property
     def max_len(self) -> int:
         return self.k.shape[2]
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
 
 
 @dataclasses.dataclass
@@ -85,8 +93,18 @@ class PrefixKV:
     v: torch.Tensor
 
 
-def init_cache(cfg: LlamaConfig, batch: int, max_len: int, device="cuda") -> KVCache:
-    """Zeroed int8 cache (scales 1) for ``batch`` lanes of ``max_len`` slots."""
+def init_cache(cfg: LlamaConfig, batch: int, max_len: int, device="cuda",
+               dtype=torch.bfloat16, quantized: bool = True) -> KVCache:
+    """Zeroed cache for ``batch`` lanes of ``max_len`` slots: int8 with
+    scales 1, or with ``quantized=False`` the (L, B, S, H, D) cache in
+    ``dtype``. The default is the reverse of the JAX package's
+    ``init_cache`` (``quantized=False`` there): every serving path of the
+    port keeps the int8 cache, and only the ring's ``kv_int8=False`` asks
+    for the other one."""
+    if not quantized:
+        shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+        return KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                       torch.zeros(shape, dtype=dtype, device=device))
     if cfg.num_kv_heads != cfg.num_heads:
         # the token-flat int8 cache and K2 index K/V by the query head count
         raise NotImplementedError(
@@ -213,9 +231,21 @@ def _attention_block(lp: Dict, lora_layer, lora_scale, cfg: LlamaConfig, x, posi
             o = mha(q, k, v, bias=bias)
         return linear(lp["wo"], o.reshape(b, t, nh * hd), policy), (k, v)
 
+    rows = slice(write_pos, write_pos + t)
+    if not cache.quantized:
+        if shared_layer is not None:
+            raise NotImplementedError("a shared prefix over the bf16 cache is not ported")
+        cache.k[layer_idx, :, rows] = k.to(cache.k.dtype)
+        cache.v[layer_idx, :, rows] = v.to(cache.v.dtype)
+        if t > 1:   # direct prefill: this layer's own compute-dtype K/V
+            o = mha(q, k, v, bias=bias[..., :t])
+        else:       # decode over the layer's cache rows, masked by the caller's bias
+            o = mha(q, cache.k[layer_idx].to(x.dtype), cache.v[layer_idx].to(x.dtype),
+                    bias=bias)
+        return linear(lp["wo"], o.reshape(b, t, nh * hd), policy), cache
+
     k8, ks = quantize_kv(k)
     v8, vs = quantize_kv(v)
-    rows = slice(write_pos, write_pos + t)
     cache.k[layer_idx, :, rows] = k8.reshape(b, t, nh * hd)
     cache.v[layer_idx, :, rows] = v8.reshape(b, t, nh * hd)
     cache.k_scale[layer_idx, :, rows] = ks
@@ -231,13 +261,16 @@ def _attention_block(lp: Dict, lora_layer, lora_scale, cfg: LlamaConfig, x, posi
             o = mha(q, k, v, bias=bias[..., :t])
     else:
         if slot_info is None or lengths is None:
-            raise ValueError("single-token decode over the int8 cache needs "
-                             "lengths and slot_info (prompt_pad, step)")
+            raise ValueError("single-token decode over the int8 cache needs lengths "
+                             "and slot_info: (prompt_pad, step) or (a1, b1, a2, b2)")
         sl, p0 = shared_layer if shared_layer is not None else (None, None)
-        prompt_pad, step = slot_info
+        if len(slot_info) == 4:   # the ring batcher's per-lane closed intervals
+            mask = dict(gen_intervals=slot_info)
+        else:
+            mask = dict(prompt_pad=slot_info[0], step=slot_info[1])
         o = flash_decode_int8(q[:, 0], cache.k, cache.k_scale, cache.v, cache.v_scale,
-                              lengths, prompt_pad, step, layer_idx=layer_idx,
-                              scale=hd ** -0.5, shared=sl, p0=p0)[:, None].to(q.dtype)
+                              lengths, layer_idx=layer_idx, scale=hd ** -0.5, shared=sl,
+                              p0=p0, **mask)[:, None].to(q.dtype)
     o = o.reshape(b, t, nh * hd)
     return linear(lp["wo"], o, policy), cache
 
@@ -261,8 +294,12 @@ def llama_apply(params: Dict, cfg: LlamaConfig, tokens: torch.Tensor,
     (the same object, written in place); without, a PrefixKV of the fresh
     per-layer K/V (L,B,T,H,D).
 
-    tokens/positions (B,T); bias (B|1,1,T,T) for a prefill; slot_info =
-    (prompt_pad, step) for single-token decode; shared_kv: a PrefixKV for
+    tokens/positions (B,T); bias (B|1,1,T,T) for a prefill, (B,1,1,S) for
+    single-token decode over the bf16 cache; ``write_pos`` the first cache
+    slot written (the ring slot for the ring batcher); slot_info =
+    (prompt_pad, step) for single-token decode over the int8 cache, or the
+    ring batcher's per-lane closed slot intervals (a1, b1, a2, b2), each (B,)
+    int32 with an empty interval marked b = -1; shared_kv: a PrefixKV for
     a prefill, or per-layer int8 (k0, ks0, v0, vs0) tuples for decode with
     ``shared_p0`` live prefix rows."""
     if not isinstance(params["layers"], (list, tuple)):
@@ -318,3 +355,9 @@ def prefill_bias(lengths: torch.Tensor, t: int, dtype=torch.float32) -> torch.Te
     kj = torch.arange(t, device=dev)[None, None, :]
     ok = (kj <= qi) & (kj < lengths[:, None, None])
     return torch.where(ok, 0.0, NEG_INF).to(dtype)[:, None]
+
+
+def decode_bias(kv_valid_len: torch.Tensor, s_max: int, dtype=torch.float32) -> torch.Tensor:
+    """(B,1,1,S) bias for single-token decode: attend kv j < kv_valid_len."""
+    kj = torch.arange(s_max, device=kv_valid_len.device)[None, :]
+    return torch.where(kj < kv_valid_len[:, None], 0.0, NEG_INF).to(dtype)[:, None, None, :]

@@ -21,7 +21,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNELS = ("q8_matmul", "flash_decode", "flash_attention")
+KERNELS = ("q8_matmul", "flash_decode", "flash_attention", "q4_matmul")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

@@ -84,9 +84,12 @@ def layernorm_init(dim: int, device, dtype=torch.float32) -> dict:
 
 # ------------------------------------------------------------------- linear
 def linear(p, x: torch.Tensor, policy: DTypePolicy = FP32) -> torch.Tensor:
+    from .q4_matmul import PackedQ4, q4_matmul
     from .q8_matmul import PackedQ8, q8_matmul
     if isinstance(p, PackedQ8):  # W8A8 serving leaf: kernel K1 on a card
         return q8_matmul(x, p, out_dtype=policy.compute)
+    if isinstance(p, PackedQ4):  # W4A8 serving leaf: kernel K4 on a card
+        return q4_matmul(x, p, out_dtype=policy.compute)
     y = torch.matmul(policy.cast(x), policy.cast(p["w"]))
     if "b" in p:
         y = y + policy.cast(p["b"])

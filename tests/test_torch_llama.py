@@ -28,8 +28,13 @@ LOGIT_TOL = dict(rtol=0, atol=2e-3)
 
 
 def packed_tree(qp):
-    """The JAX serving tree as numpy dicts (PackedQ8 -> dict)."""
+    """The JAX serving tree, or one leaf of it, as numpy dicts (PackedQ8
+    and PackedQ4 -> dict)."""
     def conv(x):
+        if type(x).__name__ == "PackedQ4":
+            return {"w_t": np.asarray(x.w_t), "gscale": np.asarray(x.gscale), "n": x.n,
+                    "group": x.group, "goff": None if x.goff is None else np.asarray(x.goff),
+                    "b": None if x.b is None else np.asarray(x.b)}
         if type(x).__name__ == "PackedQ8":
             return {"w_t": np.asarray(x.w_t), "scale": np.asarray(x.scale), "n": x.n,
                     "b": None if x.b is None else np.asarray(x.b)}

@@ -207,8 +207,13 @@ def test_entry_points_default_to_the_card():
     the card unless the caller asks for the CPU."""
     import inspect
     from radialog_tpu_torch.models import chexbert as tcb
+    from radialog_tpu_torch.apps.serve import RaDialogServer
+    from radialog_tpu_torch.decode.continuous import RingBatcher
+    from radialog_tpu_torch.ops import quant as tquant
     fns = [tl.llama_init, tl.lora_init, tl.init_cache, tcb.chexbert_init, bridge.to_torch,
-           bridge.packed_q8, bridge.llama_serving, bridge.llama, bridge.lora, bridge.biovil_t,
+           bridge.packed_q8, bridge.packed_q4, tquant.quantize_llama_host,
+           tquant.random_serving_params, RingBatcher.__init__, RaDialogServer.__init__,
+           bridge.llama_serving, bridge.llama, bridge.lora, bridge.biovil_t,
            bridge.qformer, bridge.chexpert, bridge.chexbert]
     for fn in fns:
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
@@ -219,6 +224,8 @@ def test_port_imports_no_jax():
     """The port and chip_smoke.py import neither jax nor radialog_tpu."""
     files = sorted((REPO / "radialog_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 15
+    assert {"continuous.py", "serve.py", "q4_matmul.py", "quant.py", "bridge.py",
+            "chip_smoke.py"} <= {f.name for f in files}
     for f in files:
         for node in ast.walk(ast.parse(f.read_text())):
             names = []
