@@ -29,6 +29,18 @@ each; any failing phase exits non-zero:
           single rounded f32 operations) at the four Vicuna-7B layer shapes,
           asymmetric and symmetric grids, M in {16, 56, 256}, and at the
           mock model's shapes; times
+  k5      the flash-attention backward kernels K5a (dq) and K5b (dk, dv) vs
+          their plain versions (K5_TOL, beside the plain version's own spread
+          between blocks of 64 and 256), fed K3's own out and lse, causal, at
+          H=32, D=128: bf16 at the train phase's shape (B=2, T=S=600, lengths
+          600 and 413, q/k/v contiguous as the stacked layout's separate
+          projections give them), the same with q/k/v as views of one fused
+          projection, the same with q scaled by 3 (peaked attention, where a
+          dropped key tile shows), B=1 with T=S=256, a lane of length 0
+          beside a live one, non-causal with a length mask, and f32; H=4,
+          D=16, f32 (the mock); every case run twice and held bitwise equal;
+          times, with the backward of scaled_dot_product_attention as the
+          yardstick
   small   the mock pipeline on the card vs the same weights on the CPU:
           query embeddings, prefill and teacher-forced decode logits, for
           the report batch (48-token shared prefix), for a batch whose
@@ -38,7 +50,12 @@ each; any failing phase exits non-zero:
           then, with W8A8 and with W4A8 weights, the mock pipeline through
           RaDialogServer over the int8 ring with staggered submits until the
           ring wraps, and teacher-forced logits of a hand-stepped ring
-          schedule; every kernel call held against its plain version there
+          schedule; every kernel call held against its plain version there;
+          then the mock LoRA trainer (TINY_LLAMA, cutoff 256 so that flash
+          attention runs, 4 micro-steps with accumulation 2, float base in
+          FP32 and int8 base in BF16) on the card vs the same run on the
+          CPU: losses and the updated LoRA tree, every K3/K5a/K5b call held
+          against its plain version
   slice   the full-width pipeline (Vicuna-7B W8A8, 32 layers, int8 KV,
           BioViL-T at 448, BERT-base Q-Former, CheXpert classifier at 488)
           with random weights from a seeded generator: 56 uint8 X-rays,
@@ -63,6 +80,16 @@ each; any failing phase exits non-zero:
           is checked; aggregate tokens/s, seconds to the first token, peak
           memory. Then 16 sessions x 32 tokens with W4A8 layers (K4 128
           times and K1 once per forward)
+  train   LoRA finetuning at full width through apps/finetune_lora.train:
+          Vicuna-7B (32 layers), int8 frozen base, bf16 compute, LoRA rank 8
+          on wq/wv plus img_proj, per-layer recomputation, micro-batch 2 x
+          cutoff 600, image embeddings; one warm-up and 8 timed micro-steps
+          (accumulation 2) with flash attention (K3 twice and K5a, K5b once
+          per layer and micro-step), then the same without (no launch of
+          them); losses, gradient norms, the LoRA tree, the untouched base,
+          the checkpoint read back; tokens/s (the sequences' own tokens, padding
+          not counted, over the whole timed span), the mean and the median
+          ms/step and peak memory of both
 
 The line before the last is a JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}. A kernel's time is the
@@ -72,6 +99,7 @@ host.
 """
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -91,12 +119,31 @@ K2_TOL = dict(atol=2e-3, rtol=2e-3)
 # differ from both, so its running max and the rounding of p to bf16 may
 # differ as much
 K3_TOL = {"bfloat16": dict(atol=1e-2, rtol=1e-2), "float32": dict(atol=1e-5, rtol=1e-5)}
+# K5a/K5b against their plain versions: each of dq, dk and dv by its largest
+# |error| over its own largest |reference value|. A gradient rounds to bf16
+# once, so the largest entry alone may land one bf16 step (2^-8 to 2^-7 of
+# its value) from the reference, and ds and p round to bf16 before the second
+# products, in tiles of 64 in the kernel and blocks of 256 in the plain
+# version; the plain version's own spread between blocks of 64 and 256 is
+# printed beside each error, on the same scale (up to 2.1e-3 in bf16 at
+# these shapes on an H100, the kernels' errors up to 3.7e-3; a kernel that
+# skips the last partial tile of keys or of queries misses by 0.13 to 0.15).
+# f32: only the order of the f32 sums differs (errors up to 1.1e-6)
+K5_TOL = {"bfloat16": 8e-3, "float32": 1e-5}
 QA_STUDIES, ALL_QA_STUDIES, LABELED, FOLLOW_UP_NEW = 2, 5, 16, 32
 LOGIT_TOL = {"mean": 3e-2, "max": 0.3}   # why: phase_small's docstring
 # the serve phase: lanes, prompt region, cache length (ring 128), steps per chunk
 LANES, PROMPT_REGION, CACHE_LEN, CHUNK = 16, 256, 384, 8
 SESSIONS, SESSION_NEW, CLIENTS = 32, 64, 4
 W4_SESSIONS, W4_NEW = 16, 32
+# the train phase: micro-batch, cutoff, accumulation, micro-steps (the first warms up)
+MICRO, CUTOFF, ACCUM, TRAIN_STEPS = 2, 600, 2, 9
+# the mock trainer on the card against the CPU: FP32 sums in another order,
+# then AdamW divides by sqrt(v), so a tree entry may differ by a fraction of
+# the learning rate (3e-4); in BF16 the matmuls round differently on the two
+# devices, and an entry whose gradient is near 0 may move a whole step the
+# other way
+SMALL_TRAIN_TOL = {"fp32": {"loss": 1e-4, "tree": 2e-4}, "bf16": {"loss": 5e-2, "tree": 1.5e-3}}
 
 
 def emit(phase: str, **kw) -> None:
@@ -435,6 +482,121 @@ def phase_k3(torch, tfa, flush):
     return summary
 
 
+def _k5_bounds(b, t, h, d, lens, causal, elt, ops_per_s):
+    """(bound ms, bound_by) of K5a and of K5b: q, do and the two f32 row
+    statistics read once, k and v read once up to each lane's length (no
+    query attends a later key), dq (K5a) or dk and dv (K5b) written once,
+    over the memory rate, against 6*H*D (K5a: q.k, do.v, ds.k) or 8*H*D (K5b:
+    k.q, v.do, p.do, ds.q) operations per valid (query, key) pair of these
+    lengths over the peak of the type."""
+    pairs = sum(min(i + 1, min(int(n), t)) if causal else min(int(n), t)
+                for n in lens for i in range(t))
+    kv_rows = sum(min(int(n), t) for n in lens)
+    out = []
+    for full, per_pair in ((3, 6), (4, 8)):     # q, do, dq; q, do, dk, dv
+        b_bytes = ((full * b * t + 2 * kv_rows) * h * d * elt
+                   + 2 * 4 * b * h * t) / HBM_BYTES_PER_S * 1e3
+        b_ops = per_pair * h * d * pairs / ops_per_s * 1e3
+        out.append((max(b_bytes, b_ops), "bytes" if b_bytes >= b_ops else "operations"))
+    return out
+
+
+def phase_k5(torch, tfa, flush):
+    """K5a and K5b on K3's own out and lse, as autograd hands them over. The
+    summary is one layer of the train phase: B=2, T=S=600, lengths 600 and
+    413, bf16, q/k/v contiguous (the stacked layout projects them apart).
+    The case with q scaled by 3 has peaked attention: a few keys carry a
+    row's gradient, so a kernel that lost a key tile would miss by far more
+    than the tolerance."""
+    shapes = [(2, CUTOFF, 32, 128, "bfloat16", True, [CUTOFF, 413], False, 1.0),
+              (2, CUTOFF, 32, 128, "bfloat16", True, [CUTOFF, 413], True, 1.0),
+              (2, CUTOFF, 32, 128, "bfloat16", True, [CUTOFF, 413], False, 3.0),
+              (1, 256, 32, 128, "bfloat16", True, None, False, 1.0),
+              (2, 300, 32, 128, "bfloat16", True, [0, 300], True, 1.0),
+              (2, 200, 32, 128, "bfloat16", False, [200, 77], True, 1.0),
+              (2, CUTOFF, 32, 128, "float32", True, [CUTOFF, 413], False, 1.0),
+              (2, 300, 4, 16, "float32", True, [300, 211], True, 1.0)]
+    f = torch.nn.functional
+    summary, worst = None, {"dq": 0.0, "dkv": 0.0}
+    for i, (b, t, h, d, dt, causal, lens_list, fused, q_scale) in enumerate(shapes):
+        dtype = getattr(torch, dt)
+        g = torch.Generator(device="cuda").manual_seed(50 + i)
+        if fused:
+            qkv = torch.randn((b, t, 3 * h * d), generator=g, device="cuda")
+            qkv[..., :h * d] *= q_scale
+            qkv = qkv.to(dtype)
+            q, k, v = (x.reshape(b, t, h, d) for x in qkv.split(h * d, dim=-1))
+            assert not any(x.is_contiguous() for x in (q, k, v))
+        else:
+            q, k, v = (torch.randn((b, t, h, d), generator=g, device="cuda")
+                       for _ in range(3))
+            q, k, v = (q * q_scale).to(dtype), k.to(dtype), v.to(dtype)
+        do = torch.randn((b, t, h, d), generator=g, device="cuda").to(dtype)
+        lens = torch.tensor(lens_list or [t] * b, dtype=torch.int32, device="cuda")
+        out, lse = tfa.flash_attention_kernel(q, k, v, lens, causal=causal, with_lse=True)
+        delta = tfa._delta(out, do)
+        args = (q, k, v, lens, lse, delta, do, causal, None)
+        dq = tfa.flash_attention_dq_kernel(*args)
+        dk, dv = tfa.flash_attention_dkv_kernel(*args)
+        dq2 = tfa.flash_attention_dq_kernel(*args)
+        dk2, dv2 = tfa.flash_attention_dkv_kernel(*args)
+        torch.cuda.synchronize()
+        if not (torch.equal(dq, dq2) and torch.equal(dk, dk2) and torch.equal(dv, dv2)):
+            raise AssertionError(f"K5 {b}x{t} {dt}: a second run differs from the first")
+        ref = (tfa.flash_attention_dq_plain(*args), *tfa.flash_attention_dkv_plain(*args))
+        ref64 = (tfa.flash_attention_dq_plain(*args, bq=64, bk=64),
+                 *tfa.flash_attention_dkv_plain(*args, bq=64, bk=64))
+        errs, spread, largest, rel = {}, {}, {}, {}
+        for name, got, want, want64 in zip(("dq", "dk", "dv"), (dq, dk, dv), ref, ref64):
+            if not torch.isfinite(got.float()).all():
+                raise AssertionError(f"K5 {b}x{t} {dt}: non-finite {name}")
+            largest[name] = float(want.float().abs().max())
+            errs[name] = float((got.float() - want.float()).abs().max())
+            rel[name] = errs[name] / largest[name]
+            spread[name] = float((want64.float() - want.float()).abs().max()) / largest[name]
+            if rel[name] > K5_TOL[dt]:
+                raise AssertionError(f"K5 {b}x{t} {dt} q*{q_scale}: {name} differs from plain "
+                                     f"by {errs[name]} (largest value {largest[name]})")
+        for j, n in enumerate(lens.tolist()):   # rows past the length, a dead lane
+            if bool(dk[j, n:].any()) or bool(dv[j, n:].any()) or (n == 0 and bool(dq[j].any())):
+                raise AssertionError(f"K5 {b}x{t} {dt}: lane {j} of length {n} must give zeros")
+        worst["dq"] = max(worst["dq"], errs["dq"])
+        worst["dkv"] = max(worst["dkv"], errs["dk"], errs["dv"])
+        pos = torch.arange(t, device="cuda")
+        mask = (pos[None, None, :] < lens[:, None, None].long()).expand(b, t, t)
+        if causal:
+            mask = mask & (pos[None, :] <= pos[:, None])[None]
+        qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_(True) for x in (q, k, v))
+        lib_out = f.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask[:, None])
+        dot = do.transpose(1, 2)
+        dq_ms = timed_ms(lambda: tfa.flash_attention_dq_kernel(*args), 20, flush)
+        dkv_ms = timed_ms(lambda: tfa.flash_attention_dkv_kernel(*args), 20, flush)
+        dq_plain_ms = timed_ms(lambda: tfa.flash_attention_dq_plain(*args), 3, flush)
+        dkv_plain_ms = timed_ms(lambda: tfa.flash_attention_dkv_plain(*args), 3, flush)
+        lib_ms = timed_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot,
+                                                      retain_graph=True), 20, flush)
+        (dq_bound, dq_by), (dkv_bound, dkv_by) = _k5_bounds(
+            b, t, h, d, lens.tolist(), causal, q.element_size(),
+            BF16_OPS_PER_S if dt == "bfloat16" else F32_OPS_PER_S)
+        emit("k5", batch=b, t=t, heads=h, head_dim=d, dtype=dt, causal=causal,
+             fused_qkv_views=fused, q_scale=q_scale,
+             lengths=[int(x) for x in lens.tolist()], max_abs_err=errs,
+             largest_gradient=largest, err_of_largest=rel, tol_of_largest=K5_TOL[dt],
+             plain_block_spread_of_largest=spread,
+             bitwise_repeat=True, dq_kernel_ms=dq_ms, dkv_kernel_ms=dkv_ms,
+             dq_plain_ms=dq_plain_ms, dkv_plain_ms=dkv_plain_ms,
+             library_backward_ms=lib_ms, dq_bound_ms=dq_bound, dq_bound_by=dq_by,
+             dkv_bound_ms=dkv_bound, dkv_bound_by=dkv_by,
+             dq_roofline_share=dq_bound / dq_ms, dkv_roofline_share=dkv_bound / dkv_ms)
+        if i == 0:
+            summary = {"dq": {"ms": dq_ms, "plain_ms": dq_plain_ms, "bound_ms": dq_bound,
+                              "bound_by": dq_by, "library_ms": lib_ms},
+                       "dkv": {"ms": dkv_ms, "plain_ms": dkv_plain_ms, "bound_ms": dkv_bound,
+                               "bound_by": dkv_by, "library_ms": lib_ms}}
+    summary["dq"]["max_abs_err"], summary["dkv"]["max_abs_err"] = worst["dq"], worst["dkv"]
+    return summary
+
+
 def _prompts(tok, n: int, img_tokens: int):
     """n prompts of PROMPT tokens (BOS included) sharing the first SHARED:
     per request 4 words, the <IMG> run, then words to fill."""
@@ -447,12 +609,15 @@ def _prompts(tok, n: int, img_tokens: int):
 class _Checked:
     """Stand-in for a kernel wrapper during the small phase: on each call it
     runs the kernel and the plain version on the same CUDA inputs and keeps
-    the largest difference and the largest plain value, so every kernel is
+    the largest difference, the largest plain value and the largest
+    difference of one result over that result's own largest plain value
+    (``rel``), so every kernel is
     also held at the mock pipeline's own shapes (K1: K=64/128, N up to 256;
     K2: H=4, D=16; K3: H=4, D=16, f32)."""
 
     def __init__(self, kernel, plain):
         self.kernel, self.plain, self.calls, self.err, self.ref_max = kernel, plain, 0, 0.0, 0.0
+        self.rel = 0.0
         # the kernel counts its launches on the name it is bound to, which
         # is this object while it stands in; those launches are not counted
         self.launches = 0
@@ -465,8 +630,12 @@ class _Checked:
         got = self.kernel(*args, **kw)
         ref = self.plain(*args, **kw)
         self.calls += 1
-        self.err = max(self.err, float((got.double() - ref.double()).abs().max()))
-        self.ref_max = max(self.ref_max, float(ref.double().abs().max()))
+        pairs = zip(got, ref) if isinstance(got, tuple) else [(got, ref)]
+        for g, r in pairs:      # K3 with its lse, K5b's dk and dv
+            err = float((g.double() - r.double()).abs().max())
+            ref_max = float(r.double().abs().max())
+            self.err, self.ref_max = max(self.err, err), max(self.ref_max, ref_max)
+            self.rel = max(self.rel, err / ref_max if ref_max else err)
         return got
 
 
@@ -499,6 +668,81 @@ def phase_small(torch, te, pipeline_mod, tq8, tfd, tfa, tq4):
     finally:
         tq8.q8_matmul_int32, tfd.flash_decode_int8_kernel = k1.kernel, k2.kernel
         tfa.flash_attention_kernel, tq4.q4_matmul_acc = k3.kernel, k4.kernel
+    _small_train(torch, tfa)
+
+
+def _train_records(n: int, words) -> list:
+    """n instruct records, half report generation and half another task: a
+    prompt of ~60 tokens with the 32 <IMG> slots and an answer of
+    ``words(j)`` words."""
+    return [{"instruction": "Image information: " + "<IMG>" * 32 + f". Predicted Findings: "
+                            f"edema f{j}. Write the findings section.",
+             "input": f"USER: scan {j} ASSISTANT:",
+             "output": " ".join(f"r{j}w{i}" for i in range(words(j))) + ".",
+             "dicom": f"dcm{j:03d}", "task": "RG" if j % 2 == 0 else "EL"} for j in range(n)]
+
+
+def _small_train(torch, tfa):
+    """The mock LoRA trainer through apps/finetune_lora.train on the card
+    and on the CPU from the same seeded weights: 4 micro-steps, accumulation
+    2, sequences of 90-256 tokens padded to 256 so that flash attention runs,
+    with the float base (FP32) and the int8 base (BF16). Every K3, K5a and
+    K5b call on the card is held against its plain version."""
+    import tempfile
+    from pathlib import Path
+    from radialog_tpu_torch.apps import finetune_lora as ft
+    from radialog_tpu_torch.train.optim import tree_leaves
+    names = ("flash_attention_kernel", "flash_attention_dq_kernel", "flash_attention_dkv_kernel")
+    plains = (tfa.flash_attention_plain, tfa.flash_attention_dq_plain,
+              tfa.flash_attention_dkv_plain)
+    cases, ok = {}, True
+    with tempfile.TemporaryDirectory() as tmp:
+        data = Path(tmp) / "instruct.json"
+        data.write_text(json.dumps(_train_records(14, lambda j: 30 + 17 * j)))
+        for label, quantize in (("fp32", False), ("bf16", True)):
+            checked = [_Checked(getattr(tfa, n), p) for n, p in zip(names, plains)]
+            runs = {}
+            try:
+                for n, c in zip(names, checked):
+                    setattr(tfa, n, c)
+                for dev in ("cpu", "cuda"):
+                    losses = []
+                    cfg = ft.FinetuneConfig(
+                        mock=True, data_path=str(data), batch_size=4, micro_batch_size=2,
+                        num_epochs=2, max_steps=4, cutoff_len=256, val_set_size=2,
+                        use_embs=True, use_instruct_data=True, quantize_base=quantize,
+                        flash=True, output_dir=str(Path(tmp) / f"{label}-{dev}"), device=dev)
+                    state = ft.train(cfg, log_fn=lambda m: None,
+                                     on_step=lambda s_, m: losses.append(float(m["loss"])))
+                    runs[dev] = (losses, [x.float().cpu() for x in tree_leaves(state.params)])
+            finally:
+                for n, c in zip(names, checked):
+                    setattr(tfa, n, c.kernel)
+            tol = SMALL_TRAIN_TOL[label]
+            loss_err = max(abs(a - b) for a, b in zip(*(runs[d][0] for d in ("cpu", "cuda"))))
+            tree_err = max(float((a - b).abs().max())
+                           for a, b in zip(*(runs[d][1] for d in ("cpu", "cuda"))))
+            k3, k5a, k5b = checked
+            k3_tol = K3_TOL["bfloat16" if quantize else "float32"]
+            k5_tol = K5_TOL["bfloat16" if quantize else "float32"]
+            cases[label] = {
+                "losses_card": runs["cuda"][0], "losses_cpu": runs["cpu"][0],
+                "loss_max_abs_err": loss_err, "lora_tree_max_abs_err": tree_err, "tol": tol,
+                "k3_calls": k3.calls, "k3_max_abs_err": k3.err, "k5a_calls": k5a.calls,
+                "k5a_max_abs_err": k5a.err, "k5a_largest_gradient": k5a.ref_max,
+                "k5a_err_of_largest": k5a.rel, "k5b_calls": k5b.calls,
+                "k5b_max_abs_err": k5b.err, "k5b_largest_gradient": k5b.ref_max,
+                "k5b_err_of_largest": k5b.rel}
+            # per micro-step and layer: K3 in the forward and again in the
+            # recomputation, K5a and K5b once; plus one validation batch
+            ok = (ok and len(runs["cuda"][0]) == 4 and loss_err < tol["loss"]
+                  and tree_err < tol["tree"] and k3.calls == 2 * (2 * 4 + 1)
+                  and k5a.calls == k5b.calls == 2 * 4
+                  and k3.err <= k3_tol["atol"] + k3_tol["rtol"] * max(k3.ref_max, 1.0)
+                  and k5a.rel <= k5_tol and k5b.rel <= k5_tol)
+    emit("small_train", cases=cases, k5_tol_of_largest=K5_TOL, ok=ok)
+    if not ok:
+        raise AssertionError("card and CPU disagree on the mock LoRA trainer")
 
 
 def _teacher_forced(torch, te, pipeline_mod, p, ids, emb, forced, dp):
@@ -970,6 +1214,122 @@ def phase_serve(torch, tq8, tfd, tfa, tq4, sl):
     return w8["launches"], w4["launches"]
 
 
+def _checksum(torch, base):
+    """A few sums over the frozen base, to show that a run left it as it was."""
+    wq = base["layers"]["wq"]
+    return [int(wq["w_q"][::8].to(torch.int32).sum()), float(wq["scale"].sum()),
+            float(base["embed"].float().sum()),
+            int(base["lm_head"]["w_q"][::64].to(torch.int32).sum()),
+            float(base["layers"]["input_ln"].sum())]
+
+
+def _train_run(torch, tfa, ft, base, data, out_dir, flash):
+    """TRAIN_STEPS micro-steps of apps/finetune_lora.train at full width on
+    ``base``; the first step warms up. Returns the numbers and whether every
+    check held."""
+    from radialog_tpu_torch.core.checkpoint import load_checkpoint
+    from radialog_tpu_torch.train.optim import tree_leaves
+    counted = {"flash_attention": tfa.flash_attention_kernel,
+               "flash_attention_dq": tfa.flash_attention_dq_kernel,
+               "flash_attention_dkv": tfa.flash_attention_dkv_kernel}
+    cfg = ft.FinetuneConfig(synthetic=True, data_path=data, output_dir=out_dir,
+                            batch_size=MICRO * ACCUM, micro_batch_size=MICRO, num_epochs=4,
+                            max_steps=TRAIN_STEPS, cutoff_len=CUTOFF, val_set_size=2,
+                            use_embs=True, use_instruct_data=True, quantize_base=True,
+                            flash=flash)
+    before = _checksum(torch, base)
+    stamps, per_step, logs = [], [], []
+
+    def on_step(step, metrics):
+        torch.cuda.synchronize()
+        stamps.append(time.time())
+        per_step.append({"loss": float(metrics["loss"]),
+                         "grad_norm": float(metrics["grad_norm"]),
+                         "tokens": metrics["tokens"],
+                         **{n: f.launches for n, f in counted.items()}})
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counted.values():
+        fn.launches = 0
+    t0 = time.time()
+    state = ft.train(cfg, log_fn=logs.append, on_step=on_step, base=base)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    launches = {n: f.launches for n, f in counted.items()}
+    layers = 32
+    per = {n: [b[n] - a[n] for a, b in zip(per_step, per_step[1:])] for n in counted}
+    step_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    losses = [m["loss"] for m in per_step]
+    lora = state.params
+    b_norms = {t: float(ab["b"].float().norm()) for t, ab in lora["layers"].items()}
+    saved, meta = load_checkpoint(out_dir, "last", target=lora)
+    val = [m for m in logs if "val_loss" in m]
+    expect = ({"flash_attention": 2 * layers, "flash_attention_dq": layers,
+               "flash_attention_dkv": layers} if flash else dict.fromkeys(counted, 0))
+    ok = (len(per_step) == TRAIN_STEPS and state.step == TRAIN_STEPS
+          and all(x == x and abs(x) != float("inf") for x in losses)
+          and losses[-1] < 2 * losses[0] and all(m["grad_norm"] > 0 for m in per_step)
+          and all(v > 0 for v in b_norms.values()) and _checksum(torch, base) == before
+          and all(x == expect[n] for n in counted for x in [per_step[0][n], *per[n]])
+          # the run's total: the micro-steps and one validation batch (K3 only)
+          and launches == {n: TRAIN_STEPS * expect[n] for n in counted}
+          | {"flash_attention": TRAIN_STEPS * expect["flash_attention"] + (layers if flash else 0)}
+          and len(val) == 1 and val[0]["val_loss"] == val[0]["val_loss"]
+          and meta.get("step") == TRAIN_STEPS
+          and all(torch.equal(a, b) for a, b in zip(tree_leaves(saved), tree_leaves(lora))))
+    # end to end: the sequences' own tokens (padding is not counted) of the
+    # steps after the warm-up over the whole span from the first stamp to the
+    # last, so that a stalled step shows; the median is the step's own figure
+    tokens = [m["tokens"] for m in per_step[1:]]
+    span_s = stamps[-1] - stamps[0]
+    return {"flash": flash, "micro_batch": MICRO, "cutoff": CUTOFF, "accum": ACCUM,
+            "micro_steps": TRAIN_STEPS, "tokens_per_s": sum(tokens) / span_s,
+            "tokens_per_step": tokens,
+            "padded_positions_per_s": len(tokens) * MICRO * CUTOFF / span_s,
+            "ms_per_step_mean": span_s * 1e3 / len(step_ms),
+            "ms_per_step_median": statistics.median(step_ms), "ms_per_step_all": step_ms,
+            "seconds_with_validation": seconds,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "losses": losses,
+            "grad_norms": [m["grad_norm"] for m in per_step],
+            "val_loss": val and val[0]["val_loss"],
+            "lora_b_norms": b_norms, "launches": launches, "launches_per_micro_step": expect,
+            "base_untouched": _checksum(torch, base) == before,
+            "checkpoint_step": meta.get("step"), "ok": ok}, ok
+
+
+def phase_train(torch, tfa):
+    """LoRA finetuning of Vicuna-7B over the int8 base, with flash attention
+    and then without, on the same base and batches."""
+    import tempfile
+    from pathlib import Path
+    from radialog_tpu_torch.apps import finetune_lora as ft
+    from radialog_tpu_torch.models.llama import VICUNA_7B
+    from radialog_tpu_torch.ops.quant import random_q8_train_base
+    torch.cuda.synchronize()
+    before_gb = torch.cuda.memory_allocated() / 1e9     # what earlier phases left behind
+    t0 = time.time()
+    base = random_q8_train_base(VICUNA_7B, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    base_gb = torch.cuda.memory_allocated() / 1e9 - before_gb
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = Path(tmp) / "instruct.json"
+        # answers of 360-690 words after a ~60-token prompt: sequences of
+        # ~420 tokens up to the cutoff, where the longer ones are truncated
+        data.write_text(json.dumps(_train_records(14, lambda j: 360 + 30 * (j % 12))))
+        for flash in (True, False):
+            numbers, ok = _train_run(torch, tfa, ft, base, str(data),
+                                     str(Path(tmp) / f"lora-{flash}"), flash)
+            emit("train", base_build_s=build_s, base_gb=base_gb,
+                 allocated_before_the_phase_gb=before_gb, **numbers)
+            if not ok:
+                raise AssertionError(f"the full-width train phase (flash={flash}) failed a check")
+            out[flash] = numbers
+    return out[True]["launches"]
+
+
 def main() -> int:
     try:
         import torch
@@ -1012,12 +1372,17 @@ def main() -> int:
     k2, k2_ring = phase_k2(torch, tfd, flush)
     k3 = phase_k3(torch, tfa, flush)
     k4 = phase_k4(torch, tq4, flush)
+    k5 = phase_k5(torch, tfa, flush)
     phase_small(torch, te, pipeline_mod, tq8, tfd, tfa, tq4)
     del flush_buf
     torch.cuda.empty_cache()
     launches, sl = phase_slice(torch, te, pipeline_mod, tq8, tfd)
     qa_launches = phase_qa(torch, tq8, tfd, tfa, sl)
     serve_launches, serve4_launches = phase_serve(torch, tq8, tfd, tfa, tq4, sl)
+    del sl                                  # the serving weights make room for the trainer's
+    gc.collect()                            # the servers' reference cycles hold their params
+    torch.cuda.empty_cache()
+    train_launches = phase_train(torch, tfa)
 
     kernels = [
         {"name": "q8_matmul", "route": "cuda", "source": "radialog_tpu_torch/csrc/q8_matmul.cu",
@@ -1051,7 +1416,8 @@ def main() -> int:
          "ms": k3["ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
          "bound_by": k3["bound_by"], "library_ms": k3["library_ms"],
          "work": "one layer's binary-QA prefix attention, B=1, T=S=431, H=32, D=128, bf16, "
-                 "causal, q/k/v views of the fused projection; launches of the qa phase"},
+                 "causal, q/k/v views of the fused projection; launches of the qa phase",
+         "launches_train": train_launches["flash_attention"]},
         {"name": "q4_matmul", "route": "cuda", "source": "radialog_tpu_torch/csrc/q4_matmul.cu",
          "replaces": "radialog_tpu/ops/q4_matmul.py:177",
          "launches": serve4_launches["q4_matmul"], "max_abs_err": k4["max_abs_err"],
@@ -1059,6 +1425,19 @@ def main() -> int:
          "bound_by": k4["bound_by"], "library_ms": None,
          "work": "one decoder layer's 4 projections at decode, M=16, asymmetric grid; "
                  "launches of the serve phase (W4A8)"},
+        {"name": "flash_attention_dq", "route": "cuda",
+         "source": "radialog_tpu_torch/csrc/flash_attention_bwd.cu",
+         "replaces": "radialog_tpu/ops/flash_attention.py:124",
+         "launches": train_launches["flash_attention_dq"], **k5["dq"],
+         "work": "one layer's dq at the train phase's shape, B=2, T=S=600, lengths 600 and "
+                 "413, H=32, D=128, bf16, causal, q/k/v contiguous; "
+                 "library_ms: the whole backward of scaled_dot_product_attention (dq, dk "
+                 "and dv); launches of the train phase with flash"},
+        {"name": "flash_attention_dkv", "route": "cuda",
+         "source": "radialog_tpu_torch/csrc/flash_attention_bwd.cu",
+         "replaces": "radialog_tpu/ops/flash_attention.py:159",
+         "launches": train_launches["flash_attention_dkv"], **k5["dkv"],
+         "work": "one layer's dk and dv at the same shape; library_ms as for dq"},
     ]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

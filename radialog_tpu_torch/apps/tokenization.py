@@ -1,15 +1,39 @@
-"""Tokenizer pieces the serving path needs, copied from
+"""Tokenizer pieces the serving and finetune paths need, copied from
 radialog_tpu/data/tokenization.py so the port imports nothing of the JAX
-package: the deterministic ``WhitespaceTokenizer`` stand-in and
-``pad_batch_right``."""
+package: the deterministic ``WhitespaceTokenizer`` stand-in,
+``pad_batch_right``, and for finetuning the vicuna_v11 ``Prompter``,
+``tokenize_with_masked_prompt`` and ``pad_labels_right``."""
 from __future__ import annotations
 
+import dataclasses
 import zlib
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 IMG_TOKEN = "<IMG>"
+IGNORE_INDEX = -100
+
+
+@dataclasses.dataclass(frozen=True)
+class Prompter:
+    """vicuna_v11 template: '{instruction} {input}' with the response
+    appended directly and 'ASSISTANT:' as the response split."""
+
+    prompt_input: str = "{instruction} {input}"
+    prompt_no_input: str = "{instruction}"
+    response_split: str = "ASSISTANT:"
+
+    def generate_prompt(self, instruction: str, input: Optional[str] = None,
+                        label: Optional[str] = None) -> str:
+        res = (self.prompt_input.format(instruction=instruction, input=input)
+               if input else self.prompt_no_input.format(instruction=instruction))
+        if label:
+            res = f"{res}{label}"
+        return res
+
+    def get_response(self, output: str) -> str:
+        return output.split(self.response_split)[1].strip()
 
 
 class WhitespaceTokenizer:
@@ -67,3 +91,32 @@ def pad_batch_right(seqs: Sequence[Sequence[int]], pad_id: int,
     for i, s in enumerate(seqs):
         out[i, :len(s)] = np.asarray(s, np.int32)[:t]
     return out, np.minimum(lengths, t)
+
+
+def tokenize_with_masked_prompt(tokenizer, prompter: Prompter, record: Dict,
+                                cutoff_len: int = 600, train_on_inputs: bool = False,
+                                add_eos_token: bool = True) -> Dict[str, List[int]]:
+    """Tokenize instruction + input + output, append eos if it fits, and
+    mask the prompt span with -100 unless ``train_on_inputs``."""
+    def tok(text: str, add_eos: bool) -> List[int]:
+        ids = tokenizer(text, truncation=True, max_length=cutoff_len)["input_ids"]
+        if add_eos and len(ids) < cutoff_len and (not ids or ids[-1] != tokenizer.eos_token_id):
+            ids = ids + [tokenizer.eos_token_id]
+        return ids
+
+    full = tok(prompter.generate_prompt(record["instruction"], record.get("input"),
+                                        record["output"]), add_eos_token)
+    labels = list(full)
+    if not train_on_inputs:
+        user = tok(prompter.generate_prompt(record["instruction"], record.get("input")),
+                   add_eos_token)
+        user_len = len(user) - (1 if add_eos_token else 0)
+        labels[:user_len] = [IGNORE_INDEX] * user_len
+    return {"input_ids": full, "labels": labels, "attention_mask": [1] * len(full)}
+
+
+def pad_labels_right(labels: Sequence[Sequence[int]], t: int) -> np.ndarray:
+    out = np.full((len(labels), t), IGNORE_INDEX, np.int32)
+    for i, s in enumerate(labels):
+        out[i, :min(len(s), t)] = np.asarray(s, np.int32)[:t]
+    return out

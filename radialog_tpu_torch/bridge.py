@@ -98,6 +98,28 @@ def lora(tree: Dict, device="cuda") -> Dict:
     return to_torch(tree, device)
 
 
+def llama_stacked(tree: Dict, device="cuda") -> Dict:
+    """The stacked training tree, float (llama_init) or with the
+    {"w_q", "scale"} leaves of quantize_llama / quantize_llama_np: the port
+    keeps both layouts as they are."""
+    return to_torch(tree, device)
+
+
+def adamw_state(state: Dict, device="cuda") -> Dict:
+    """The optimizer state of train/optim.make_adamw from numpy: {"count",
+    "mu", "nu"}, or with accumulation {"mini_step", "gradient_step", "acc",
+    "inner": {...}}. Counters become Python ints."""
+    out = {}
+    for k, v in state.items():
+        if k in ("count", "mini_step", "gradient_step"):
+            out[k] = int(v)
+        elif k == "inner":
+            out[k] = adamw_state(v, device)
+        else:
+            out[k] = to_torch(v, device)
+    return out
+
+
 def biovil_t(params: Dict, state: Dict, device="cuda") -> Tuple[Dict, Dict]:
     """biovil_t_init's (params, batchnorm state)."""
     return to_torch(params, device), to_torch(state, device)

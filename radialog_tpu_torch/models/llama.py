@@ -1,5 +1,6 @@
 """LLaMA decoder (Vicuna-7B) with LoRA on q/v and the image-embedding splice:
-the unrolled W8A8 serving path of radialog_tpu/models/llama.py.
+the unrolled W8A8 serving path and the stacked training layout of
+radialog_tpu/models/llama.py.
 
 Covered: prefill straight into the int8 token-flat cache (attention on the
 layer's own compute-dtype K/V, optionally merged with a shared prefix in one
@@ -10,9 +11,18 @@ cache-free prefill that ``prefix_kv``, the engine's small-batch ``prefill``
 and the ring batcher's admission run, whose attention at 256 tokens or more
 is the flash-attention kernel (ops/flash_attention.py, K3), and the bf16
 cache of the ring batcher (``mha`` over the layer's cache rows with the
-caller's bias). Layer projections are W8A8 (K1) or W4A8 (K4) leaves. The
-stacked-scan training layout, speculative ``verify``, ``defer_kv`` and
-tensor parallelism are not ported yet.
+caller's bias). Layer projections are W8A8 (K1) or W4A8 (K4) leaves.
+
+The stacked training layout (``llama_init``'s tree, float or with the
+``{"w_q", "scale"}`` leaves of ops/quant.quantize_llama): ``params["layers"]``
+is a dict of leaves with a leading layer axis and separate wq/wk/wv/gate/up;
+a layer's weights are the views ``leaf[i]`` (no copy and no scan), LoRA
+deltas go through ``_proj``, there is no cache, and ``remat`` recomputes
+each layer in the backward pass (``torch.utils.checkpoint``). With ``flash``
+its attention at 256 tokens or more is differentiable through K3 forward and
+K5a/K5b backward. The stacked layout with a cache (the scan decode),
+speculative ``verify``, ``defer_kv`` and tensor parallelism are not ported
+yet.
 
 The KV cache is updated IN PLACE (a PyTorch tensor is mutable; the JAX
 package returns a new cache from dynamic_update_slice): ``llama_apply``
@@ -26,6 +36,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import NEG_INF, mha, mha_shared_prefix
 from ..ops.flash_attention import flash_attention
@@ -199,37 +210,63 @@ def _lora_delta(lora_layer: Dict, name: str, x, lora_scale, policy):
     return lora_scale * linear({"w": la["b"]}, linear({"w": la["a"]}, x, policy), policy)
 
 
-def _use_flash(lengths, t: int) -> bool:
-    """Flash attention (K3) for a cache-free prefill (the only caller) of
-    256 tokens or more with lengths given, on any device (the kernel on a
-    card, its plain version on the CPU). The JAX package also asks for a TPU
-    backend; that test is of its hardware, not of the function."""
-    return lengths is not None and t >= 256
+def _proj(lp: Dict, lora_layer, name: str, x, lora_scale, policy):
+    y = linear(lp[name], x, policy)
+    if lora_layer is not None and name in lora_layer:
+        y = y + _lora_delta(lora_layer, name, x, lora_scale, policy).to(y.dtype)
+    return y
+
+
+def qkv_proj(lp: Dict, lora_layer, lora_scale, cfg: LlamaConfig, x, policy):
+    """One layer's Q/K/V in either weight layout: the fused "wqkv" matmul
+    of the serving params with the LoRA deltas added to its slices, or the
+    separate wq/wk/wv of the stacked training layout. Returns head-split
+    (B,T,nh,hd), (B,T,nkv,hd), (B,T,nkv,hd), before RoPE."""
+    b, t, _ = x.shape
+    nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    if "wqkv" in lp:
+        q, k, v = torch.split(linear(lp["wqkv"], x, policy), [nh * hd, nkv * hd, nkv * hd],
+                              dim=-1)
+        if lora_layer is not None:
+            q, k, v = (y + _lora_delta(lora_layer, name, x, lora_scale, policy).to(y.dtype)
+                       if name in lora_layer else y
+                       for name, y in (("wq", q), ("wk", k), ("wv", v)))
+    else:
+        q, k, v = (_proj(lp, lora_layer, name, x, lora_scale, policy)
+                   for name in ("wq", "wk", "wv"))
+    return q.reshape(b, t, nh, hd), k.reshape(b, t, nkv, hd), v.reshape(b, t, nkv, hd)
+
+
+def _use_flash(lengths, t: int, flash: bool = True) -> bool:
+    """Flash attention (K3, and K5a/K5b under autograd) for a cache-free
+    forward (the only caller) of 256 tokens or more with lengths given,
+    unless the caller passes ``flash=False``; on any device (the kernels on a
+    card, their plain versions on the CPU). The JAX package also asks for a
+    TPU backend; that test is of its hardware, not of the function."""
+    return flash and lengths is not None and t >= 256
 
 
 def _attention_block(lp: Dict, lora_layer, lora_scale, cfg: LlamaConfig, x, positions,
                      rope, bias, cache: Optional[KVCache], layer_idx: int, write_pos,
-                     policy: DTypePolicy, lengths=None, slot_info=None, shared_layer=None):
+                     policy: DTypePolicy, lengths=None, slot_info=None, shared_layer=None,
+                     flash: bool = True):
     b, t, _ = x.shape
     nh, hd = cfg.num_heads, cfg.head_dim
-    qkv = linear(lp["wqkv"], x, policy)
-    q, k, v = torch.split(qkv, [nh * hd, nh * hd, nh * hd], dim=-1)
-    if lora_layer is not None:
-        if "wq" in lora_layer:
-            q = q + _lora_delta(lora_layer, "wq", x, lora_scale, policy).to(q.dtype)
-        if "wv" in lora_layer:
-            v = v + _lora_delta(lora_layer, "wv", x, lora_scale, policy).to(v.dtype)
-    q, k, v = (y.reshape(b, t, nh, hd) for y in (q, k, v))
+    q, k, v = qkv_proj(lp, lora_layer, lora_scale, cfg, x, policy)
     cos, sin = rope
     q = apply_rope(q, cos, sin, positions)
     k = apply_rope(k, cos, sin, positions)
 
-    if cache is None:   # cache-free prefill: return the fresh K/V
-        if _use_flash(lengths, t):
-            o = flash_attention(q, k, v, lengths, causal=True)
+    if cache is None:   # cache-free prefill or training forward: return the fresh K/V
+        k_all, v_all = k, v
+        if cfg.num_kv_heads != nh:   # GQA broadcast
+            rep = nh // cfg.num_kv_heads
+            k_all, v_all = k.repeat_interleave(rep, dim=2), v.repeat_interleave(rep, dim=2)
+        if _use_flash(lengths, t, flash):
+            o = flash_attention(q, k_all, v_all, lengths, causal=True)
         else:
-            o = mha(q, k, v, bias=bias)
-        return linear(lp["wo"], o.reshape(b, t, nh * hd), policy), (k, v)
+            o = mha(q, k_all, v_all, bias=bias)
+        return _proj(lp, lora_layer, "wo", o.reshape(b, t, nh * hd), lora_scale, policy), (k, v)
 
     rows = slice(write_pos, write_pos + t)
     if not cache.quantized:
@@ -242,7 +279,8 @@ def _attention_block(lp: Dict, lora_layer, lora_scale, cfg: LlamaConfig, x, posi
         else:       # decode over the layer's cache rows, masked by the caller's bias
             o = mha(q, cache.k[layer_idx].to(x.dtype), cache.v[layer_idx].to(x.dtype),
                     bias=bias)
-        return linear(lp["wo"], o.reshape(b, t, nh * hd), policy), cache
+        return _proj(lp, lora_layer, "wo", o.reshape(b, t, nh * hd), lora_scale,
+                     policy), cache
 
     k8, ks = quantize_kv(k)
     v8, vs = quantize_kv(v)
@@ -272,12 +310,22 @@ def _attention_block(lp: Dict, lora_layer, lora_scale, cfg: LlamaConfig, x, posi
                               lengths, layer_idx=layer_idx, scale=hd ** -0.5, shared=sl,
                               p0=p0, **mask)[:, None].to(q.dtype)
     o = o.reshape(b, t, nh * hd)
-    return linear(lp["wo"], o, policy), cache
+    return _proj(lp, lora_layer, "wo", o, lora_scale, policy), cache
 
 
 def _mlp(lp: Dict, x, policy: DTypePolicy):
-    g, u = torch.chunk(linear(lp["gateup"], x, policy), 2, dim=-1)
+    if "gateup" in lp:   # fused serving layout
+        g, u = torch.chunk(linear(lp["gateup"], x, policy), 2, dim=-1)
+    else:
+        g, u = linear(lp["gate"], x, policy), linear(lp["up"], x, policy)
     return linear(lp["down"], F.silu(g) * u, policy)
+
+
+def _layer_view(layers: Dict, i: int) -> Dict:
+    """Layer ``i`` of a stacked tree: every leaf indexed on its leading
+    layer axis (views, no copy)."""
+    return {name: ({k: v[i] for k, v in leaf.items()} if isinstance(leaf, dict) else leaf[i])
+            for name, leaf in layers.items()}
 
 
 def llama_apply(params: Dict, cfg: LlamaConfig, tokens: torch.Tensor,
@@ -288,11 +336,20 @@ def llama_apply(params: Dict, cfg: LlamaConfig, tokens: torch.Tensor,
                 lora: Optional[Dict] = None, policy: DTypePolicy = FP32,
                 lengths: Optional[torch.Tensor] = None, slot_info=None,
                 last_pos: Optional[torch.Tensor] = None,
-                shared_kv=None, shared_p0: Optional[int] = None):
-    """Unrolled serving forward. Returns (logits, cache): logits (B,T,V) or,
+                shared_kv=None, shared_p0: Optional[int] = None,
+                remat: bool = False, flash: bool = True):
+    """The forward, over the unrolled serving layout (``params["layers"]`` a
+    list) or the stacked training layout (a dict of leaves with a leading
+    layer axis; no cache). Returns (logits, cache): logits (B,T,V) or,
     with ``last_pos`` (B,), (B,1,V) f32. With ``cache`` the updated cache
     (the same object, written in place); without, a PrefixKV of the fresh
     per-layer K/V (L,B,T,H,D).
+
+    ``flash=False`` keeps attention on ``mha`` where flash attention would
+    apply. ``remat`` recomputes each layer in the backward pass instead of
+    keeping its activations; a forward that records gradients with ``remat``
+    returns None in place of the fresh K/V (a training step reads only the
+    logits, and keeping them would hold every layer's K and V alive).
 
     tokens/positions (B,T); bias (B|1,1,T,T) for a prefill, (B,1,1,S) for
     single-token decode over the bf16 cache; ``write_pos`` the first cache
@@ -302,9 +359,12 @@ def llama_apply(params: Dict, cfg: LlamaConfig, tokens: torch.Tensor,
     int32 with an empty interval marked b = -1; shared_kv: a PrefixKV for
     a prefill, or per-layer int8 (k0, ks0, v0, vs0) tuples for decode with
     ``shared_p0`` live prefix rows."""
-    if not isinstance(params["layers"], (list, tuple)):
-        raise ValueError("the port runs the unrolled serving layout "
-                         "(ops/quant.quantize_llama_host)")
+    stacked = not isinstance(params["layers"], (list, tuple))
+    if stacked and (cache is not None or shared_kv is not None):
+        raise NotImplementedError(
+            "the stacked layout runs without a cache and without a shared prefix; caches "
+            "need the unrolled serving params (ops/quant.quantize_llama_host)")
+    num_layers = cfg.num_layers if stacked else len(params["layers"])
     x = embedding_lookup(params["embed"], tokens).to(policy.compute)
     lora_scale = lora["scale"] if lora is not None else None
     if img_embs is not None and img_start is not None:
@@ -315,9 +375,12 @@ def llama_apply(params: Dict, cfg: LlamaConfig, tokens: torch.Tensor,
     lora_layers = lora["layers"] if lora is not None else None
     fresh_k: List[torch.Tensor] = []
     fresh_v: List[torch.Tensor] = []
-    for i, lp in enumerate(params["layers"]):
-        ll = ({n: {"a": d["a"][i], "b": d["b"][i]} for n, d in lora_layers.items()}
-              if lora_layers is not None else None)
+    remat = remat and torch.is_grad_enabled()
+    keep_kv = cache is None and not remat
+
+    def layer_fn(x, i):
+        lp = _layer_view(params["layers"], i) if stacked else params["layers"][i]
+        ll = _layer_view(lora_layers, i) if lora_layers is not None else None
         if shared_kv is None:
             shared_layer = None
         elif isinstance(shared_kv, PrefixKV):
@@ -327,17 +390,24 @@ def llama_apply(params: Dict, cfg: LlamaConfig, tokens: torch.Tensor,
         h = rmsnorm(lp["input_ln"], x, cfg.rms_eps)
         attn_out, out = _attention_block(lp, ll, lora_scale, cfg, h, positions, rope, bias,
                                          cache, i, write_pos, policy, lengths=lengths,
-                                         slot_info=slot_info, shared_layer=shared_layer)
-        if cache is None:
+                                         slot_info=slot_info, shared_layer=shared_layer,
+                                         flash=flash)
+        if keep_kv:
             fresh_k.append(out[0])
             fresh_v.append(out[1])
         x = x + attn_out
         h = rmsnorm(lp["post_ln"], x, cfg.rms_eps)
-        x = x + _mlp(lp, h, policy)
+        return x + _mlp(lp, h, policy)
+
+    for i in range(num_layers):
+        if remat:   # no dropout in the layer: no RNG state to preserve
+            x = checkpoint(layer_fn, x, i, use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = layer_fn(x, i)
     logits = _final_logits(params, cfg, x, policy, last_pos)
     if cache is not None:
         return logits, cache
-    return logits, PrefixKV(torch.stack(fresh_k), torch.stack(fresh_v))
+    return logits, (PrefixKV(torch.stack(fresh_k), torch.stack(fresh_v)) if keep_kv else None)
 
 
 def _final_logits(params: Dict, cfg: LlamaConfig, x, policy, last_pos):

@@ -1,12 +1,18 @@
-"""Causal, length-masked attention forward with an online softmax (flash
-attention), for prefills without a cache.
+"""Causal, length-masked attention with an online softmax (flash
+attention), forward and backward, for prefills without a cache and for
+training.
 
-Port of the forward of radialog_tpu/ops/flash_attention.py (``_fwd_kernel``
-through ``_flash_attention_jit``). On a CUDA tensor the wrapper launches
-the hand-written kernel K3 (csrc/flash_attention.cu); on a CPU tensor it
-runs the plain PyTorch version ``flash_attention_plain``, which walks the
+Port of radialog_tpu/ops/flash_attention.py (``_fwd_kernel``, ``_dq_kernel``
+and ``_dkv_kernel`` through ``_flash_attention_jit`` and its custom VJP). On
+a CUDA tensor the wrappers launch the hand-written kernels: K3
+(csrc/flash_attention.cu) forward, K5a and K5b (csrc/flash_attention_bwd.cu)
+backward. On a CPU tensor they run the plain PyTorch versions
+``flash_attention_plain`` and ``flash_attention_bwd_plain``, which walk the
 JAX package's blocks (bq = min(256, T), bk = min(256, S), zero padding to
-block multiples) with the same online update.
+block multiples) with the same online update and the same recomputation.
+``flash_attention`` is differentiable in q, k and v on both devices through
+a ``torch.autograd.Function`` over these: no gradient comes from autograd
+through the plain forward.
 
 The math:
   s = (q . k in f32) * scale, masked to -1e30 where k_pos >= length (and
@@ -18,7 +24,17 @@ The math:
   docstring states; its arithmetic gives the mean of the zero-padded V
   blocks there, which no caller reaches)
 
-Lengths above S are clamped to S. The backward (K5a/K5b) is not ported.
+The backward (FlashAttention-2 style), from the saved out and lse:
+  delta = rowsum(do * out) in f32 (a PyTorch reduction, as the JAX package
+      leaves it to XLA)
+  p  = exp(s - lse) where the key is valid, exactly 0 elsewhere (so a row
+      with lse = LSE_DEAD, and a lane of length 0, give zero gradients)
+  dp = do . v in f32; ds = (p * (dp - delta) * scale) rounded to q's dtype
+  dq = sum over keys of ds . k (K5a); dv = sum over queries of p^T . do with
+      p rounded to do's dtype, dk = sum over queries of ds^T . q (K5b); f32
+      sums, results in the input dtype; rows of k/v past the length get 0
+
+Lengths above S are clamped to S.
 """
 from __future__ import annotations
 
@@ -133,11 +149,194 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention_kernel.launches = 0
 
 
+# ------------------------------------------------------------------ backward
+def _delta(out: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """rowsum(do * out) in f32, (B,T,H,D) -> (B,H,T)."""
+    return (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def _bwd_blocks(q, k, v, lengths, lse, delta, do, causal, scale, bq, bk):
+    """The blocks both plain backward passes walk: yields, per (query block,
+    key block), the row and column slices and the block's p (f32), ds
+    (rounded to q's dtype, as f32), with q/k/v/do as padded (B,H,*,D) f32."""
+    b, t, h, d = q.shape
+    s_len = k.shape[1]
+    bq, bk = min(bq, t), min(bk, s_len)
+    tp, sp = -(-t // bq) * bq, -(-s_len // bk) * bk
+    dev = q.device
+    qt = F.pad(q, (0, 0, 0, 0, 0, tp - t)).transpose(1, 2).float()
+    ot = F.pad(do, (0, 0, 0, 0, 0, tp - t)).transpose(1, 2).float()
+    kt = F.pad(k, (0, 0, 0, 0, 0, sp - s_len)).transpose(1, 2).float()
+    vt = F.pad(v, (0, 0, 0, 0, 0, sp - s_len)).transpose(1, 2).float()
+    lse_p = F.pad(lse.float(), (0, tp - t), value=LSE_DEAD)[..., None]
+    delta_p = F.pad(delta.float(), (0, tp - t))[..., None]
+    lens = torch.clamp(lengths.to(device=dev, dtype=torch.long), max=s_len)[:, None, None, None]
+
+    def block(qi, ki):
+        rows, cols = slice(qi * bq, (qi + 1) * bq), slice(ki * bk, (ki + 1) * bk)
+        q_pos = torch.arange(qi * bq, (qi + 1) * bq, device=dev)[:, None]
+        k_pos = torch.arange(ki * bk, (ki + 1) * bk, device=dev)[None, :]
+        mask = k_pos < lens
+        if causal:
+            mask = mask & (k_pos <= q_pos)
+        s = torch.matmul(qt[:, :, rows], kt[:, :, cols].transpose(-1, -2)) * scale
+        p = torch.where(mask, torch.exp(torch.where(mask, s, torch.full_like(s, NEG_INF))
+                                        - lse_p[:, :, rows]), torch.zeros_like(s))
+        dp = torch.matmul(ot[:, :, rows], vt[:, :, cols].transpose(-1, -2))
+        ds = (p * (dp - delta_p[:, :, rows]) * scale).to(q.dtype).float()
+        return rows, cols, p, ds
+
+    return (qt, kt, ot), (tp // bq, sp // bk), block
+
+
+def flash_attention_dq_plain(q, k, v, lengths, lse, delta, do, causal: bool = True,
+                             scale: Optional[float] = None, bq: int = 256, bk: int = 256):
+    """Plain version of K5a: dq (B,T,H,D) in q's dtype. lse, delta (B,H,T)."""
+    t, d = q.shape[1], q.shape[3]
+    scale = float(scale if scale is not None else d ** -0.5)
+    (qt, kt, _), (nq, nk), block = _bwd_blocks(q, k, v, lengths, lse, delta, do, causal,
+                                               scale, bq, bk)
+    dq = torch.zeros_like(qt)
+    for qi in range(nq):
+        for ki in range(nk):
+            rows, cols, _, ds = block(qi, ki)
+            dq[:, :, rows] += torch.matmul(ds, kt[:, :, cols])
+    return dq.transpose(1, 2)[:, :t].to(q.dtype)
+
+
+def flash_attention_dkv_plain(q, k, v, lengths, lse, delta, do, causal: bool = True,
+                              scale: Optional[float] = None, bq: int = 256, bk: int = 256):
+    """Plain version of K5b: (dk, dv), each (B,S,H,D) in k's dtype."""
+    s_len, d = k.shape[1], q.shape[3]
+    scale = float(scale if scale is not None else d ** -0.5)
+    (qt, kt, ot), (nq, nk), block = _bwd_blocks(q, k, v, lengths, lse, delta, do, causal,
+                                                scale, bq, bk)
+    dk, dv = torch.zeros_like(kt), torch.zeros_like(kt)
+    for ki in range(nk):
+        for qi in range(nq):
+            rows, cols, p, ds = block(qi, ki)
+            dv[:, :, cols] += torch.matmul(p.to(do.dtype).float().transpose(-1, -2),
+                                           ot[:, :, rows])
+            dk[:, :, cols] += torch.matmul(ds.transpose(-1, -2), qt[:, :, rows])
+    return (dk.transpose(1, 2)[:, :s_len].to(k.dtype),
+            dv.transpose(1, 2)[:, :s_len].to(v.dtype))
+
+
+def flash_attention_bwd_plain(q, k, v, lengths, out, lse, do, causal: bool = True,
+                              scale: Optional[float] = None, bq: int = 256, bk: int = 256):
+    """Plain version of the whole backward: (dq, dk, dv) from the forward's
+    out and lse and the output's gradient do."""
+    delta = _delta(out, do)
+    dq = flash_attention_dq_plain(q, k, v, lengths, lse, delta, do, causal, scale, bq, bk)
+    dk, dv = flash_attention_dkv_plain(q, k, v, lengths, lse, delta, do, causal, scale, bq, bk)
+    return dq, dk, dv
+
+
+BWD_HEAD_DIMS = (16, 32, 64, 128)
+
+
+def _bwd_launch(name: str, q, k, v, lengths, lse, delta, do, causal, scale, outs):
+    """Checks shared by K5a and K5b, then the launch of ``name``."""
+    b, t, h, d = q.shape
+    s_len = k.shape[1]
+    if (k.shape != (b, s_len, h, d) or v.shape != k.shape or do.shape != q.shape
+            or lengths.shape != (b,) or lse.shape != (b, h, t) or delta.shape != (b, h, t)):
+        raise ValueError(f"K5 shapes do not fit: q {q.shape} k {k.shape} v {v.shape} do "
+                         f"{do.shape} lengths {lengths.shape} lse {lse.shape} delta "
+                         f"{delta.shape}")
+    if q.dtype not in (torch.bfloat16, torch.float32) or any(
+            x.dtype != q.dtype for x in (k, v, do)):
+        raise ValueError(f"K5 takes bf16 or f32 q/k/v/do of one dtype: {q.dtype} {k.dtype} "
+                         f"{v.dtype} {do.dtype}")
+    if d not in BWD_HEAD_DIMS:
+        raise ValueError(f"K5 is built for head_dim in {BWD_HEAD_DIMS}: {d}")
+    for x in (q, k, v, do, lengths, lse, delta):
+        if not (x.is_cuda and x.device == q.device):
+            raise ValueError("K5 takes CUDA tensors on one device")
+    q, k, v, do = (x if _strided_ok(x) else x.contiguous() for x in (q, k, v, do))
+    lens = lengths.to(torch.int32).contiguous()
+    lse, delta = lse.float().contiguous(), delta.float().contiguous()
+    scale = float(scale if scale is not None else d ** -0.5)
+    strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                                       *do.stride()[:3])
+    fn = getattr(_build.load("flash_attention_bwd"), name)
+    fn.argtypes = ([ctypes.c_void_p] * (7 + len(outs)) + [ctypes.c_int] * 5
+                   + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_float,
+                      ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+              delta.data_ptr(), lens.data_ptr(), *(o.data_ptr() for o in outs), b, t, s_len, h,
+              d, strides, int(causal), scale, int(q.dtype == torch.bfloat16),
+              torch.cuda.current_stream(q.device).cuda_stream)
+
+
+def flash_attention_dq_kernel(q, k, v, lengths, lse, delta, do, causal: bool = True,
+                              scale: Optional[float] = None):
+    """K5a on the card; same signature and result as ``flash_attention_dq_plain``.
+    q/k/v/do are read through their strides."""
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    rc = _bwd_launch("flash_attention_dq_launch", q, k, v, lengths, lse, delta, do, causal,
+                     scale, (dq,))
+    flash_attention_dq_kernel.launches += 1
+    _build.check(rc, "flash_attention_dq_launch")
+    return dq
+
+
+def flash_attention_dkv_kernel(q, k, v, lengths, lse, delta, do, causal: bool = True,
+                               scale: Optional[float] = None):
+    """K5b on the card; same signature and result as ``flash_attention_dkv_plain``."""
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    rc = _bwd_launch("flash_attention_dkv_launch", q, k, v, lengths, lse, delta, do, causal,
+                     scale, (dk, dv))
+    flash_attention_dkv_kernel.launches += 1
+    _build.check(rc, "flash_attention_dkv_launch")
+    return dk, dv
+
+
+flash_attention_dq_kernel.launches = 0
+flash_attention_dkv_kernel.launches = 0
+
+
+def flash_attention_bwd_kernel(q, k, v, lengths, out, lse, do, causal: bool = True,
+                               scale: Optional[float] = None):
+    """The whole backward on the card: delta, then K5a and K5b."""
+    delta = _delta(out, do)
+    dq = flash_attention_dq_kernel(q, k, v, lengths, lse, delta, do, causal, scale)
+    dk, dv = flash_attention_dkv_kernel(q, k, v, lengths, lse, delta, do, causal, scale)
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """out, lse = forward(q, k, v, lengths); the gradient of out reaches q, k
+    and v through K5a/K5b on a card and their plain versions on the CPU."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, lengths, causal, scale):
+        fwd = flash_attention_kernel if q.is_cuda else flash_attention_plain
+        out, lse = fwd(q, k, v, lengths, causal=causal, scale=scale, with_lse=True)
+        ctx.save_for_backward(q, k, v, lengths, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, lengths, out, lse = ctx.saved_tensors
+        bwd = flash_attention_bwd_kernel if q.is_cuda else flash_attention_bwd_plain
+        dq, dk, dv = bwd(q, k, v, lengths, out, lse, do, ctx.causal, ctx.scale)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     lengths: torch.Tensor, causal: bool = True,
                     scale: Optional[float] = None, with_lse: bool = False):
     """q (B,T,H,D); k/v (B,S,H,D); lengths (B,) valid kv lengths. Returns
     (B,T,H,D) in q.dtype, and with ``with_lse`` also lse (B,H,T) f32. The
-    kernel K3 on a CUDA tensor, the plain version on a CPU tensor."""
+    kernels on a CUDA tensor, the plain versions on a CPU tensor.
+    Differentiable in q, k and v."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        out, lse = _FlashAttention.apply(q, k, v, lengths, causal, scale)
+        return (out, lse) if with_lse else out
     fn = flash_attention_kernel if q.is_cuda else flash_attention_plain
     return fn(q, k, v, lengths, causal=causal, scale=scale, with_lse=with_lse)

@@ -90,6 +90,9 @@ def linear(p, x: torch.Tensor, policy: DTypePolicy = FP32) -> torch.Tensor:
         return q8_matmul(x, p, out_dtype=policy.compute)
     if isinstance(p, PackedQ4):  # W4A8 serving leaf: kernel K4 on a card
         return q4_matmul(x, p, out_dtype=policy.compute)
+    if "w_q" in p:  # unpacked int8 leaf of the training base (ops/quant.py)
+        from .quant import linear_q8
+        return linear_q8(p, x, compute_dtype=policy.compute)
     y = torch.matmul(policy.cast(x), policy.cast(p["w"]))
     if "b" in p:
         y = y + policy.cast(p["b"])

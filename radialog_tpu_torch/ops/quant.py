@@ -1,8 +1,13 @@
-"""Host-side packing of LLaMA weights into the serving layout (port of
-radialog_tpu/ops/quant.py ``quantize_llama_host``, fuse=True).
+"""Int8 weights of the LLaMA projections (port of radialog_tpu/ops/quant.py).
 
-Projections become ``PackedQ8`` leaves (ops/q8_matmul.py) or, at ``bits=4``,
-``PackedQ4`` leaves (ops/q4_matmul.py); q|k|v and gate|up are concatenated
+Two layouts. The training layout (``quantize_weight``, ``quantize_llama``,
+``quantize_llama_np``, ``random_q8_train_base``) keeps the stacked tree of
+``llama_init`` and replaces each projection leaf by ``{"w_q" (..., in, out)
+int8, "scale" (..., out) f32}``: the frozen base of LoRA finetuning, which
+``linear_q8`` multiplies as ``(x @ w_q) * scale`` and differentiates in x
+only. The serving layout (``quantize_llama_host``, fuse=True) is packed on
+the host: projections become ``PackedQ8`` leaves (ops/q8_matmul.py) or, at
+``bits=4``, ``PackedQ4`` leaves (ops/q4_matmul.py); q|k|v and gate|up are concatenated
 into single matmuls; layers are a list of per-layer dicts (the unrolled
 serving path of models/llama.py). The lm_head stays int8 at either width:
 it decides the argmax.
@@ -10,13 +15,131 @@ it decides the argmax.
 from __future__ import annotations
 
 import functools
-from typing import Dict
+from typing import Any, Dict
 
 import numpy as np
 import torch
 
 from .q4_matmul import GROUP, PackedQ4, pack_q4, pick_bk
 from .q8_matmul import PackedQ8, pack_q8
+
+
+_QUANT_TARGETS = ("wq", "wk", "wv", "wo", "gate", "up", "down")
+
+
+def quantize_weight(w: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """(..., in, out) float -> {"w_q": int8, "scale": f32 per out channel}."""
+    wf = w.float()
+    scale = torch.clamp(wf.abs().amax(dim=-2, keepdim=True) / 127.0, min=1e-8)
+    w_q = torch.clamp(torch.round(wf / scale), -127, 127).to(torch.int8)
+    return {"w_q": w_q, "scale": scale.squeeze(-2)}
+
+
+def dequantize_weight(q: Dict[str, torch.Tensor], dtype=torch.float32) -> torch.Tensor:
+    return (q["w_q"].float() * q["scale"][..., None, :]).to(dtype)
+
+
+def is_quantized(p: Any) -> bool:
+    return isinstance(p, dict) and "w_q" in p
+
+
+class _LinearQ8(torch.autograd.Function):
+    """y = (x @ w_q) * scale in the compute dtype, differentiable in x only.
+    The backward dequantizes the int8 weight again instead of keeping its
+    compute-dtype copy alive (at Vicuna-7B widths autograd would otherwise
+    hold up to 90 MB per projection until the layer's backward)."""
+
+    @staticmethod
+    def forward(ctx, x, w_q, scale):
+        ctx.save_for_backward(w_q, scale)
+        return torch.matmul(x, w_q.to(x.dtype)) * scale
+
+    @staticmethod
+    def backward(ctx, dy):
+        w_q, scale = ctx.saved_tensors
+        return torch.matmul(dy * scale, w_q.to(dy.dtype).transpose(-1, -2)), None, None
+
+
+def linear_q8(q: Dict[str, torch.Tensor], x: torch.Tensor,
+              compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """The unpacked int8 leaf: y = (x @ w_q) * scale (+ b), products and
+    result in ``compute_dtype``. This product is outside any Pallas kernel
+    in the JAX package too (XLA's dot), so it is ``torch.matmul``."""
+    y = _LinearQ8.apply(x.to(compute_dtype), q["w_q"], q["scale"].to(compute_dtype))
+    if "b" in q:
+        y = y + q["b"].to(compute_dtype)
+    return y
+
+
+def quantize_llama(params: Dict, quantize_embed: bool = True) -> Dict:
+    """Stacked LLaMA tree -> the same tree with the projection leaves as
+    {"w_q", "scale"}. Norms stay float; with ``quantize_embed`` the lm_head
+    is quantized too and the embedding table kept in bf16."""
+    out = dict(params)
+    layers = dict(params["layers"])
+    for name in _QUANT_TARGETS:
+        layers[name] = quantize_weight(layers[name]["w"])
+    out["layers"] = layers
+    if quantize_embed:
+        out["lm_head"] = quantize_weight(params["lm_head"]["w"])
+        out["embed"] = params["embed"].to(torch.bfloat16)
+    return out
+
+
+def quantize_llama_np(params: Dict, device="cuda", quantize_embed: bool = True) -> Dict:
+    """``quantize_llama`` from a host tree (numpy arrays or CPU tensors),
+    moved to ``device`` leaf by leaf after quantization, so the float copy
+    never lives on the card. Norms become f32."""
+    def host(x):
+        return x.detach().cpu() if isinstance(x, torch.Tensor) else torch.from_numpy(
+            np.array(np.asarray(x, np.float32)))
+
+    def put(x, dtype=None):
+        return host(x).to(device=device, dtype=dtype)
+
+    def put_q(w):
+        return {k: v.to(device) for k, v in quantize_weight(host(w)).items()}
+
+    src = params["layers"]
+    layers = {name: put_q(src[name]["w"]) for name in _QUANT_TARGETS}
+    layers["input_ln"] = put(src["input_ln"], torch.float32)
+    layers["post_ln"] = put(src["post_ln"], torch.float32)
+    out = {"layers": layers, "final_ln": put(params["final_ln"], torch.float32)}
+    if quantize_embed:
+        out["lm_head"] = put_q(params["lm_head"]["w"])
+        out["embed"] = put(params["embed"], torch.bfloat16)
+    else:
+        out["lm_head"] = {"w": put(params["lm_head"]["w"])}
+        out["embed"] = put(params["embed"])
+    if "img_proj" in params:
+        out["img_proj"] = {k: put(v) for k, v in params["img_proj"].items()}
+    return out
+
+
+def random_q8_train_base(cfg, gen: torch.Generator, device="cuda") -> Dict:
+    """The stacked {"w_q", "scale"} training base at ``cfg``'s widths with
+    random int8 weights drawn on ``device`` from ``gen``, one int8 leaf at a
+    time (no int32 or float copy of a leaf: 6.6 GB of int8 at Vicuna-7B).
+    Scales ~1/(73 sqrt(K)) keep activations of unit scale through the depth
+    (uniform int8 has std ~73). Every weight is random, the lm_head too, so
+    hidden states differ per token and the gradient norm is a live signal."""
+    h, inter, L, V = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers, cfg.vocab_size
+    kvh = cfg.num_kv_heads * cfg.head_dim
+
+    def leaf(k: int, n: int, stacked: bool = True) -> Dict[str, torch.Tensor]:
+        lead = (L,) if stacked else ()
+        w = torch.randint(-127, 128, lead + (k, n), generator=gen, device=device,
+                          dtype=torch.int8)
+        jitter = torch.rand(lead + (n,), generator=gen, device=device) + 0.5
+        return {"w_q": w, "scale": jitter / (73.0 * k ** 0.5)}
+
+    layers = {"wq": leaf(h, h), "wk": leaf(h, kvh), "wv": leaf(h, kvh), "wo": leaf(h, h),
+              "gate": leaf(h, inter), "up": leaf(h, inter), "down": leaf(inter, h),
+              "input_ln": torch.ones((L, h), device=device),
+              "post_ln": torch.ones((L, h), device=device)}
+    embed = torch.randn((V, h), generator=gen, device=device) * 0.02
+    return {"embed": embed.to(torch.bfloat16), "layers": layers,
+            "final_ln": torch.ones(h, device=device), "lm_head": leaf(h, V, stacked=False)}
 
 
 def _check_bits(bits: int, w4_mode: str) -> None:

@@ -7,7 +7,14 @@ online update; only the order of the f32 sums inside a block differs). In
 bf16, outputs are compared in f32 at atol=rtol=1e-2: the products are
 exact in f32 on both sides, but an ulp of difference in p can flip its
 bf16 rounding before p @ v, and the output's own bf16 step near 1 is
-3.9e-3. lse is f32 on both sides: atol=1e-5, rtol=1e-6."""
+3.9e-3. lse is f32 on both sides: atol=1e-5, rtol=1e-6.
+
+The backward: ``jax.grad`` through the Pallas kernels in interpret mode (the
+custom FA2 VJP, ``_dq_kernel`` and ``_dkv_kernel``) against the port's
+autograd through ``flash_attention`` (on the CPU: the plain backward), f32,
+the same blocks on both sides, atol=2e-4 and rtol=1e-3 as the JAX package's
+own gradient test has them."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -90,3 +97,101 @@ def test_wrapper_takes_the_plain_version_on_the_cpu(monkeypatch):
     q = torch.zeros(1, 4, 1, 16)
     tfa.flash_attention(q, q, q, torch.tensor([4], dtype=torch.int32))
     assert not calls
+
+
+# ------------------------------------------------------------------ backward
+def _loss_weights(b, t, h, d, lens, seed):
+    """A fixed random weighting of the output, zero on rows past a
+    sequence's length (the loss never reads them)."""
+    w = np.random.default_rng(seed).normal(size=(b, t, h, d)).astype(np.float32)
+    return w * (np.arange(t)[None, :, None, None] < np.asarray(lens)[:, None, None, None])
+
+
+@pytest.mark.parametrize("b,t,h,d,lens,causal,blk", [
+    (1, 64, 2, 64, [64], True, 32),          # full length
+    (2, 64, 1, 64, [64, 37], True, 32),      # ragged lengths
+    (1, 96, 1, 64, [96], True, 64),          # T not a multiple of the block
+    (1, 64, 1, 64, [50], False, 32),         # non-causal, length mask only
+    (2, 40, 2, 16, [40, 23], True, 16),      # the mock's head size
+])
+def test_grads_match_pallas_interpret(b, t, h, d, lens, causal, blk, monkeypatch):
+    q, k, v = _inputs(b, t, t, h, d, seed=1)
+    w = _loss_weights(b, t, h, d, lens, seed=2)
+    lengths = np.asarray(lens, np.int32)
+
+    def jloss(q_, k_, v_):
+        o = jflash(q_, k_, v_, jnp.asarray(lengths), causal=causal, bq=blk, bk=blk,
+                   interpret=True)
+        return jnp.sum(o * w)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(*(jnp.asarray(x) for x in (q, k, v)))
+    # the port's wrapper on the CPU walks the default blocks; give the plain
+    # versions the JAX call's blocks
+    plain_fwd, plain_bwd = tfa.flash_attention_plain, tfa.flash_attention_bwd_plain
+    monkeypatch.setattr(tfa, "flash_attention_plain",
+                        lambda *a, **kw: plain_fwd(*a, **kw, bq=blk, bk=blk))
+    monkeypatch.setattr(tfa, "flash_attention_bwd_plain",
+                        lambda *a, **kw: plain_bwd(*a, **kw, bq=blk, bk=blk))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_(True) for x in (q, k, v))
+    out = tfa.flash_attention(tq, tk, tv, torch.from_numpy(lengths), causal=causal)
+    got = torch.autograd.grad((out * torch.from_numpy(w)).sum(), (tq, tk, tv))
+    for g, r, name in zip(got, want, "qkv"):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=2e-4, rtol=1e-3,
+                                   err_msg=f"d{name}")
+
+
+def test_primal_unchanged_under_autograd():
+    q, k, v = (torch.from_numpy(x) for x in _inputs(2, 40, 40, 2, 16, seed=3))
+    lengths = torch.tensor([40, 19], dtype=torch.int32)
+    direct, lse = tfa.flash_attention(q, k, v, lengths, with_lse=True)
+    tq = q.clone().requires_grad_(True)
+    out, lse_g = tfa.flash_attention(tq, k, v, lengths, with_lse=True)
+    assert out.requires_grad and not lse_g.requires_grad
+    assert torch.equal(out.detach(), direct) and torch.equal(lse_g, lse)
+    with torch.no_grad():                    # no graph, no saved tensors
+        assert not tfa.flash_attention(tq, k, v, lengths).requires_grad
+
+
+def test_zero_length_lane_gives_zero_grads():
+    q, k, v = (torch.from_numpy(x).requires_grad_(True) for x in _inputs(2, 8, 8, 2, 16, seed=2))
+    out = tfa.flash_attention(q, k, v, torch.tensor([0, 5], dtype=torch.int32))
+    grads = torch.autograd.grad(out.sum(), (q, k, v))
+    for g in grads:
+        assert torch.isfinite(g).all()
+        assert torch.equal(g[0], torch.zeros_like(g[0]))
+    assert bool(grads[0][1].any())
+    # rows of k/v past the live lane's length get no gradient either
+    assert not grads[1][1, 5:].any() and not grads[2][1, 5:].any()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_backward_rounds_where_the_kernels_do(dtype):
+    """dq/dk/dv come back in the input dtype, and in bf16 they are the
+    gradients of the rounded products: close to the f32 gradients (2e-2 of
+    the largest one), not equal to them."""
+    q, k, v = _inputs(2, 40, 40, 2, 16, seed=4)
+    do = _loss_weights(2, 40, 2, 16, [40, 31], seed=5)
+    lengths = torch.tensor([40, 31], dtype=torch.int32)
+
+    def run(dt):
+        tq, tk, tv, tdo = (torch.from_numpy(x).to(dt) for x in (q, k, v, do))
+        out, lse = tfa.flash_attention_plain(tq, tk, tv, lengths, with_lse=True)
+        return tfa.flash_attention_bwd_plain(tq, tk, tv, lengths, out, lse, tdo, True, None,
+                                             bq=16, bk=16)
+
+    got, ref = run(getattr(torch, dtype)), run(torch.float32)
+    for g, r in zip(got, ref):
+        assert g.dtype == getattr(torch, dtype)
+        err = float((g.float() - r).abs().max())
+        assert err <= 2e-2 * float(r.abs().max())
+        assert (err == 0.0) == (dtype == "float32")
+
+
+def test_backward_wrappers_take_the_plain_versions_on_the_cpu(monkeypatch):
+    calls = []
+    for name in ("flash_attention_kernel", "flash_attention_bwd_kernel",
+                 "flash_attention_dq_kernel", "flash_attention_dkv_kernel"):
+        monkeypatch.setattr(tfa, name, lambda *a, **kw: calls.append(1))
+    q = torch.ones(1, 4, 1, 16, requires_grad=True)
+    tfa.flash_attention(q, q, q, torch.tensor([4], dtype=torch.int32)).sum().backward()
+    assert not calls and q.grad is not None

@@ -6,7 +6,12 @@ a card every test skips. K1 is held bitwise; K2 at atol=rtol=2e-3 (f32 sums
 in another order, and pv rounds to bf16 where an ulp of p can flip it), in
 the static-slot mode and with the ring's per-lane slot intervals; K4 bitwise
 (each group's integer sum is exact and the kernel adds the groups in the
-plain version's order with single rounded f32 operations)."""
+plain version's order with single rounded f32 operations); K5a and K5b (the
+flash-attention backward) each of dq, dk and dv at 8e-3 of its own largest
+reference value in bf16 (one bf16 step of that value at most; the spread of
+the plain version between block sizes reaches a quarter of it: a gradient
+rounds to bf16 once, and ds and p round before the second product) and 1e-5
+in f32, and bitwise against their own second run."""
 import pytest
 import torch
 
@@ -133,6 +138,96 @@ def test_flash_attention_kernel_dead_lane(card):
     torch.cuda.synchronize()
     assert torch.equal(out[0], torch.zeros_like(out[0]))
     assert bool((lse[0] == tfa.LSE_DEAD).all()) and bool(torch.isfinite(out[1].float()).all())
+
+
+K5_CASES = [
+    # b, t, h, d, dtype, causal, lengths (None: full), fused views
+    (2, 600, 32, 128, torch.bfloat16, True, [600, 413], False),   # the training shape
+    (2, 600, 32, 128, torch.bfloat16, True, [600, 413], True),    # the same through views
+    (1, 256, 32, 128, torch.bfloat16, True, None, False),
+    (2, 300, 32, 128, torch.bfloat16, True, [0, 300], True),      # a dead lane beside a live one
+    (2, 200, 8, 64, torch.bfloat16, False, [200, 77], True),      # non-causal, length mask
+    (3, 130, 4, 32, torch.bfloat16, True, [130, 64, 1], False),
+    (2, 300, 4, 16, torch.float32, True, [300, 211], True),       # the mock's shape
+    (2, 100, 2, 128, torch.float32, False, [100, 33], False),
+    (2, 70, 2, 64, torch.float32, True, [0, 70], True),
+]
+
+
+def k5_inputs(card, b, t, h, d, dtype, lens, fused, seed):
+    g = torch.Generator(device=card).manual_seed(seed)
+    if fused:   # q, k, v as strided views of one fused projection
+        qkv = torch.randn((b, t, 3, h, d), generator=g, device=card).to(dtype)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    else:
+        q, k, v = (torch.randn((b, t, h, d), generator=g, device=card).to(dtype)
+                   for _ in range(3))
+    do = torch.randn((b, t, h, d), generator=g, device=card).to(dtype)
+    lengths = torch.tensor(lens if lens is not None else [t] * b, dtype=torch.int32,
+                           device=card)
+    return q, k, v, do, lengths
+
+
+@pytest.mark.parametrize("b,t,h,d,dtype,causal,lens,fused", K5_CASES)
+def test_flash_attention_backward_kernels_match_plain(card, b, t, h, d, dtype, causal, lens,
+                                                      fused):
+    q, k, v, do, lengths = k5_inputs(card, b, t, h, d, dtype, lens, fused, seed=t + d)
+    out, lse = tfa.flash_attention_plain(q, k, v, lengths, causal=causal, with_lse=True)
+    delta = tfa._delta(out, do)
+    args = (q, k, v, lengths, lse, delta, do, causal, None)
+    before = (tfa.flash_attention_dq_kernel.launches, tfa.flash_attention_dkv_kernel.launches)
+    dq = tfa.flash_attention_dq_kernel(*args)
+    dk, dv = tfa.flash_attention_dkv_kernel(*args)
+    torch.cuda.synchronize()
+    assert (tfa.flash_attention_dq_kernel.launches,
+            tfa.flash_attention_dkv_kernel.launches) == (before[0] + 1, before[1] + 1)
+    ref_dq = tfa.flash_attention_dq_plain(*args)
+    ref_dk, ref_dv = tfa.flash_attention_dkv_plain(*args)
+    rel = 8e-3 if dtype == torch.bfloat16 else 1e-5
+    for name, got, ref in (("dq", dq, ref_dq), ("dk", dk, ref_dk), ("dv", dv, ref_dv)):
+        assert got.dtype == dtype and got.shape == ref.shape and got.is_contiguous()
+        assert torch.isfinite(got.float()).all(), name
+        err = float((got.float() - ref.float()).abs().max())
+        assert err <= rel * float(ref.float().abs().max()), (name, err)
+    for i, n in enumerate(lengths.tolist()):
+        assert not dk[i, n:].any() and not dv[i, n:].any()       # rows past the length
+        if n == 0:
+            assert not dq[i].any()                                # a dead lane
+    # no float atomics: a second run repeats the first bit for bit
+    assert torch.equal(dq, tfa.flash_attention_dq_kernel(*args))
+    dk2, dv2 = tfa.flash_attention_dkv_kernel(*args)
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+
+
+def test_flash_attention_autograd_runs_the_kernels(card):
+    """Autograd through ``flash_attention`` on the card launches K3, K5a and
+    K5b once each and agrees with the plain backward."""
+    q, k, v, do, lengths = k5_inputs(card, 2, 300, 4, 16, torch.float32, [300, 250], True, 3)
+    qkv = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    counted = (tfa.flash_attention_kernel, tfa.flash_attention_dq_kernel,
+               tfa.flash_attention_dkv_kernel)
+    before = [f.launches for f in counted]
+    out = tfa.flash_attention(*qkv, lengths)
+    grads = torch.autograd.grad(out, qkv, do)
+    torch.cuda.synchronize()
+    assert [f.launches for f in counted] == [n + 1 for n in before]
+    ref_out, lse = tfa.flash_attention_plain(q, k, v, lengths, with_lse=True)
+    ref = tfa.flash_attention_bwd_plain(q, k, v, lengths, ref_out, lse, do)
+    for got, want in zip(grads, ref):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+def test_flash_attention_backward_refuses_what_it_does_not_take(card):
+    q = torch.zeros((1, 8, 2, 48), device=card)
+    lens = torch.tensor([8], dtype=torch.int32, device=card)
+    stat = torch.zeros((1, 2, 8), device=card)
+    with pytest.raises(ValueError, match="head_dim"):
+        tfa.flash_attention_dq_kernel(q, q, q, lens, stat, stat, q)
+    q = torch.zeros((1, 8, 2, 16), device=card)
+    with pytest.raises(ValueError, match="shapes"):
+        tfa.flash_attention_dkv_kernel(q, q, q, lens, stat[:, :, :4], stat, q)
+    with pytest.raises(ValueError, match="one dtype"):
+        tfa.flash_attention_dq_kernel(q, q, q.bfloat16(), lens, stat, stat, q)
 
 
 def ring_interval_cases(p, ring, device):

@@ -221,11 +221,13 @@ def test_entry_points_default_to_the_card():
 
 
 def test_port_imports_no_jax():
-    """The port and chip_smoke.py import neither jax nor radialog_tpu."""
+    """The port and chip_smoke.py import neither jax, optax, orbax nor
+    radialog_tpu."""
     files = sorted((REPO / "radialog_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 15
     assert {"continuous.py", "serve.py", "q4_matmul.py", "quant.py", "bridge.py",
-            "chip_smoke.py"} <= {f.name for f in files}
+            "chip_smoke.py", "finetune_lora.py", "optim.py", "steps.py", "checkpoint.py",
+            "datasets.py", "flash_attention.py", "tokenization.py"} <= {f.name for f in files}
     for f in files:
         for node in ast.walk(ast.parse(f.read_text())):
             names = []
@@ -235,4 +237,5 @@ def test_port_imports_no_jax():
                 names = [node.module or ""]
             for n in names:
                 root = n.split(".")[0]
-                assert root not in ("jax", "jaxlib", "radialog_tpu"), f"{f}: imports {n}"
+                assert root not in ("jax", "jaxlib", "optax", "orbax", "radialog_tpu"), \
+                    f"{f}: imports {n}"

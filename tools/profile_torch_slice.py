@@ -23,6 +23,20 @@ ring, prompt region 256, ring 128, 8 steps per chunk, random prompts of
 admissions, the mean decode step over RING_CHUNKS chunks, and the profile
 of one chunk.
 
+``--train`` profiles a LoRA finetune micro-step instead: it drives
+``apps/finetune_lora.train`` as the train phase of ``chip_smoke.py`` does,
+on that phase's records and settings (Vicuna-7B over the int8 base, bf16
+compute, LoRA rank 8 on wq/wv plus img_proj, per-layer recomputation,
+micro-batch 2 x cutoff 600, image embeddings, AdamW, clip 1.0, accumulation
+2), and reads the loop through ``on_step``: TRAIN_WARM micro-steps warm up,
+TRAIN_STEPS are timed on the host clock (tokens/s counts the sequences' own
+tokens over the whole span), then two are profiled (one that only
+accumulates, one that applies the update); peak memory. Without ``--sync``
+the host waits for the card only at the ends of the timed span, as a user's
+run does; with it after every micro-step, as the smoke's ``on_step`` does to
+stamp each step. Without ``--flash`` attention is mha under autograd, with
+it K3 and K5a/K5b.
+
 ``--table FILE`` also writes the profiler's full table of operators to FILE.
 It needs one CUDA card and exits non-zero without one.
 """
@@ -41,6 +55,7 @@ sys.path.insert(0, str(REPO))
 BATCH, PROMPT, SHARED = 56, 128, 48
 DECODE_STEPS, PROFILE_AT, PROFILE_STEPS = 30, 150, 5
 LANES, PROMPT_REGION, CACHE_LEN, CHUNK, RING_CHUNKS = 16, 256, 384, 8, 3
+TRAIN_WARM, TRAIN_STEPS = 2, 6
 
 
 def emit(phase: str, **kw) -> None:
@@ -64,14 +79,24 @@ def clock(torch, fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
+def profiler():
+    from torch.profiler import ProfilerActivity, profile
+    return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+
 def profiled(torch, card, run, steps: int, step_ms: float, table, **extra) -> bool:
     """torch.profiler over ``run()``, which takes ``steps`` decode steps
     that last ``step_ms`` each when not profiled. Emits the profile line."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profiler() as prof:
         _, wall_ms = clock(torch, run)
+    return summarize(card, prof, wall_ms, steps, step_ms, table, **extra)
+
+
+def summarize(card, prof, wall_ms: float, steps: int, step_ms: float, table, **extra) -> bool:
+    """Emit the profile line of ``prof``, which traced ``steps`` steps in
+    ``wall_ms``; whether it saw the card."""
+    from torch.autograd import DeviceType
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
     by_name = {}
@@ -130,8 +155,66 @@ def ring(torch, card, bits: int, table) -> int:
     return 0 if ok and rb.active_lanes == LANES else 1
 
 
+def train(torch, card, flash: bool, sync: bool, table) -> int:
+    """apps/finetune_lora.train at full width, read through on_step: warm-up,
+    a timed span, then two profiled micro-steps."""
+    import tempfile
+    import chip_smoke as smoke
+    from radialog_tpu_torch.apps import finetune_lora as ft
+    first, last = TRAIN_WARM, TRAIN_WARM + TRAIN_STEPS   # the timed span's ends
+    total = last + 2
+    prof = profiler()
+    stamps, tokens, mem, final = {}, {}, {}, {}
+
+    def on_step(step, metrics):
+        if sync or step in (first, last, total):
+            torch.cuda.synchronize()
+        stamps[step], tokens[step] = time.perf_counter(), metrics["tokens"]
+        final.update(metrics)
+        if step == first:
+            mem["resident"] = torch.cuda.memory_allocated() / 1e9
+            torch.cuda.reset_peak_memory_stats()
+        elif step == last:
+            mem["peak"] = torch.cuda.max_memory_allocated() / 1e9
+            prof.start()
+            stamps["profile"] = time.perf_counter()
+        elif step == total:
+            prof.stop()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data = Path(tmp) / "instruct.json"
+        data.write_text(json.dumps(smoke._train_records(14, lambda j: 360 + 30 * (j % 12))))
+        cfg = ft.FinetuneConfig(synthetic=True, data_path=str(data),
+                                output_dir=str(Path(tmp) / "lora"),
+                                batch_size=smoke.MICRO * smoke.ACCUM,
+                                micro_batch_size=smoke.MICRO, num_epochs=4, max_steps=total,
+                                cutoff_len=smoke.CUTOFF, val_set_size=2, use_embs=True,
+                                use_instruct_data=True, quantize_base=True, flash=flash)
+        ft.train(cfg, log_fn=lambda m: None, on_step=on_step)
+    span_ms = (stamps[last] - stamps[first]) * 1e3
+    step_ms = span_ms / TRAIN_STEPS
+    timed = [tokens[i] for i in range(first + 1, last + 1)]
+    emit("stages", card=card, mode="train", flash=flash, sync_every_step=sync,
+         micro_batch=smoke.MICRO, cutoff=smoke.CUTOFF, accum=smoke.ACCUM,
+         micro_steps=TRAIN_STEPS, micro_step_ms=step_ms, tokens_per_step=timed,
+         tokens_per_s=sum(timed) / span_ms * 1e3,
+         micro_step_ms_all=([(stamps[i] - stamps[i - 1]) * 1e3
+                             for i in range(first + 1, last + 1)] if sync else None),
+         loss=float(final["loss"]), grad_norm=float(final["grad_norm"]),
+         resident_before_steps_gb=mem["resident"], peak_mem_gb=mem["peak"])
+    ok = summarize(card, prof, (stamps[total] - stamps["profile"]) * 1e3, 2, step_ms, table,
+                   mode="train", flash=flash, sync_every_step=sync)
+    return 0 if ok else 1
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--train", action="store_true",
+                    help="profile a LoRA finetune micro-step, not the report step")
+    ap.add_argument("--flash", action="store_true",
+                    help="in --train mode: attention through the flash-attention kernels")
+    ap.add_argument("--sync", action="store_true",
+                    help="in --train mode: wait for the card after every micro-step")
     ap.add_argument("--table", help="write the profiler's operator table here")
     ap.add_argument("--ring", action="store_true",
                     help="profile the ring batcher's decode step, not the report step")
@@ -154,6 +237,8 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True, text=True,
                           timeout=60).stdout.strip()
     _build.build()
+    if args.train:
+        return train(torch, card, args.flash, args.sync, args.table)
     if args.ring:
         return ring(torch, card, args.bits, args.table)
     pipe = RaDialogPipeline(PipelineConfig(synthetic=True, seed=0))
