@@ -15,7 +15,20 @@ each; any failing phase exits non-zero:
           binary-QA prefix (B=14, P0=427 of 448 rows), and with the serving
           ring's per-lane slot intervals and no prefix (B=16, S=384, prompts
           of 100-256 rows: a window inside the ring, a wrapped window, a full
-          ring, a lane with no valid slot, a full prompt region); times
+          ring, a lane with no valid slot, a full prompt region); K2'' (the
+          step's own row attended as an operand and written in place) at the
+          report shape at steps 0, 150 and 298 and without a prefix at a slot
+          in b1's block and at the last slot S - 1, the slot zeroed first:
+          within K2_TOL of its plain version and of K2 on the cache with the
+          row in place, the row bitwise, every other byte of the four buffers
+          unchanged; times
+  tproto  the TPU microbench tools' prototypes: T1 (K2 over one interleaved
+          k|v buffer) bitwise equal to K2 and within K2_TOL of its plain
+          version at tools/microbench_kvfused.py's defaults; T2 and T3
+          (per-column W4A8, exact int32) bitwise equal to the plain product at
+          the four Vicuna-7B projection shapes, M in {32, 5}; times, with
+          torch._int_mm on the widened codes as the yardstick; each tool's
+          chain, whose launches the kernels line reports
   k3      flash-attention kernel vs its plain version (K3_TOL, beside the
           plain version's own spread between key blocks of 64 and 256) at
           H=32, D=128, bf16, causal: B=1 with T=S in {256, 448, 1024}, the
@@ -51,7 +64,10 @@ each; any failing phase exits non-zero:
           RaDialogServer over the int8 ring with staggered submits until the
           ring wraps, and teacher-forced logits of a hand-stepped ring
           schedule; every kernel call held against its plain version there;
-          then the mock LoRA trainer (TINY_LLAMA, cutoff 256 so that flash
+          the report batch again with RADIALOG_DEFER_KV=1 (K2'' at every
+          decode layer, K2 never) and with the bf16 KV cache (no flash-decode),
+          held the same way; a sampled generation on the card run twice with
+          one seed, equal; then the mock LoRA trainer (TINY_LLAMA, cutoff 256 so that flash
           attention runs, 4 micro-steps with accumulation 2, float base in
           FP32 and int8 base in BF16) on the card vs the same run on the
           CPU: losses and the updated LoRA tree, every K3/K5a/K5b call held
@@ -61,7 +77,9 @@ each; any failing phase exits non-zero:
           with random weights from a seeded generator: 56 uint8 X-rays,
           128-token prompts sharing 48 tokens, greedy decode of 300 tokens
           with EOS disabled, after a warm-up; kernel launch counts of that
-          run and reports/s
+          run and reports/s; then the same pass with RADIALOG_DEFER_KV=1:
+          K2'' 32 x 299 times, K2 never, reports/s both ways and the share
+          of tokens equal to the first pass (reported, not held)
   qa      the evaluation follow-up passes on the slice's pipeline, over the
           slice's own conversations (prompt + 300 generated tokens) and
           image embeddings: the binary-QA pass over 2 studies (14 lanes,
@@ -99,8 +117,10 @@ host.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -148,6 +168,20 @@ SMALL_TRAIN_TOL = {"fp32": {"loss": 1e-4, "tree": 2e-4}, "bf16": {"loss": 5e-2, 
 
 def emit(phase: str, **kw) -> None:
     print(json.dumps({"phase": phase, **kw}), flush=True)
+
+
+@contextlib.contextmanager
+def _env(name: str, value: str):
+    """Set an environment variable for the block, then restore it."""
+    old = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = old
 
 
 def smi() -> str:
@@ -231,10 +265,67 @@ def phase_k1(torch, tq8, flush):
     return summary
 
 
-def _k2_case(torch, tfd, flush, b, s, p0, t1, steps, seed):
+def _k2_bound(b, h, d, rows, prefix_rows, written_rows=0):
+    """(bound ms, bound_by) of flash-decode: ``rows`` lane rows read (K, V,
+    both scales), the live prefix rows once, ``written_rows`` rows written
+    (K2''), q in and out once, over the memory rate; against 4*H*D
+    operations per attended row over the int8 peak."""
+    row = 2 * h * d + 4 * h
+    nbytes = (rows + prefix_rows + written_rows) * row + 2 * 4 * b * h * d
+    b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    b_ops = 4 * (rows + b * prefix_rows) * h * d / INT8_OPS_PER_S * 1e3
+    return max(b_bytes, b_ops), "bytes" if b_bytes >= b_ops else "operations"
+
+
+def _k2c_check(torch, tfd, flush, cache, q8, qs, lens, t1, step, layer, shared, p0, k2_out):
+    """K2'' at slot t1 + step of ``layer``: the row is taken from the cache
+    as it stands, that slot is zeroed in every layer, and the kernel attends
+    the row as an operand (mask to step - 1) and writes it back. Held: the
+    output within K2_TOL of the plain version and of K2 on the cache with the
+    row in place (``k2_out``), the row bitwise, every other byte of the four
+    buffers unchanged (against a clone). Returns the numbers."""
+    b, h, d = q8.shape
+    slot = t1 + step
+    if slot >= cache[0].shape[2]:
+        raise AssertionError(f"K2'' slot {slot} is past the cache")
+    cur = [x[layer, :, slot:slot + 1].clone() for x in cache]
+    for x in cache:
+        x[:, :, slot] = 0
+    before = [x.clone() for x in cache]
+    args = (q8, qs, *cache, tfd.slot_masks(lens, t1, step - 1), layer, d ** -0.5,
+            tfd.default_bs(cache[0].shape[2]))
+    kw = dict(shared=shared, p0=p0, current=cur, write_cache=True)
+    got = tfd.flash_decode_int8_current_kernel(*args, **kw)
+    torch.cuda.synchronize()
+    for x, old, c in zip(cache, before, cur):
+        if not torch.equal(x[layer, :, slot], c[:, 0]):
+            raise AssertionError(f"K2'' step {step}: the written row differs")
+        old[layer, :, slot] = c[:, 0]
+        if not torch.equal(x, old):
+            raise AssertionError(f"K2'' step {step}: a byte outside the slot row changed")
+    del before
+    ref = tfd.flash_decode_int8_plain(*args, **kw)
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"K2'' step {step}: non-finite output")
+    torch.testing.assert_close(got, ref, **K2_TOL)
+    torch.testing.assert_close(got, k2_out, **K2_TOL)
+    ms = timed_ms(lambda: tfd.flash_decode_int8_current_kernel(*args, **kw), 20, flush)
+    plain_ms = timed_ms(lambda: tfd.flash_decode_int8_plain(*args, **kw), 3, flush)
+    # lane rows read from the cache (the slot row comes from the operand),
+    # the current rows read once and written once
+    rows = int(lens.long().sum()) + b * step
+    bound, by = _k2_bound(b, h, d, rows + b, p0 if shared is not None else 0, written_rows=b)
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "max_abs_err": float((got - ref).abs().max()),
+            "max_abs_err_vs_k2": float((got - k2_out).abs().max())}
+
+
+def _k2_case(torch, tfd, flush, b, s, p0, t1, steps, seed, current=()):
     """K2 at one cache shape: lanes of t1 remainder slots (ragged, one
     empty), a shared prefix of p0 live rows padded to 32, decode steps
-    ``steps``. Emits one line per step; returns {step: numbers}."""
+    ``steps``; also K2'' at the steps in ``current`` (``_k2c_check``).
+    Emits one line per step; returns {step: numbers} and, with ``current``,
+    {step: K2'' numbers}."""
     h, d, L, layer = 32, 128, 32, 16
     g = torch.Generator(device="cuda").manual_seed(seed)
     k8 = torch.randint(-127, 128, (L, b, s, h * d), generator=g, device="cuda", dtype=torch.int8)
@@ -252,7 +343,7 @@ def _k2_case(torch, tfd, flush, b, s, p0, t1, steps, seed):
     lens[1] = 0                          # a lane with only its shared prefix
     q8, qs = tfd.quantize_q(q)
     shared = (k0, ks0, v0, vs0)
-    out = {}
+    out, out_c = {}, {}
     for step in steps:
         masks = tfd.slot_masks(lens, t1, step)
         args = (q8, qs, k8, ks, v8, vs, masks, layer, d ** -0.5, tfd.default_bs(s))
@@ -270,19 +361,45 @@ def _k2_case(torch, tfd, flush, b, s, p0, t1, steps, seed):
         # bytes this run's data needs: each lane's valid rows (prompt and
         # generated; K, V, both scales), the live prefix rows once, q in
         # and out once
-        rows = int(lens.long().sum()) + b * (step + 1)
-        nbytes = rows * (2 * h * d + 4 * h) + p0 * (2 * h * d + 4 * h) + 2 * 4 * b * h * d
-        ops = 4 * (rows + b * p0) * h * d
-        b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        b_ops = ops / INT8_OPS_PER_S * 1e3
-        out[step] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(b_bytes, b_ops),
-                     "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+        bound, by = _k2_bound(b, h, d, int(lens.long().sum()) + b * (step + 1), p0)
+        out[step] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
                      "max_abs_err": err}
         emit("k2", batch=b, prefix_rows=p0p, step=step, max_abs_err=err, kernel_ms=ms,
-             plain_ms=plain_ms, library_ms=None, bound_ms=max(b_bytes, b_ops),
-             bound_by=out[step]["bound_by"], roofline_share=max(b_bytes, b_ops) / ms)
+             plain_ms=plain_ms, library_ms=None, bound_ms=bound, bound_by=by,
+             roofline_share=bound / ms)
+        if step in current:
+            c = out_c[step] = _k2c_check(torch, tfd, flush, [k8, ks, v8, vs], q8, qs, lens, t1,
+                                         step, layer, shared, p0, got)
+            emit("k2", mode="current row written in place (K2'')", batch=b, prefix_rows=p0p,
+                 step=step, slot=t1 + step, row_bitwise=True, rest_unchanged=True,
+                 kernel_ms=c["ms"], k2_ms=ms, library_ms=None, roofline_share=c["bound_ms"] / c["ms"],
+                 **{k: v for k, v in c.items() if k != "ms"})
     del k8, v8
-    return out
+    return (out, out_c) if current else out
+
+
+def _k2c_awkward(torch, tfd, flush):
+    """K2'' without a prefix at the awkward slots: one in the 64-row block
+    that holds b1 (slot 83 after b1 = 82) and the cache's last slot S - 1,
+    16 lanes of 384 slots."""
+    h, d, L, layer, b, s, t1 = 32, 128, 4, 2, LANES, CACHE_LEN, 80
+    g = torch.Generator(device="cuda").manual_seed(7)
+    cache = [torch.randint(-127, 128, (L, b, s, h * d), generator=g, device="cuda",
+                           dtype=torch.int8) if i % 2 == 0 else
+             (torch.rand((L, b, s, h), generator=g, device="cuda") * 0.01 + 0.002
+              ).to(torch.bfloat16) for i in range(4)]          # k8, ks, v8, vs
+    q8, qs = tfd.quantize_q(torch.randn((b, h, d), generator=g, device="cuda"))
+    lens = torch.randint(1, t1 + 1, (b,), generator=g, device="cuda", dtype=torch.int32)
+    worst = 0.0
+    for step in (3, s - 1 - t1):
+        k2_out = tfd.flash_decode_int8_kernel(q8, qs, *cache, tfd.slot_masks(lens, t1, step),
+                                              layer, d ** -0.5, tfd.default_bs(s))
+        c = _k2c_check(torch, tfd, flush, cache, q8, qs, lens, t1, step, layer, None, 0, k2_out)
+        emit("k2", mode="current row written in place (K2''), no prefix", batch=b,
+             step=step, slot=t1 + step, row_bitwise=True, rest_unchanged=True,
+             kernel_ms=c["ms"], library_ms=None, **{k: v for k, v in c.items() if k != "ms"})
+        worst = max(worst, c["max_abs_err"])
+    return worst
 
 
 def _k2_ring_case(torch, tfd, flush):
@@ -344,12 +461,15 @@ def phase_k2(torch, tfd, flush):
     10-token answer in a 128-slot cache) and the serving ring's (per-lane
     intervals). Returns the summaries of the static-slot and the interval
     mode."""
-    report = _k2_case(torch, tfd, flush, BATCH, 384, SHARED, PROMPT - SHARED,
-                      (0, 150, NEW - 1), seed=2)
+    report, current = _k2_case(torch, tfd, flush, BATCH, 384, SHARED, PROMPT - SHARED,
+                               (0, 150, NEW - 2, NEW - 1), seed=2, current=(0, 150, NEW - 2))
     qa = _k2_case(torch, tfd, flush, 14, 128, 427, 8, (0, 9), seed=4)
     summary = dict(report[150])
     summary["max_abs_err"] = max(r["max_abs_err"] for r in [*report.values(), *qa.values()])
-    return summary, _k2_ring_case(torch, tfd, flush)
+    summary_c = dict(current[150])
+    summary_c["max_abs_err"] = max(_k2c_awkward(torch, tfd, flush),
+                                   *(c["max_abs_err"] for c in current.values()))
+    return summary, _k2_ring_case(torch, tfd, flush), summary_c
 
 
 def phase_k4(torch, tq4, flush):
@@ -597,6 +717,110 @@ def phase_k5(torch, tfa, flush):
     return summary
 
 
+def phase_tproto(torch, tfd, tw, flush):
+    """The prototypes of the TPU microbench tools at their tools' shapes.
+    T1 (fused k|v flash-decode) at tools/microbench_kvfused.py's defaults
+    (B=56, S=384, prompt pad 128, step 150, bs 64, 8 layers): bitwise equal
+    to K2 on the same data and within K2_TOL of its plain version, timed
+    beside K2. T2 and T3 (per-column W4A8, exact int32) bitwise equal to the
+    plain product at the four Vicuna-7B projection shapes at M = 32 (the
+    tool's decode rows) and M = 5, timed against the byte bound and against
+    torch._int_mm on the codes widened to int8. Then each tool's chain
+    (T1: the 8 layer calls; T2, T3: 32 layers of the four projections, one
+    distinct layer cycled) with the launch counts that the kernels line
+    reports. Returns the summaries of T1, T2 and T3."""
+    b, s, h, d, L, pp, st, bs = BATCH, 384, 32, 128, 8, 128, 150, 64
+    g = torch.Generator(device="cuda").manual_seed(13)
+    shape = (L, b, s, h * d)
+    k8 = torch.randint(-127, 128, shape, generator=g, device="cuda", dtype=torch.int8)
+    v8 = torch.randint(-127, 128, shape, generator=g, device="cuda", dtype=torch.int8)
+    ks = (torch.rand(shape[:3] + (h,), generator=g, device="cuda") * 0.02).to(torch.bfloat16)
+    vs = (torch.rand(shape[:3] + (h,), generator=g, device="cuda") * 0.02).to(torch.bfloat16)
+    kv8, kvs = torch.cat([k8, v8], dim=-1), torch.cat([ks, vs], dim=-1)
+    q = torch.randn((L, b, h, d), generator=g, device="cuda")
+    lens = torch.full((b,), pp, dtype=torch.int32, device="cuda")
+    masks = tfd.slot_masks(lens, pp, st)
+    q8, qs = tfd.quantize_q(q[0])
+    t1_args = (q8, qs, kv8, kvs, masks, 0, d ** -0.5, bs)
+    k2_args = (q8, qs, k8, ks, v8, vs, masks, 0, d ** -0.5, bs)
+    got = tfd.flash_decode_int8_fused_kernel(*t1_args)
+    k2 = tfd.flash_decode_int8_kernel(*k2_args)
+    ref = tfd.flash_decode_int8_fused_plain(*t1_args)
+    torch.cuda.synchronize()
+    if not torch.equal(got, k2):
+        raise AssertionError("T1 differs from K2 on the same data")
+    torch.testing.assert_close(got, ref, **K2_TOL)
+    t1 = {"ms": timed_ms(lambda: tfd.flash_decode_int8_fused_kernel(*t1_args), 20, flush),
+          "k2_ms": timed_ms(lambda: tfd.flash_decode_int8_kernel(*k2_args), 20, flush),
+          "plain_ms": timed_ms(lambda: tfd.flash_decode_int8_fused_plain(*t1_args), 3, flush),
+          "library_ms": None, "max_abs_err": float((got - ref).abs().max())}
+    t1["bound_ms"], t1["bound_by"] = _k2_bound(b, h, d, b * (pp + st + 1), 0)
+    tfd.flash_decode_int8_fused_kernel.launches = 0
+    for i in range(L):                      # the tool's chain of layer calls
+        tfd.flash_decode_int8_fused(q[i], kv8, kvs, lens, pp, st, layer_idx=i, bs=bs)
+    torch.cuda.synchronize()
+    t1["launches"] = tfd.flash_decode_int8_fused_kernel.launches
+    emit("tproto", kernel="T1", batch=b, cache=s, prompt_pad=pp, step=st, bs=bs,
+         bitwise_equal_to_k2=True, roofline_share=t1["bound_ms"] / t1["ms"], **t1)
+    del k8, v8, ks, vs, kv8, kvs
+
+    shapes = {"wqkv": (4096, 3 * 4096), "wo": (4096, 4096), "gateup": (4096, 2 * 11008),
+              "down": (11008, 4096)}
+    sums = {name: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+                   "max_abs_err": 0, "bytes_bound": 0} for name in ("T2", "T3")}
+    weights = {}
+    for wname, (k, n) in shapes.items():
+        w = weights[wname] = tw.random_q4c(k, n, g, "cuda")
+        codes = tw.unpack_q4(w.w)                        # (N, K) int8, for _int_mm
+        for m in (32, 5):
+            x8 = torch.randint(-127, 128, (m, k), generator=g, device="cuda", dtype=torch.int8)
+            xlo, xhi = tw.split_even_odd(x8)
+            plain = tw.w4_int32_plain(x8, w.w)
+            for name, fn in (("T2", lambda: tw.w4_int32_split(xlo, xhi, w.w)),
+                             ("T3", lambda: tw.w4_int32(x8, w.w))):
+                out = fn()
+                torch.cuda.synchronize()
+                if not torch.equal(out, plain):
+                    raise AssertionError(f"{name} {wname} M={m}: differs from the plain product")
+                ms = timed_ms(fn, 20, flush)
+                plain_ms = timed_ms(lambda: tw.w4_int32_plain(x8, w.w), 3, flush)
+                lib_ms = (timed_ms(lambda: torch._int_mm(x8, codes.t()), 20, flush)
+                          if m > 16 else None)          # torch._int_mm takes M > 16
+                b_bytes = (m * k + n * k // 2 + 4 * m * n) / HBM_BYTES_PER_S * 1e3
+                b_ops = 2 * m * n * k / INT8_OPS_PER_S * 1e3
+                emit("tproto", kernel=name, weight=wname, m=m, k=k, n=n, bitwise=True,
+                     kernel_ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                     bound_ms=max(b_bytes, b_ops),
+                     bound_by="bytes" if b_bytes >= b_ops else "operations",
+                     roofline_share=max(b_bytes, b_ops) / ms)
+                if m == 32:
+                    x = sums[name]
+                    x["ms"] += ms
+                    x["plain_ms"] += plain_ms
+                    x["library_ms"] += lib_ms
+                    x["bound_ms"] += max(b_bytes, b_ops)
+                    x["bytes_bound"] += b_bytes >= b_ops
+        del codes
+    for name, variant, fn in (("T2", "w4", tw.w4_int32_split), ("T3", "w4p", tw.w4_int32)):
+        x = sums[name]
+        x["bound_by"] = "bytes" if x.pop("bytes_bound") == 4 else "operations"
+        fn.launches = 0
+        h0 = torch.randn((32, 4096), generator=g, device="cuda").to(torch.bfloat16)
+        for _ in range(32):                 # the tool's chain, one distinct layer cycled
+            a = tw.q4c_matmul(h0, weights["wqkv"], variant)
+            bb = tw.q4c_matmul(a[:, :4096], weights["wo"], variant)
+            c = tw.q4c_matmul(h0, weights["gateup"], variant)
+            dd = tw.q4c_matmul(c[:, :11008], weights["down"], variant)
+            h0 = (h0 + 0.001 * (bb + dd)).to(torch.bfloat16)
+        torch.cuda.synchronize()
+        x["launches"] = fn.launches
+        if not bool(torch.isfinite(h0).all()) or x["launches"] != 4 * 32:
+            raise AssertionError(f"{name}: the tool's chain failed")
+        emit("tproto", kernel=name, layer_sum="one layer's 4 projections at M=32",
+             roofline_share=x["bound_ms"] / x["ms"], **x)
+    return t1, sums["T2"], sums["T3"]
+
+
 def _prompts(tok, n: int, img_tokens: int):
     """n prompts of PROMPT tokens (BOS included) sharing the first SHARED:
     per request 4 words, the <IMG> run, then words to fill."""
@@ -658,16 +882,18 @@ def phase_small(torch, te, pipeline_mod, tq8, tfd, tfa, tq4):
     gpu = pipeline_mod.RaDialogPipeline(cfg).to("cuda")
     k1 = _Checked(tq8.q8_matmul_int32, tq8.q8_matmul_int32_plain)
     k2 = _Checked(tfd.flash_decode_int8_kernel, tfd.flash_decode_int8_plain)
+    k2c = _Checked(tfd.flash_decode_int8_current_kernel, tfd.flash_decode_int8_plain)
     k3 = _Checked(tfa.flash_attention_kernel, tfa.flash_attention_plain)
     k4 = _Checked(tq4.q4_matmul_acc, tq4.q4_matmul_acc_plain)
     tq8.q8_matmul_int32, tfd.flash_decode_int8_kernel, tfa.flash_attention_kernel = k1, k2, k3
-    tq4.q4_matmul_acc = k4
+    tq4.q4_matmul_acc, tfd.flash_decode_int8_current_kernel = k4, k2c
     try:
-        _small_run(torch, te, pipeline_mod, cpu, gpu, k1, k2, k3)
+        _small_run(torch, te, pipeline_mod, cpu, gpu, k1, k2, k3, k2c)
         _small_serve(torch, pipeline_mod, {8: (cpu, gpu)}, k1, k2, k4)
     finally:
         tq8.q8_matmul_int32, tfd.flash_decode_int8_kernel = k1.kernel, k2.kernel
         tfa.flash_attention_kernel, tq4.q4_matmul_acc = k3.kernel, k4.kernel
+        tfd.flash_decode_int8_current_kernel = k2c.kernel
     _small_train(torch, tfa)
 
 
@@ -752,7 +978,7 @@ def _teacher_forced(torch, te, pipeline_mod, p, ids, emb, forced, dp):
     from radialog_tpu_torch.apps.tokenization import pad_batch_right
     from radialog_tpu_torch.models.llama import find_img_start, init_cache, llama_apply, \
         prefill_bias
-    n, dev = len(ids), p.device
+    n, dev, kv_int8 = len(ids), p.device, p.cfg.use_kv_int8()
     p0, img_in_prefix = p._shared_prefix_len(ids, emb)
     if p0 >= pipeline_mod.SHARED_PREFIX_MIN:
         rem, lens = pad_batch_right([s[p0:] for s in ids], 0)
@@ -762,7 +988,8 @@ def _teacher_forced(torch, te, pipeline_mod, p, ids, emb, forced, dp):
                               lora=p.lora, policy=p.policy,
                               img_embs=emb[:1] if img_in_prefix else None)
         rem_emb = None if img_in_prefix else emb
-        cache = init_cache(p.llama_cfg, n, te.default_cache_len(t1, dp), device=dev)
+        cache = init_cache(p.llama_cfg, n, te.default_cache_len(t1, dp), device=dev,
+                           quantized=kv_int8)
         first, cache = llama_apply(
             p.llama, p.llama_cfg, rem, p0 + torch.arange(t1, device=dev)[None].repeat(n, 1),
             prefill_bias(lens, t1), cache=cache, img_embs=rem_emb,
@@ -770,13 +997,13 @@ def _teacher_forced(torch, te, pipeline_mod, p, ids, emb, forced, dp):
                        if rem_emb is not None else None),
             lora=p.lora, policy=p.policy, lengths=lens, last_pos=lens - 1, shared_kv=shared)
         first = first[:, 0]
-        kw = dict(shared_kv=te.quantize_prefix(shared), pos_offset=p0, shared_p0=p0)
+        kw = dict(shared_kv=te.decode_prefix(shared, cache), pos_offset=p0, shared_p0=p0)
     else:
         tok, lens = pad_batch_right(ids, 0)
         tok, lens = torch.as_tensor(tok, device=dev), torch.as_tensor(lens, device=dev)
         t1 = tok.shape[1]
         cache, first = te.prefill(p.llama, p.llama_cfg, tok, lens, te.default_cache_len(t1, dp),
-                                  img_embs=emb, lora=p.lora, policy=p.policy)
+                                  img_embs=emb, lora=p.lora, policy=p.policy, kv_int8=kv_int8)
         kw = {}
     out = [first]
     for step in range(forced.shape[1] - 1):
@@ -803,7 +1030,7 @@ def _small_case(torch, te, pipeline_mod, cpu, gpu, prompts, e_cpu, new=12):
             "logit_std": float(a.std()), "greedy_agreement": agree}
 
 
-def _small_run(torch, te, pipeline_mod, cpu, gpu, k1, k2, k3):
+def _small_run(torch, te, pipeline_mod, cpu, gpu, k1, k2, k3, k2c):
     from radialog_tpu_torch.ops.image import expand_cxr_u8
     u8 = torch.randint(0, 256, (4, 64, 64), generator=torch.Generator().manual_seed(0),
                        dtype=torch.uint8)
@@ -830,12 +1057,37 @@ def _small_run(torch, te, pipeline_mod, cpu, gpu, k1, k2, k3):
         [f"p{j} {img}" + " ".join(f"p{j}w{i}" for i in range(268)) for j in range(2)],
         e_cpu[:2])
     k3_plain_prefill = k3.calls - k3_before
+    # the report batch again with in-kernel KV writes (K2'' at every decode
+    # layer, K2 never), then over the bf16 cache (no flash-decode at all)
+    before = (k2.calls, k2c.calls)
+    with _env("RADIALOG_DEFER_KV", "1"):
+        cases["report_defer_kv"] = _small_case(torch, te, pipeline_mod, cpu, gpu,
+                                               _prompts(cpu.tokenizer, 4, 32), e_cpu)
+    defer_calls = {"k2": k2.calls - before[0], "k2_current": k2c.calls - before[1]}
+    cfg16 = pipeline_mod.PipelineConfig(mock=True, device="cpu", seed=5, kv_int8=False)
+    cpu16 = pipeline_mod.RaDialogPipeline(cfg16)
+    gpu16 = pipeline_mod.RaDialogPipeline(cfg16).to("cuda")
+    before = (k2.calls, k2c.calls)
+    cases["report_bf16_kv"] = _small_case(torch, te, pipeline_mod, cpu16, gpu16,
+                                          _prompts(cpu.tokenizer, 4, 32), e_cpu)
+    bf16_k2_calls = k2.calls + k2c.calls - sum(before)
+    # sampling on the card: one seed, the same texts twice
+    sample_prompts = _prompts(cpu.tokenizer, 4, 32)
+    sampled = [gpu.generate_texts(sample_prompts, img_embs=e_gpu, max_new_tokens=12,
+                                  do_sample=True, temperature=0.9) for _ in range(2)]
+    greedy = gpu.generate_texts(sample_prompts, img_embs=e_gpu, max_new_tokens=12)
     k3_tol = K3_TOL["float32"]
     emit("small", embed_max_abs_err=emb_err, logit_tol=LOGIT_TOL, cases=cases,
          k1_calls=k1.calls, k1_max_abs_err=k1.err, k2_calls=k2.calls, k2_max_abs_err=k2.err,
+         k2_current_calls=k2c.calls, k2_current_max_abs_err=k2c.err,
+         calls_with_defer_kv=defer_calls, flash_decode_calls_bf16_kv=bf16_k2_calls,
+         sampled_twice_equal=sampled[0] == sampled[1], sampled_differs_from_greedy=sampled[0] != greedy,
          k3_calls=k3.calls, k3_calls_long_prefix=k3_long, k3_calls_no_prefix=k3_plain_prefill,
          k3_max_abs_err=k3.err, k3_tol=k3_tol)
     ok = (emb_err < 1e-3 and k1.calls and k1.err == 0 and k2.calls and k2.err < K2_TOL["atol"]
+          and defer_calls["k2"] == 0 and defer_calls["k2_current"] > 0
+          and k2c.err < K2_TOL["atol"] and bf16_k2_calls == 0 and sampled[0] == sampled[1]
+          and all(t.startswith(q) for t, q in zip(sampled[0], sample_prompts))
           and k3.calls and k3_long and k3_plain_prefill
           and k3.err <= k3_tol["atol"] + k3_tol["rtol"] * k3.ref_max
           and cases["long_prefix"]["shared_prefix"] >= 256
@@ -980,31 +1232,61 @@ def phase_slice(torch, te, pipeline_mod, tq8, tfd):
         return findings, embs, pipe.generate_ids(ids, embs, dp)
 
     report_step(8)                      # warm-up: cuDNN plans, allocator
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    tq8.q8_matmul_int32.launches = 0
-    tfd.flash_decode_int8_kernel.launches = 0
-    t0 = time.time()
-    findings, embs, res = report_step(NEW)
-    tokens = res.tokens.cpu()
-    dt = time.time() - t0
-    launches = {"q8_matmul": tq8.q8_matmul_int32.launches,
-                "flash_decode_int8": tfd.flash_decode_int8_kernel.launches}
+    counted = {"q8_matmul": tq8.q8_matmul_int32, "flash_decode_int8": tfd.flash_decode_int8_kernel,
+               "flash_decode_int8_current": tfd.flash_decode_int8_current_kernel}
+
+    def timed_pass():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counted.values():
+            fn.launches = 0
+        t0 = time.time()
+        findings, embs, res = report_step(NEW)
+        tokens = res.tokens.cpu()
+        return (findings, embs, res, tokens, time.time() - t0,
+                {name: fn.launches for name, fn in counted.items()})
+
+    findings, embs, res, tokens, dt, launches = timed_pass()
     p0, _ = pipe._shared_prefix_len(ids, embs)
     ok = (tokens.shape == (BATCH, NEW) and int(tokens.min()) >= 0
           and int(tokens.max()) < pipe.llama_cfg.vocab_size
           and bool(torch.isfinite(embs).all()) and embs.shape == (BATCH, 32, 768)
-          and len(findings) == BATCH and p0 == SHARED
-          and all(res.lengths.cpu() == NEW) and all(v > 0 for v in launches.values()))
+          and len(findings) == BATCH and p0 == SHARED and all(res.lengths.cpu() == NEW)
+          and launches["q8_matmul"] > 0 and launches["flash_decode_int8"] > 0
+          and launches["flash_decode_int8_current"] == 0)
     emit("slice", reports_per_s=BATCH / dt, seconds=dt, batch=BATCH, prompt=PROMPT,
-         shared_prefix=p0, new_tokens=NEW, launches=launches,
+         shared_prefix=p0, new_tokens=NEW, defer_kv=False, launches=launches,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, build_s=build_s,
          distinct_tokens=int(tokens.unique().numel()), ok=ok)
     if not ok:
         raise AssertionError("the full-width slice produced a malformed result")
-    # decode steps per report: 299 forwards x 32 layers of K2, plus K1 calls
-    return launches, {"pipe": pipe, "prompts": prompts, "tokens": tokens,
-                      "lengths": res.lengths.cpu(), "embs": embs}
+    # the same pass with in-kernel KV writes: K2'' at every layer of every
+    # decode step (32 x 299 launches), K2 and the row copies never
+    with _env("RADIALOG_DEFER_KV", "1"):
+        _, _, res_d, tokens_d, dt_d, launches_d = timed_pass()
+    layers = pipe.llama_cfg.num_layers
+    differs = tokens_d != tokens
+    first_diff = torch.where(differs.any(dim=1), differs.int().argmax(dim=1),
+                             torch.full((BATCH,), NEW))         # NEW: the lane is equal
+    ok_d = (tokens_d.shape == (BATCH, NEW) and int(tokens_d.min()) >= 0
+            and int(tokens_d.max()) < pipe.llama_cfg.vocab_size
+            and all(res_d.lengths.cpu() == NEW)
+            and launches_d["flash_decode_int8"] == 0
+            and launches_d["flash_decode_int8_current"] == layers * (NEW - 1)
+            and launches_d["q8_matmul"] == launches["q8_matmul"])
+    emit("slice", reports_per_s=BATCH / dt_d, seconds=dt_d, batch=BATCH, prompt=PROMPT,
+         shared_prefix=p0, new_tokens=NEW, defer_kv=True, launches=launches_d,
+         reports_per_s_defer_off=BATCH / dt,
+         # reported, not held: the current row is summed in another order, so
+         # a rounding edge may flip a token and the rest of its lane
+         token_share_equal_to_defer_off=float((tokens_d == tokens).float().mean()),
+         lanes_equal_to_defer_off=int((first_diff == NEW).sum()),
+         first_different_step_median=float(first_diff.float().median()),
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, ok=ok_d)
+    if not ok_d:
+        raise AssertionError("the full-width slice with in-kernel KV writes failed a check")
+    return launches, launches_d, {"pipe": pipe, "prompts": prompts, "tokens": tokens,
+                                  "lengths": res.lengths.cpu(), "embs": embs}
 
 
 def phase_qa(torch, tq8, tfd, tfa, sl):
@@ -1348,6 +1630,7 @@ def main() -> int:
         from radialog_tpu_torch.ops import flash_decode as tfd
         from radialog_tpu_torch.ops import q4_matmul as tq4
         from radialog_tpu_torch.ops import q8_matmul as tq8
+        from radialog_tpu_torch.ops import w4_colscale as tw
         from radialog_tpu_torch.ops.layers import set_precision
     except ImportError as e:
         print(f"chip_smoke: run from a checkout of the repository ({e})", file=sys.stderr)
@@ -1369,14 +1652,15 @@ def main() -> int:
         flush_buf.zero_()
 
     k1 = phase_k1(torch, tq8, flush)
-    k2, k2_ring = phase_k2(torch, tfd, flush)
+    k2, k2_ring, k2c = phase_k2(torch, tfd, flush)
     k3 = phase_k3(torch, tfa, flush)
     k4 = phase_k4(torch, tq4, flush)
     k5 = phase_k5(torch, tfa, flush)
+    t1, t2, t3 = phase_tproto(torch, tfd, tw, flush)
     phase_small(torch, te, pipeline_mod, tq8, tfd, tfa, tq4)
     del flush_buf
     torch.cuda.empty_cache()
-    launches, sl = phase_slice(torch, te, pipeline_mod, tq8, tfd)
+    launches, defer_launches, sl = phase_slice(torch, te, pipeline_mod, tq8, tfd)
     qa_launches = phase_qa(torch, tq8, tfd, tfa, sl)
     serve_launches, serve4_launches = phase_serve(torch, tq8, tfd, tfa, tq4, sl)
     del sl                                  # the serving weights make room for the trainer's
@@ -1438,6 +1722,27 @@ def main() -> int:
          "replaces": "radialog_tpu/ops/flash_attention.py:159",
          "launches": train_launches["flash_attention_dkv"], **k5["dkv"],
          "work": "one layer's dk and dv at the same shape; library_ms as for dq"},
+        {"name": "flash_decode_int8_current", "route": "cuda",
+         "source": "radialog_tpu_torch/csrc/flash_decode.cu",
+         "replaces": "radialog_tpu/ops/flash_decode.py:245",
+         "launches": defer_launches["flash_decode_int8_current"], "library_ms": None, **k2c,
+         "work": "one layer at decode step 150, B=56, S=384, P0=48, the current row attended "
+                 "and written in place; launches of the slice's pass with RADIALOG_DEFER_KV=1"},
+        {"name": "flash_decode_int8_fused", "route": "cuda",
+         "source": "radialog_tpu_torch/csrc/flash_decode.cu",
+         "replaces": "tools/microbench_kvfused.py:94", **t1,
+         "work": "one layer at the tool's defaults, B=56, S=384, prompt pad 128, step 150, one "
+                 "interleaved k|v buffer; k2_ms: K2 on the same data; launches of the tool's "
+                 "8-layer chain in the tproto phase"},
+        {"name": "w4_int32_split", "route": "cuda",
+         "source": "radialog_tpu_torch/csrc/w4_colscale.cu",
+         "replaces": "tools/microbench_w4.py:93", **t2,
+         "work": "one decoder layer's 4 projections at M=32, int4 per column, activations "
+                 "split even/odd; library_ms: torch._int_mm on the codes widened to int8; "
+                 "launches of the tool's 32-layer chain in the tproto phase"},
+        {"name": "w4_int32", "route": "cuda", "source": "radialog_tpu_torch/csrc/w4_colscale.cu",
+         "replaces": "tools/microbench_w4.py:153", **t3,
+         "work": "as w4_int32_split with whole activation rows"},
     ]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -6,12 +6,12 @@ Covered: mock construction (tiny seeded models, real interface contract:
 BioViL-T, BERT-base Q-Former, the CheXpert classifier and the BERT-base
 CheXbert labeler with random weights from a seeded ``torch.Generator``),
 both with W8A8 weights (or, with ``weight_bits=4``, W4A8 layers) and the
-int8 KV cache; ``embed_images``, ``classify_findings``, ``label_reports``,
-the shared-prefix rule, greedy ``generate_texts`` (the engine's ``prefill``
-picks the direct or the cache-free prefill by batch size) and
-``generate_texts_ring`` through the continuous-batching ring with either KV
-dtype. Loading real checkpoints, beams and the speculative ring are not
-ported yet.
+int8 KV cache (or, with ``kv_int8=False``, the bf16 one); ``embed_images``,
+``classify_findings``, ``label_reports``, the shared-prefix rule,
+``generate_texts``, greedy or sampled (the engine's ``prefill`` picks the
+direct or the cache-free prefill by batch size) and ``generate_texts_ring``
+through the continuous-batching ring, each with either KV dtype. Loading
+real checkpoints, beams and the speculative ring are not ported yet.
 """
 from __future__ import annotations
 
@@ -195,11 +195,10 @@ class RaDialogPipeline:
     @torch.no_grad()
     def generate_ids(self, ids: List[List[int]], img_embs: Optional[torch.Tensor],
                      dp: DecodeParams) -> GenerationResult:
-        """Token ids of each prompt -> greedy generation (shared-prefix
-        serving when the batch's common prefix is long enough)."""
-        if not self.cfg.use_kv_int8():
-            raise NotImplementedError("the batch engine's bf16 KV cache is not ported; "
-                                      "generate_texts_ring serves kv_int8=False")
+        """Token ids of each prompt -> generation (shared-prefix serving
+        when the batch's common prefix is long enough), over the KV cache
+        that ``cfg.kv_int8`` picks."""
+        kv_int8 = self.cfg.use_kv_int8()
         pad = self.tokenizer.pad_token_id
         sp = self._shared_prefix_len(ids, img_embs)
         if sp[0] >= SHARED_PREFIX_MIN:
@@ -212,14 +211,15 @@ class RaDialogPipeline:
                 torch.as_tensor(lengths, device=self.device), dp,
                 img_embs=None if img_in_prefix else img_embs,
                 prefix_img_embs=img_embs[:1] if img_in_prefix else None,
-                lora=self.lora, policy=self.policy)
+                lora=self.lora, policy=self.policy, kv_int8=kv_int8)
         tokens, lengths = pad_batch_right(ids, pad)
         return generate(self.llama, self.llama_cfg, torch.as_tensor(tokens, device=self.device),
                         torch.as_tensor(lengths, device=self.device), dp,
-                        img_embs=img_embs, lora=self.lora, policy=self.policy)
+                        img_embs=img_embs, lora=self.lora, policy=self.policy, kv_int8=kv_int8)
 
     def decode_params(self, max_new_tokens: Optional[int] = None,
-                      eos_token_id: Optional[int] = None) -> DecodeParams:
+                      eos_token_id: Optional[int] = None, do_sample: bool = False,
+                      temperature: float = 1.0) -> DecodeParams:
         unroll = self.cfg.decode_unroll if self.cfg.decode_unroll is not None \
             else (3 if not self.cfg.mock else 1)
         if unroll < 1:
@@ -227,14 +227,21 @@ class RaDialogPipeline:
         return DecodeParams(max_new_tokens=max_new_tokens or self.cfg.max_new_tokens,
                             eos_token_id=(self.tokenizer.eos_token_id if eos_token_id is None
                                           else eos_token_id),
+                            do_sample=do_sample, temperature=temperature,
                             seed=self.cfg.seed, unroll=unroll)
 
     def generate_texts(self, prompts: Sequence[str],
                        img_embs: Optional[torch.Tensor] = None,
-                       max_new_tokens: Optional[int] = None) -> List[str]:
-        """Tokenize -> prefill -> greedy decode -> prompt + generated text."""
+                       max_new_tokens: Optional[int] = None, do_sample: bool = False,
+                       temperature: float = 1.0, num_beams: int = 1) -> List[str]:
+        """Tokenize -> prefill -> decode (greedy, or sampled at
+        ``temperature`` from the noise of ``cfg.seed``) -> prompt + generated
+        text."""
+        if num_beams > 1:
+            raise NotImplementedError("beam search (decode/beam.py) is not ported yet")
         ids = [self.tokenizer(p)["input_ids"] for p in prompts]
-        res = self.generate_ids(ids, img_embs, self.decode_params(max_new_tokens))
+        res = self.generate_ids(ids, img_embs, self.decode_params(
+            max_new_tokens, do_sample=do_sample, temperature=temperature))
         gen = res.tokens.cpu().numpy()
         lens = res.lengths.cpu().numpy()
         return [p + " " + self.tokenizer.decode(gen[i][:int(lens[i])], skip_special_tokens=True)

@@ -30,6 +30,25 @@
 //     with 4-byte loads per thread (K, dp4a) and 1-byte loads (V), and the
 //     1792 blocks of the decode shape (56 lanes x 32 heads) keep every SM
 //     busy.
+//
+// K2'' (the `current` / `write_cache` mode of the same TPU kernel, its
+// `_current` and `_wcapture` blocks): the step's own K/V row arrives as an
+// operand (kc, kcs, vc, vcs: (B, H*D) int8 and (B, SLc) bf16) and is
+// accumulated after the prefix state and before the lane's first block, the
+// TPU kernel's order; the caller's mask ends one slot before it. With
+// `write` the block then stores its own head's D bytes of k and v and its
+// two scale entries at slot b1 + 1 of lane b in the cache, and nothing else:
+// no two blocks write the same bytes, no block reads another's, and the
+// block's own reads of that slot (masked, p = 0) all come before its store.
+// The TPU kernel rebuilds an 8-row slab and leaves the rows above the slot
+// undefined; here every other byte of the cache stays as it was.
+//
+// T1 (tools/microbench_kvfused.py `fused_kernel`, K2 over one interleaved
+// k|v buffer): `kv_stride` is the distance in bytes between two cache rows
+// of k (and of v), SL the distance in elements between two scale rows. K2
+// passes H*D and the scale width; T1 passes 2*H*D with v at k + H*D, and 2*H
+// with the v scales at ks + H. The arithmetic is K2's, so T1 equals K2 bit
+// for bit on the same data.
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -175,7 +194,10 @@ lane_kernel(const int8_t* __restrict__ q8, const float* __restrict__ qs,
             const int* __restrict__ lens, const int* __restrict__ a1, const int* __restrict__ b1,
             const int* __restrict__ a2, const int* __restrict__ b2,
             const float* __restrict__ pm, const float* __restrict__ pl,
-            const float* __restrict__ pacc, int layer, int B, int S, int H, int D, int SL,
+            const float* __restrict__ pacc, const int8_t* __restrict__ kc,
+            const uint16_t* __restrict__ kcs, const int8_t* __restrict__ vc,
+            const uint16_t* __restrict__ vcs, int SLc, int8_t* kw, uint16_t* ksw, int8_t* vw,
+            uint16_t* vsw, int layer, int B, int S, int H, int D, int SL, int kv_stride,
             int bs, float scale, float* __restrict__ out) {
   __shared__ float sc[MAX_BS];
   __shared__ float pr[MAX_BS];
@@ -203,11 +225,35 @@ lane_kernel(const int8_t* __restrict__ q8, const float* __restrict__ qs,
   const float qscale = qs[b * H + h];
   const size_t lane_row0 = ((size_t)layer * B + b) * S;
 
+  if (kc != nullptr) {
+    // K2'': the current row, always valid, after the prefix and before the
+    // lane's blocks (the plain version's block of one row)
+    if (warp == 0) {
+      const int dot = dot_row(qrow, kc + (size_t)b * hd + h * D, D, lane);
+      if (lane == 0) {
+        sc[0] = static_cast<float>(dot) * bf16_bits_to_float(kcs[(size_t)b * SLc + h]) *
+                qscale * scale;
+      }
+    }
+    __syncthreads();
+    const float s = sc[0];
+    const float m_new = fmaxf(m, s);
+    const float alpha = expf(m - m_new);
+    const float p = expf(s - m_new);
+    l = l * alpha + p;
+    m = m_new;
+    if (d < D) {
+      const float pvc = round_bf16(p * bf16_bits_to_float(vcs[(size_t)b * SLc + h]));
+      acc = acc * alpha + pvc * static_cast<float>(vc[(size_t)b * hd + h * D + d]);
+    }
+    __syncthreads();                                            // sc[0] is read
+  }
+
   for (int blk = 0; blk < nblk; ++blk) {
     const int s0 = blk * bs;
     for (int r = warp; r < bs; r += THREADS / 32) {
       const int s = s0 + r;
-      const int dot = dot_row(qrow, k8 + (lane_row0 + s) * hd + h * D, D, lane);
+      const int dot = dot_row(qrow, k8 + (lane_row0 + s) * kv_stride + h * D, D, lane);
       if (lane == 0) {
         const bool valid = s < len || (s >= la1 && s <= lb1) || (s >= la2 && s <= lb2);
         const float kscale = bf16_bits_to_float(ks[(lane_row0 + s) * SL + h]);
@@ -234,8 +280,8 @@ lane_kernel(const int8_t* __restrict__ q8, const float* __restrict__ qs,
     m = m_new;
     if (d < D) {
       float o = 0.0f;
-      const int8_t* vcol = v8 + (lane_row0 + s0) * hd + h * D + d;
-      for (int r = 0; r < bs; ++r) o += pv[r] * static_cast<float>(vcol[(size_t)r * hd]);
+      const int8_t* vcol = v8 + (lane_row0 + s0) * kv_stride + h * D + d;
+      for (int r = 0; r < bs; ++r) o += pv[r] * static_cast<float>(vcol[(size_t)r * kv_stride]);
       acc = acc * alpha + o;
     }
     __syncthreads();
@@ -243,6 +289,19 @@ lane_kernel(const int8_t* __restrict__ q8, const float* __restrict__ qs,
   if (d < D) {
     const float inv_l = 1.0f / fmaxf(l, 1e-30f);
     out[((size_t)b * H + h) * D + d] = acc * inv_l;
+  }
+  if (kw != nullptr) {
+    // K2'' write: this head's bytes of the current row at slot b1 + 1, after
+    // every read of this block (the wrapper checks that the slot is < S)
+    const size_t row = lane_row0 + lb1 + 1;
+    if (d < D) {
+      kw[row * kv_stride + h * D + d] = kc[(size_t)b * hd + h * D + d];
+      vw[row * kv_stride + h * D + d] = vc[(size_t)b * hd + h * D + d];
+    }
+    if (tid == 0) {
+      ksw[row * SL + h] = kcs[(size_t)b * SLc + h];
+      vsw[row * SL + h] = vcs[(size_t)b * SLc + h];
+    }
   }
 }
 
@@ -259,14 +318,19 @@ static size_t prefix_smem(int p0p, int d) {
 }
 
 // C interface, loaded with ctypes. k0 == nullptr: no shared prefix. With a
-// prefix, pm/pl/pacc are (B,H), (B,H), (B,H,D) f32 scratch. out is (B,H,D)
-// f32. Returns the cudaError_t of the launches (0 on success).
+// prefix, pm/pl/pacc are (B,H), (B,H), (B,H,D) f32 scratch. kc == nullptr:
+// no current row (K2, K2', T1); else kc/vc (B, H*D) int8 and kcs/vcs (B, SLc)
+// bf16, and with write != 0 the row is stored at slot b1 + 1 of k8/ks/v8/vs
+// (K2''). kv_stride: bytes between two cache rows of k8 (and of v8); SL:
+// elements between two scale rows. out is (B,H,D) f32. Returns the
+// cudaError_t of the launches (0 on success).
 extern "C" int flash_decode_int8_launch(
     const void* q8, const void* qs, const void* k8, const void* ks, const void* v8,
     const void* vs, const void* lens, const void* a1, const void* b1, const void* a2,
     const void* b2, const void* k0, const void* ks0, const void* v0, const void* vs0, int p0,
-    int p0p, int sl0, void* pm, void* pl, void* pacc, void* out, int layer, int B, int S,
-    int H, int D, int SL, int bs, float scale, void* stream) {
+    int p0p, int sl0, void* pm, void* pl, void* pacc, const void* kc, const void* kcs,
+    const void* vc, const void* vcs, int SLc, int write, void* out, int layer, int B, int S,
+    int H, int D, int SL, int kv_stride, int bs, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool prefix = k0 != nullptr;
   if (prefix) {
@@ -293,7 +357,13 @@ extern "C" int flash_decode_int8_launch(
       static_cast<const int*>(a2), static_cast<const int*>(b2),
       prefix ? static_cast<const float*>(pm) : nullptr,
       prefix ? static_cast<const float*>(pl) : nullptr,
-      prefix ? static_cast<const float*>(pacc) : nullptr, layer, B, S, H, D, SL, bs, scale,
-      static_cast<float*>(out));
+      prefix ? static_cast<const float*>(pacc) : nullptr, static_cast<const int8_t*>(kc),
+      static_cast<const uint16_t*>(kcs), static_cast<const int8_t*>(vc),
+      static_cast<const uint16_t*>(vcs), SLc,
+      write ? static_cast<int8_t*>(const_cast<void*>(k8)) : nullptr,
+      write ? static_cast<uint16_t*>(const_cast<void*>(ks)) : nullptr,
+      write ? static_cast<int8_t*>(const_cast<void*>(v8)) : nullptr,
+      write ? static_cast<uint16_t*>(const_cast<void*>(vs)) : nullptr, layer, B, S, H, D, SL,
+      kv_stride, bs, scale, static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,12 +1,21 @@
-"""Autoregressive generation: prefill + greedy decode over the int8 cache
-(port of radialog_tpu/decode/engine.py: ``prefill``,
-``generate_shared_prefix``, ``prefix_kv``, ``generate`` and
-``decode_loop``, greedy only).
+"""Autoregressive generation: prefill + decode over the int8 or the bf16
+KV cache, greedy or sampled (port of radialog_tpu/decode/engine.py:
+``prefill``, ``generate_shared_prefix``, ``prefix_kv``, ``generate``,
+``decode_loop`` and ``_select_token``).
 
 The JAX ``lax.while_loop`` becomes a Python loop with the same early exit:
 it stops once every lane has emitted EOS. ``DecodeParams.unroll`` is kept
 and is token-identical: here it is the number of steps between two checks
 of that exit condition (each check waits for the card).
+
+``kv_int8`` defaults to True here, the reverse of the JAX engine's default
+(as ``init_cache``'s): the port's serving default is the int8 cache, and the
+pipeline passes its own setting (``PipelineConfig.kv_int8``) explicitly.
+
+Sampling draws its noise from one ``torch.Generator`` per ``decode_loop``,
+seeded from ``DecodeParams.seed`` on the logits' device, through
+``gumbel_noise``. It gives other numbers than ``jax.random`` from the same
+seed; the tests feed both the same noise by replacing ``gumbel_noise``.
 """
 from __future__ import annotations
 
@@ -16,8 +25,9 @@ from typing import Dict, NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from ..models.llama import (KVCache, LlamaConfig, PrefixKV, find_img_start, init_cache,
-                            llama_apply, prefill_bias, quantize_kv)
+from ..models.llama import (KVCache, LlamaConfig, PrefixKV, decode_bias_static_slot,
+                            find_img_start, init_cache, llama_apply, prefill_bias, quantize_kv)
+from ..ops.attention import NEG_INF
 from ..ops.layers import DTypePolicy, FP32
 from .kvcache import bucket_length, install_prefill
 
@@ -33,7 +43,10 @@ DIRECT_PREFILL_MIN_BATCH = 30
 class DecodeParams:
     max_new_tokens: int = 300
     eos_token_id: int = 2
+    temperature: float = 1.0
     do_sample: bool = False
+    top_k: int = 0                   # 0: no top-k filter
+    top_p: float = 1.0               # 1.0: no nucleus filter
     seed: int = 42
     unroll: int = 1
 
@@ -50,24 +63,49 @@ def default_cache_len(t: int, dp: DecodeParams) -> int:
     return bucket_length(t + dp.max_new_tokens + max(0, dp.unroll - 2))
 
 
-def _select_token(logits: torch.Tensor, dp: DecodeParams) -> torch.Tensor:
-    if dp.do_sample:
-        raise NotImplementedError("sampling is not ported yet; greedy only")
-    return torch.argmax(logits, dim=-1).to(torch.int32)
+def gumbel_noise(shape, gen: torch.Generator, device) -> torch.Tensor:
+    """Standard Gumbel noise in f32 by jax.random.gumbel's formula:
+    -log(-log(u)) with u uniform in [tiny, 1)."""
+    u = torch.rand(shape, generator=gen, device=device, dtype=torch.float32)
+    return -torch.log(-torch.log(torch.clamp(u, min=torch.finfo(torch.float32).tiny)))
+
+
+def _select_token(logits: torch.Tensor, dp: DecodeParams,
+                  gen: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Greedy, or sampling as the JAX engine samples: temperature, then the
+    top-k filter, then the nucleus filter (it keeps the tokens whose
+    preceding mass in descending order is < top_p, so the first always
+    stays), then argmax(filtered + Gumbel noise), which is what
+    jax.random.categorical computes. (B, V) -> (B,) int32, on the device."""
+    if not dp.do_sample:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    logits = logits.float() / max(dp.temperature, 1e-6)
+    if dp.top_k and dp.top_k > 0:
+        kth = torch.topk(logits, dp.top_k, dim=-1).values[..., -1:]
+        logits = torch.where(logits < kth, NEG_INF, logits)
+    if dp.top_p < 1.0:
+        sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+        probs = torch.softmax(sorted_logits, dim=-1)
+        keep = (torch.cumsum(probs, dim=-1) - probs) < dp.top_p
+        cutoff = torch.where(keep, sorted_logits, torch.inf).amin(dim=-1, keepdim=True)
+        logits = torch.where(logits < cutoff, NEG_INF, logits)
+    noise = gumbel_noise(logits.shape, gen, logits.device)
+    return torch.argmax(logits + noise, dim=-1).to(torch.int32)
 
 
 def prefill(params: Dict, cfg: LlamaConfig, tokens: torch.Tensor, lengths: torch.Tensor,
             cache_len: int, img_embs: Optional[torch.Tensor] = None,
-            lora: Optional[Dict] = None, policy: DTypePolicy = FP32):
+            lora: Optional[Dict] = None, policy: DTypePolicy = FP32, kv_int8: bool = True):
     """The prompt pass: returns (cache, last_logits (B, V)). tokens (B, T)
     right-padded with lengths (B,); cache_len >= T + max_new.
 
-    At batch >= DIRECT_PREFILL_MIN_BATCH each layer quantizes its K/V
-    straight into the int8 cache. Below it the prefill runs without a
-    cache (flash attention, K3, at T >= 256) and ``install_prefill``
-    quantizes the fresh K/V into the cache afterwards, as the JAX engine
-    does. Below 256 tokens both paths leave the same cache bytes and
-    logits."""
+    With the int8 cache (``kv_int8``), at batch >= DIRECT_PREFILL_MIN_BATCH
+    each layer quantizes its K/V straight into the cache. Below it the
+    prefill runs without a cache (flash attention, K3, at T >= 256) and
+    ``install_prefill`` quantizes the fresh K/V into the cache afterwards, as
+    the JAX engine does. Below 256 tokens both paths leave the same cache
+    bytes and logits. The bf16 cache is always prefilled directly on the
+    unrolled serving layout, as in the JAX engine."""
     b, t = tokens.shape
     dev = tokens.device
     if img_embs is not None and img_embs.shape[1] != cfg.num_img_tokens:
@@ -75,8 +113,9 @@ def prefill(params: Dict, cfg: LlamaConfig, tokens: torch.Tensor, lengths: torch
                          f"prompt contract reserves {cfg.num_img_tokens} <IMG> slots")
     positions = torch.arange(t, device=dev)[None].repeat(b, 1)
     img_start = find_img_start(tokens, cfg.img_token_id) if img_embs is not None else None
-    cache = init_cache(cfg, b, cache_len, device=dev)
-    direct = b >= DIRECT_PREFILL_MIN_BATCH
+    cache = init_cache(cfg, b, cache_len, device=dev, quantized=kv_int8)
+    direct = (isinstance(params["layers"], (list, tuple))
+              and (not kv_int8 or b >= DIRECT_PREFILL_MIN_BATCH))
     logits, out = llama_apply(params, cfg, tokens, positions, prefill_bias(lengths, t),
                               cache=cache if direct else None, write_pos=0,
                               img_embs=img_embs, img_start=img_start, lora=lora,
@@ -121,20 +160,31 @@ def quantize_prefix(shared: PrefixKV, rows: int = 32):
     return [(k0[i], ks0[i], v0[i], vs0[i]) for i in range(L)]
 
 
+def decode_prefix(shared: PrefixKV, cache: KVCache):
+    """The decode loop's per-layer copy of a shared prefix, in the cache's
+    dtype: ``quantize_prefix``'s int8 tuples, or (k0, v0) pairs (P0, H, D)
+    for the bf16 cache."""
+    if cache.quantized:
+        return quantize_prefix(shared)
+    k0, v0 = shared.k.to(cache.k.dtype), shared.v.to(cache.v.dtype)
+    return [(k0[i], v0[i]) for i in range(k0.shape[0])]
+
+
 def generate_shared_prefix(params: Dict, cfg: LlamaConfig, prefix_tokens: torch.Tensor,
                            tokens: torch.Tensor, lengths: torch.Tensor,
                            dp: DecodeParams = DecodeParams(),
                            img_embs: Optional[torch.Tensor] = None,
                            lora: Optional[Dict] = None, policy: DTypePolicy = FP32,
                            cache_len: Optional[int] = None,
-                           prefix_img_embs: Optional[torch.Tensor] = None
-                           ) -> GenerationResult:
+                           prefix_img_embs: Optional[torch.Tensor] = None,
+                           kv_int8: bool = True) -> GenerationResult:
     """generate() for prompts that share a literal token prefix.
 
     prefix_tokens (P0,) is prefilled once; tokens (B, T1) are the per-lane
     right-padded remainders with lengths (B,) >= 1. The remainder prefill
-    attends the compute-dtype prefix; the decode loop reads an int8 copy of
-    it through K2's shared-prefix block, once per step for all lanes."""
+    attends the compute-dtype prefix; the decode loop reads a copy of it in
+    the cache's dtype, once per step for all lanes: int8 through K2's
+    shared-prefix block, bf16 merged with the lane's rows in one softmax."""
     b, t1 = tokens.shape
     p0 = prefix_tokens.shape[0]
     dev = tokens.device
@@ -148,7 +198,7 @@ def generate_shared_prefix(params: Dict, cfg: LlamaConfig, prefix_tokens: torch.
                          f"but the prompt contract reserves {cfg.num_img_tokens}")
     shared = prefix_kv(params, cfg, prefix_tokens, lora=lora, policy=policy,
                        img_embs=prefix_img_embs)
-    cache = init_cache(cfg, b, cache_len, device=dev)
+    cache = init_cache(cfg, b, cache_len, device=dev, quantized=kv_int8)
     positions = p0 + torch.arange(t1, device=dev)[None].repeat(b, 1)
     img_start = find_img_start(tokens, cfg.img_token_id) if img_embs is not None else None
     logits, cache = llama_apply(params, cfg, tokens, positions, prefill_bias(lengths, t1),
@@ -156,19 +206,19 @@ def generate_shared_prefix(params: Dict, cfg: LlamaConfig, prefix_tokens: torch.
                                 img_start=img_start, lora=lora, policy=policy,
                                 lengths=lengths, last_pos=lengths - 1, shared_kv=shared)
     return decode_loop(params, cfg, cache, logits[:, 0], lengths, dp, lora=lora,
-                       policy=policy, prompt_pad=t1, shared_kv=quantize_prefix(shared),
+                       policy=policy, prompt_pad=t1, shared_kv=decode_prefix(shared, cache),
                        pos_offset=p0, shared_p0=p0)
 
 
 def generate(params: Dict, cfg: LlamaConfig, tokens: torch.Tensor, lengths: torch.Tensor,
              dp: DecodeParams = DecodeParams(), img_embs: Optional[torch.Tensor] = None,
              lora: Optional[Dict] = None, policy: DTypePolicy = FP32,
-             cache_len: Optional[int] = None) -> GenerationResult:
-    """``prefill`` (direct or cache-free by batch size), then greedy decode."""
+             cache_len: Optional[int] = None, kv_int8: bool = True) -> GenerationResult:
+    """``prefill``, then decode."""
     if cache_len is None:
         cache_len = default_cache_len(tokens.shape[1], dp)
     cache, first = prefill(params, cfg, tokens, lengths, cache_len, img_embs=img_embs,
-                           lora=lora, policy=policy)
+                           lora=lora, policy=policy, kv_int8=kv_int8)
     return decode_loop(params, cfg, cache, first, lengths, dp, lora=lora, policy=policy,
                        prompt_pad=tokens.shape[1])
 
@@ -176,14 +226,19 @@ def generate(params: Dict, cfg: LlamaConfig, tokens: torch.Tensor, lengths: torc
 def decode_step(params: Dict, cfg: LlamaConfig, cache: KVCache, last_tok: torch.Tensor,
                 prompt_lengths: torch.Tensor, prompt_pad: int, step: int,
                 lora=None, policy: DTypePolicy = FP32, shared_kv=None,
-                pos_offset: int = 0, shared_p0: Optional[int] = None) -> torch.Tensor:
+                pos_offset: int = 0, shared_p0: Optional[int] = None,
+                defer_kv: Optional[bool] = None) -> torch.Tensor:
     """One forward of the last tokens (B,) at decode step ``step``: writes
-    their K/V at slot prompt_pad + step and returns logits (B, V)."""
+    their K/V at slot prompt_pad + step and returns logits (B, V). The bf16
+    cache is masked by ``decode_bias_static_slot``; ``defer_kv`` is
+    ``llama_apply``'s (None reads RADIALOG_DEFER_KV)."""
     pos = (prompt_lengths + pos_offset + step)[:, None]
-    logits, _ = llama_apply(params, cfg, last_tok[:, None], pos, None, cache=cache,
+    bias = None if cache.quantized else decode_bias_static_slot(
+        prompt_lengths, prompt_pad, step, cache.max_len)
+    logits, _ = llama_apply(params, cfg, last_tok[:, None], pos, bias, cache=cache,
                             write_pos=prompt_pad + step, lora=lora, policy=policy,
                             lengths=prompt_lengths, slot_info=(prompt_pad, step),
-                            shared_kv=shared_kv, shared_p0=shared_p0)
+                            shared_kv=shared_kv, shared_p0=shared_p0, defer_kv=defer_kv)
     return logits[:, 0]
 
 
@@ -192,8 +247,9 @@ def decode_loop(params: Dict, cfg: LlamaConfig, cache: KVCache, first_logits: to
                 policy: DTypePolicy = FP32, prompt_pad: Optional[int] = None,
                 shared_kv=None, pos_offset: int = 0,
                 shared_p0: Optional[int] = None) -> GenerationResult:
-    """Greedy decode with static-slot KV writes: step s writes every lane's
-    K/V at slot prompt_pad + s; positions and masks stay per lane."""
+    """Greedy or sampled decode with static-slot KV writes: step s writes
+    every lane's K/V at slot prompt_pad + s; positions and masks stay per
+    lane. A lane that emitted EOS keeps emitting it."""
     if prompt_pad is None:
         raise ValueError("decode_loop requires prompt_pad (padded prompt length)")
     b = first_logits.shape[0]
@@ -201,7 +257,9 @@ def decode_loop(params: Dict, cfg: LlamaConfig, cache: KVCache, first_logits: to
     if prompt_pad + max_new > cache.max_len:
         raise ValueError(f"cache too small: {prompt_pad}+{max_new} > {cache.max_len}")
     unroll = max(1, int(dp.unroll))
-    tok = _select_token(first_logits, dp)
+    gen = (torch.Generator(device=first_logits.device).manual_seed(dp.seed)
+           if dp.do_sample else None)
+    tok = _select_token(first_logits, dp, gen)
     out = torch.full((b, max_new), dp.eos_token_id, dtype=torch.int32,
                      device=first_logits.device)
     out[:, 0] = tok
@@ -214,7 +272,7 @@ def decode_loop(params: Dict, cfg: LlamaConfig, cache: KVCache, first_logits: to
             logits = decode_step(params, cfg, cache, tok, prompt_lengths, prompt_pad, step,
                                  lora=lora, policy=policy, shared_kv=shared_kv,
                                  pos_offset=pos_offset, shared_p0=shared_p0)
-            nxt = _select_token(logits, dp)
+            nxt = _select_token(logits, dp, gen)
             nxt = torch.where(done, torch.full_like(nxt, dp.eos_token_id), nxt)
             out[:, step + 1] = nxt
             done = done | (nxt == dp.eos_token_id)

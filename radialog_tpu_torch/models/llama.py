@@ -6,12 +6,15 @@ Covered: prefill straight into the int8 token-flat cache (attention on the
 layer's own compute-dtype K/V, optionally merged with a shared prefix in one
 softmax), single-token decode over the cache through the flash-decode
 kernel (ops/flash_decode.py, K2) with the static-slot mask and the shared
-int8 prefix or with the ring batcher's per-lane slot intervals, the
+int8 prefix or with the ring batcher's per-lane slot intervals, and with
+``defer_kv`` the same decode with in-kernel cache writes (K2''), the
 cache-free prefill that ``prefix_kv``, the engine's small-batch ``prefill``
 and the ring batcher's admission run, whose attention at 256 tokens or more
 is the flash-attention kernel (ops/flash_attention.py, K3), and the bf16
-cache of the ring batcher (``mha`` over the layer's cache rows with the
-caller's bias). Layer projections are W8A8 (K1) or W4A8 (K4) leaves.
+cache of the batch engine and of the ring batcher (direct prefill, and
+decode as ``mha`` over the layer's cache rows with the caller's bias,
+merged with a shared prefix in one softmax where the engine shares one).
+Layer projections are W8A8 (K1) or W4A8 (K4) leaves.
 
 The stacked training layout (``llama_init``'s tree, float or with the
 ``{"w_q", "scale"}`` leaves of ops/quant.quantize_llama): ``params["layers"]``
@@ -21,8 +24,7 @@ deltas go through ``_proj``, there is no cache, and ``remat`` recomputes
 each layer in the backward pass (``torch.utils.checkpoint``). With ``flash``
 its attention at 256 tokens or more is differentiable through K3 forward and
 K5a/K5b backward. The stacked layout with a cache (the scan decode),
-speculative ``verify``, ``defer_kv`` and tensor parallelism are not ported
-yet.
+speculative ``verify`` and tensor parallelism are not ported yet.
 
 The KV cache is updated IN PLACE (a PyTorch tensor is mutable; the JAX
 package returns a new cache from dynamic_update_slice): ``llama_apply``
@@ -32,6 +34,7 @@ object.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -109,9 +112,10 @@ def init_cache(cfg: LlamaConfig, batch: int, max_len: int, device="cuda",
     """Zeroed cache for ``batch`` lanes of ``max_len`` slots: int8 with
     scales 1, or with ``quantized=False`` the (L, B, S, H, D) cache in
     ``dtype``. The default is the reverse of the JAX package's
-    ``init_cache`` (``quantized=False`` there): every serving path of the
-    port keeps the int8 cache, and only the ring's ``kv_int8=False`` asks
-    for the other one."""
+    ``init_cache`` (``quantized=False`` there): the port's serving default is
+    the int8 cache, and ``kv_int8=False`` of the batch engine
+    (decode/engine.py), the pipeline and the ring batcher asks for the other
+    one."""
     if not quantized:
         shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
         return KVCache(torch.zeros(shape, dtype=dtype, device=device),
@@ -246,10 +250,16 @@ def _use_flash(lengths, t: int, flash: bool = True) -> bool:
     return flash and lengths is not None and t >= 256
 
 
+def _gqa(x, nh: int, axis: int):
+    """Repeat the K/V heads on ``axis`` up to the query head count."""
+    rep = nh // x.shape[axis]
+    return x if rep == 1 else x.repeat_interleave(rep, dim=axis)
+
+
 def _attention_block(lp: Dict, lora_layer, lora_scale, cfg: LlamaConfig, x, positions,
                      rope, bias, cache: Optional[KVCache], layer_idx: int, write_pos,
                      policy: DTypePolicy, lengths=None, slot_info=None, shared_layer=None,
-                     flash: bool = True):
+                     flash: bool = True, defer: bool = False):
     b, t, _ = x.shape
     nh, hd = cfg.num_heads, cfg.head_dim
     q, k, v = qkv_proj(lp, lora_layer, lora_scale, cfg, x, policy)
@@ -258,10 +268,7 @@ def _attention_block(lp: Dict, lora_layer, lora_scale, cfg: LlamaConfig, x, posi
     k = apply_rope(k, cos, sin, positions)
 
     if cache is None:   # cache-free prefill or training forward: return the fresh K/V
-        k_all, v_all = k, v
-        if cfg.num_kv_heads != nh:   # GQA broadcast
-            rep = nh // cfg.num_kv_heads
-            k_all, v_all = k.repeat_interleave(rep, dim=2), v.repeat_interleave(rep, dim=2)
+        k_all, v_all = _gqa(k, nh, 2), _gqa(v, nh, 2)
         if _use_flash(lengths, t, flash):
             o = flash_attention(q, k_all, v_all, lengths, causal=True)
         else:
@@ -270,24 +277,30 @@ def _attention_block(lp: Dict, lora_layer, lora_scale, cfg: LlamaConfig, x, posi
 
     rows = slice(write_pos, write_pos + t)
     if not cache.quantized:
-        if shared_layer is not None:
-            raise NotImplementedError("a shared prefix over the bf16 cache is not ported")
         cache.k[layer_idx, :, rows] = k.to(cache.k.dtype)
         cache.v[layer_idx, :, rows] = v.to(cache.v.dtype)
         if t > 1:   # direct prefill: this layer's own compute-dtype K/V
-            o = mha(q, k, v, bias=bias[..., :t])
+            k_all, v_all, bias = k, v, bias[..., :t]
         else:       # decode over the layer's cache rows, masked by the caller's bias
-            o = mha(q, cache.k[layer_idx].to(x.dtype), cache.v[layer_idx].to(x.dtype),
-                    bias=bias)
+            k_all, v_all = cache.k[layer_idx].to(x.dtype), cache.v[layer_idx].to(x.dtype)
+        k_all, v_all = _gqa(k_all, nh, 2), _gqa(v_all, nh, 2)
+        if shared_layer is not None:
+            # (k0, v0) (P0, H, D): the compute-dtype prefix for a prefill, the
+            # cache-dtype copy for decode (decode/engine.py), in one softmax
+            k0, v0 = (_gqa(z.to(x.dtype), nh, 1) for z in shared_layer)
+            o = mha_shared_prefix(q, k0, v0, k_all, v_all, bias1=bias)
+        else:
+            o = mha(q, k_all, v_all, bias=bias)
         return _proj(lp, lora_layer, "wo", o.reshape(b, t, nh * hd), lora_scale,
                      policy), cache
 
     k8, ks = quantize_kv(k)
     v8, vs = quantize_kv(v)
-    cache.k[layer_idx, :, rows] = k8.reshape(b, t, nh * hd)
-    cache.v[layer_idx, :, rows] = v8.reshape(b, t, nh * hd)
-    cache.k_scale[layer_idx, :, rows] = ks
-    cache.v_scale[layer_idx, :, rows] = vs
+    if not defer:   # with defer the kernel writes the row (below)
+        cache.k[layer_idx, :, rows] = k8.reshape(b, t, nh * hd)
+        cache.v[layer_idx, :, rows] = v8.reshape(b, t, nh * hd)
+        cache.k_scale[layer_idx, :, rows] = ks
+        cache.v_scale[layer_idx, :, rows] = vs
     if t > 1:
         # prefill attends this layer's compute-dtype K/V (the int8 rounding
         # only affects decode reads), merged with the compute-dtype prefix
@@ -304,11 +317,18 @@ def _attention_block(lp: Dict, lora_layer, lora_scale, cfg: LlamaConfig, x, posi
         sl, p0 = shared_layer if shared_layer is not None else (None, None)
         if len(slot_info) == 4:   # the ring batcher's per-lane closed intervals
             mask = dict(gen_intervals=slot_info)
+        elif defer:
+            # in-kernel cache write (K2''): the step's own row goes to the
+            # kernel as an operand, the mask ends at step - 1, and the kernel
+            # stores the row at slot prompt_pad + step of this layer
+            mask = dict(prompt_pad=slot_info[0], step=slot_info[1] - 1, write_cache=True,
+                        current=(k8.reshape(b, 1, nh * hd), ks, v8.reshape(b, 1, nh * hd), vs))
         else:
             mask = dict(prompt_pad=slot_info[0], step=slot_info[1])
         o = flash_decode_int8(q[:, 0], cache.k, cache.k_scale, cache.v, cache.v_scale,
                               lengths, layer_idx=layer_idx, scale=hd ** -0.5, shared=sl,
-                              p0=p0, **mask)[:, None].to(q.dtype)
+                              p0=p0, **mask)
+        o = (o[0] if defer else o)[:, None].to(q.dtype)
     o = o.reshape(b, t, nh * hd)
     return _proj(lp, lora_layer, "wo", o, lora_scale, policy), cache
 
@@ -337,7 +357,8 @@ def llama_apply(params: Dict, cfg: LlamaConfig, tokens: torch.Tensor,
                 lengths: Optional[torch.Tensor] = None, slot_info=None,
                 last_pos: Optional[torch.Tensor] = None,
                 shared_kv=None, shared_p0: Optional[int] = None,
-                remat: bool = False, flash: bool = True):
+                remat: bool = False, flash: bool = True,
+                defer_kv: Optional[bool] = None):
     """The forward, over the unrolled serving layout (``params["layers"]`` a
     list) or the stacked training layout (a dict of leaves with a leading
     layer axis; no cache). Returns (logits, cache): logits (B,T,V) or,
@@ -357,14 +378,31 @@ def llama_apply(params: Dict, cfg: LlamaConfig, tokens: torch.Tensor,
     (prompt_pad, step) for single-token decode over the int8 cache, or the
     ring batcher's per-lane closed slot intervals (a1, b1, a2, b2), each (B,)
     int32 with an empty interval marked b = -1; shared_kv: a PrefixKV for
-    a prefill, or per-layer int8 (k0, ks0, v0, vs0) tuples for decode with
-    ``shared_p0`` live prefix rows."""
+    a prefill, or per layer for decode int8 (k0, ks0, v0, vs0) tuples with
+    ``shared_p0`` live prefix rows or bf16 (k0, v0) pairs.
+
+    ``defer_kv``: True sends a single-token step over the int8 cache with the
+    static-slot mask (slot_info of length 2, lengths given) through in-kernel
+    cache writes (K2''): each layer hands its quantized K/V row to the
+    flash-decode kernel, which attends it and writes it at slot
+    prompt_pad + step in place of the four row copies. None reads
+    RADIALOG_DEFER_KV ("1" is on), default off, as in the JAX package. As
+    there, the write slot comes from slot_info, so ``write_pos`` must equal
+    prompt_pad + step; anything else raises. Other calls ignore it."""
     stacked = not isinstance(params["layers"], (list, tuple))
     if stacked and (cache is not None or shared_kv is not None):
         raise NotImplementedError(
             "the stacked layout runs without a cache and without a shared prefix; caches "
             "need the unrolled serving params (ops/quant.quantize_llama_host)")
     num_layers = cfg.num_layers if stacked else len(params["layers"])
+    if defer_kv is None:
+        defer_kv = os.environ.get("RADIALOG_DEFER_KV", "0") == "1"
+    defer_kv = bool(defer_kv and cache is not None and cache.quantized
+                    and tokens.shape[1] == 1 and slot_info is not None
+                    and len(slot_info) == 2 and lengths is not None)
+    if defer_kv and int(write_pos) != int(slot_info[0]) + int(slot_info[1]):
+        raise ValueError(f"defer_kv writes at slot prompt_pad + step = "
+                         f"{int(slot_info[0]) + int(slot_info[1])}, not write_pos {write_pos}")
     x = embedding_lookup(params["embed"], tokens).to(policy.compute)
     lora_scale = lora["scale"] if lora is not None else None
     if img_embs is not None and img_start is not None:
@@ -385,13 +423,15 @@ def llama_apply(params: Dict, cfg: LlamaConfig, tokens: torch.Tensor,
             shared_layer = None
         elif isinstance(shared_kv, PrefixKV):
             shared_layer = (shared_kv.k[i], shared_kv.v[i])
+        elif len(shared_kv[i]) == 2:        # the bf16 cache's decode prefix (k0, v0)
+            shared_layer = tuple(shared_kv[i])
         else:
             shared_layer = (tuple(shared_kv[i]), shared_p0)
         h = rmsnorm(lp["input_ln"], x, cfg.rms_eps)
         attn_out, out = _attention_block(lp, ll, lora_scale, cfg, h, positions, rope, bias,
                                          cache, i, write_pos, policy, lengths=lengths,
                                          slot_info=slot_info, shared_layer=shared_layer,
-                                         flash=flash)
+                                         flash=flash, defer=defer_kv)
         if keep_kv:
             fresh_k.append(out[0])
             fresh_v.append(out[1])
@@ -431,3 +471,13 @@ def decode_bias(kv_valid_len: torch.Tensor, s_max: int, dtype=torch.float32) -> 
     """(B,1,1,S) bias for single-token decode: attend kv j < kv_valid_len."""
     kj = torch.arange(s_max, device=kv_valid_len.device)[None, :]
     return torch.where(kj < kv_valid_len[:, None], 0.0, NEG_INF).to(dtype)[:, None, None, :]
+
+
+def decode_bias_static_slot(lengths: torch.Tensor, prompt_pad: int, step: int, s_max: int,
+                            dtype=torch.float32) -> torch.Tensor:
+    """(B,1,1,S) bias for static-slot decode over the bf16 cache: kv j is
+    live where j < lengths[b] (the prompt) or prompt_pad <= j <= prompt_pad
+    + step (the generated rows); the pad gap between them is masked."""
+    kj = torch.arange(s_max, device=lengths.device)[None, :]
+    ok = (kj < lengths[:, None]) | ((kj >= prompt_pad) & (kj <= prompt_pad + step))
+    return torch.where(ok, 0.0, NEG_INF).to(dtype)[:, None, None, :]

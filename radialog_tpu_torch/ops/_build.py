@@ -22,7 +22,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 KERNELS = ("q8_matmul", "flash_decode", "flash_attention", "flash_attention_bwd",
-           "q4_matmul")
+           "q4_matmul", "w4_colscale")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

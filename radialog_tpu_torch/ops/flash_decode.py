@@ -2,10 +2,16 @@
 
 Port of radialog_tpu/ops/flash_decode.py ``flash_decode_int8`` in its
 static-slot (and per-lane interval) mask mode with the leading shared-prefix
-block. On a CUDA tensor the wrapper launches the hand-written kernel K2
-(csrc/flash_decode.cu); on a CPU tensor it runs the plain PyTorch version
-``flash_decode_int8_plain``, which walks the same blocks in the same order:
-the prefix block first, then the lane's slots in blocks of ``bs`` rows.
+block, and in its ``current`` / ``write_cache`` mode. On a CUDA tensor the
+wrapper launches the hand-written kernel of csrc/flash_decode.cu; on a CPU
+tensor it runs the plain PyTorch version ``flash_decode_int8_plain``, which
+walks the same blocks in the same order: the prefix block first, then the
+current row, then the lane's slots in blocks of ``bs`` rows. Each mode has
+its own wrapper and launch count: ``flash_decode_int8_kernel`` (K2, and K2'
+with per-lane intervals), ``flash_decode_int8_current_kernel`` (K2'': the
+step's own K/V row as an operand, written into the cache in place with
+``write_cache``) and ``flash_decode_int8_fused_kernel`` (T1, the prototype
+of tools/microbench_kvfused.py: K2 over one interleaved k|v buffer).
 
 The math (the TPU kernel's ``_process_block``):
   scores = float(q8 . k8, exact int32) * ks * qs * D^-1/2, masked to -1e30
@@ -77,12 +83,26 @@ def _block(state, q32, qs, scale, kb, ksb, vb, vsb, valid):
     return m_new, l, acc * alpha[..., None] + o
 
 
+def _current_block(state, q32, qs, scale, current, h: int, d: int):
+    """The step's own K/V row: kc/vc (B,1,H*D) int8, kcs/vcs (B,1,SLc)."""
+    kc, kcs, vc, vcs = current
+    b = kc.shape[0]
+    valid = torch.ones((1, 1, 1), dtype=torch.bool, device=kc.device)
+    return _block(state, q32, qs, scale, kc.reshape(b, 1, h, d), kcs[..., :h].float(),
+                  vc.reshape(b, 1, h, d), vcs[..., :h].float(), valid)
+
+
 def flash_decode_int8_plain(q8, qs, k8, ks, v8, vs, masks, layer_idx: int,
-                            scale: float, bs: int, shared=None, p0: int = 0):
-    """Plain version of K2. q8 (B,H,D) int8, qs (B,H) f32; k8/v8 (L,B,S,H*D)
-    int8; ks/vs (L,B,S,SL) with SL >= H; masks = (lens, a1, b1, a2, b2),
-    each (B,) int32; shared = (k0, ks0, v0, vs0) one layer's prefix,
-    (P0p, H*D) int8 and (P0p, SL0) scales. Returns (B,H,D) f32."""
+                            scale: float, bs: int, shared=None, p0: int = 0,
+                            current=None, write_cache: bool = False):
+    """Plain version of K2, K2' and K2''. q8 (B,H,D) int8, qs (B,H) f32;
+    k8/v8 (L,B,S,H*D) int8; ks/vs (L,B,S,SL) with SL >= H; masks = (lens,
+    a1, b1, a2, b2), each (B,) int32; shared = (k0, ks0, v0, vs0) one
+    layer's prefix, (P0p, H*D) int8 and (P0p, SL0) scales; current = (kc,
+    kcs, vc, vcs) the step's own row, (B,1,H*D) int8 and (B,1,SLc) scales,
+    attended after the prefix and before the lane's blocks; write_cache
+    stores it at slot b1 + 1 of each lane in layer ``layer_idx``, in place,
+    and nothing else. Returns (B,H,D) f32."""
     b, h, d = q8.shape
     s_len = k8.shape[2]
     dev = q8.device
@@ -96,6 +116,8 @@ def flash_decode_int8_plain(q8, qs, k8, ks, v8, vs, masks, layer_idx: int,
         state = _block(state, q32, qs, scale, k0.reshape(1, p0p, h, d),
                        ks0[None, :, :h].float(), v0.reshape(1, p0p, h, d),
                        vs0[None, :, :h].float(), valid)
+    if current is not None:
+        state = _current_block(state, q32, qs, scale, current, h, d)
     lens, a1, b1, a2, b2 = masks
     live = int(torch.maximum(torch.maximum(lens - 1, b1), b2).max())
     nblk = 0 if live < 0 else min(live // bs + 1, s_len // bs)
@@ -110,62 +132,161 @@ def flash_decode_int8_plain(q8, qs, k8, ks, v8, vs, masks, layer_idx: int,
                        ks_l[:, rows, :h].float(), v_l[:, rows].reshape(b, bs, h, d),
                        vs_l[:, rows, :h].float(), valid)
     _, l, acc = state
+    if write_cache:
+        kc, kcs, vc, vcs = current
+        lane = torch.arange(b, device=dev)
+        slot = b1.long() + 1
+        k8[layer_idx, lane, slot] = kc[:, 0]
+        v8[layer_idx, lane, slot] = vc[:, 0]
+        ks[layer_idx, lane, slot] = kcs[:, 0]
+        vs[layer_idx, lane, slot] = vcs[:, 0]
     return acc * (1.0 / torch.clamp(l, min=1e-30))[..., None]
 
 
-def flash_decode_int8_kernel(q8, qs, k8, ks, v8, vs, masks, layer_idx: int,
-                             scale: float, bs: int, shared=None, p0: int = 0):
-    """K2 on the card; same signature and result as the plain version."""
+_ARGTYPES = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 7
+             + [ctypes.c_int] * 2 + [ctypes.c_void_p] + [ctypes.c_int] * 8
+             + [ctypes.c_float, ctypes.c_void_p])
+
+
+def _launch(q8, qs, k, ks, v, vs, masks, layer_idx: int, scale: float, bs: int,
+            n_layers: int, s_len: int, kv_stride: int, sl: int, shared=None, p0: int = 0,
+            current=None, write: bool = False) -> Tuple[int, torch.Tensor]:
+    """Checks what every mode of the kernel shares and launches it on q8's
+    stream: k/v hold the layer's rows kv_stride bytes apart, ks/vs its
+    scales sl elements apart (k, ks, v, vs are tensors whose data pointers
+    are the first row's). Returns (CUDA error code, out (B,H,D) f32)."""
     b, h, d = q8.shape
-    n_layers, b2_, s_len, hd = k8.shape
-    sl = ks.shape[-1]
-    if b2_ != b or hd != h * d or v8.shape != k8.shape or vs.shape != ks.shape:
-        raise ValueError(f"cache shapes {k8.shape} {ks.shape} do not fit q {q8.shape}")
     if d % 4 or d > 128 or sl < h:
         raise ValueError(f"K2 needs head_dim % 4 == 0, <= 128 and SL >= H: {d}, {sl}")
     if bs > MAX_BS or s_len % bs or not 0 <= layer_idx < n_layers:
         raise ValueError(f"bad block size {bs} / layer {layer_idx} for S={s_len}")
-    if (k8.dtype != torch.int8 or ks.dtype != torch.bfloat16
+    if (k.dtype != torch.int8 or v.dtype != torch.int8 or ks.dtype != torch.bfloat16
             or vs.dtype != torch.bfloat16 or q8.dtype != torch.int8):
         raise ValueError("K2 takes an int8 cache with bf16 scales")
-    tensors = [q8, qs, k8, ks, v8, vs, *masks]
-    if shared is not None:
-        tensors += list(shared)
+    tensors = [q8, qs, *masks] + list(shared or ()) + list(current or ())
     for t in tensors:
         if not (t.is_cuda and t.is_contiguous() and t.device == q8.device):
             raise ValueError("K2 takes contiguous CUDA tensors on one device")
-    if any(m.dtype != torch.int32 for m in masks) or qs.dtype != torch.float32:
-        raise ValueError("K2 takes int32 masks and f32 q scales")
+    for t in (k, ks, v, vs):
+        if not t.is_cuda or t.device != q8.device:
+            raise ValueError("K2 takes its cache on q's device")
+    if any(m.dtype != torch.int32 or m.shape != (b,) for m in masks) \
+            or qs.dtype != torch.float32:
+        raise ValueError("K2 takes (B,) int32 masks and f32 q scales")
     out = torch.empty((b, h, d), dtype=torch.float32, device=q8.device)
     if shared is not None:
         k0, ks0, v0, vs0 = shared
         p0p, sl0 = k0.shape[0], ks0.shape[-1]
-        if k0.shape != (p0p, hd) or v0.shape != k0.shape or vs0.shape != ks0.shape \
+        if k0.shape != (p0p, h * d) or v0.shape != k0.shape or vs0.shape != ks0.shape \
                 or sl0 < h or ks0.dtype != torch.bfloat16 or vs0.dtype != torch.bfloat16:
             raise ValueError(f"bad shared prefix {k0.shape} {ks0.shape}")
         pm = torch.empty((b, h), dtype=torch.float32, device=q8.device)
         pl = torch.empty_like(pm)
         pacc = torch.empty((b, h, d), dtype=torch.float32, device=q8.device)
-        ptrs = [k0.data_ptr(), ks0.data_ptr(), v0.data_ptr(), vs0.data_ptr()]
-        extra = [int(p0), p0p, sl0, pm.data_ptr(), pl.data_ptr(), pacc.data_ptr()]
+        pre = [k0.data_ptr(), ks0.data_ptr(), v0.data_ptr(), vs0.data_ptr(), int(p0), p0p, sl0,
+               pm.data_ptr(), pl.data_ptr(), pacc.data_ptr()]
     else:
-        ptrs = [None] * 4
-        extra = [0, 0, 0, None, None, None]
+        pre = [None] * 4 + [0, 0, 0] + [None] * 3
+    if current is not None:
+        kc, kcs, vc, vcs = current
+        slc = kcs.shape[-1]
+        if (kc.shape != (b, 1, h * d) or vc.shape != kc.shape or kcs.shape != (b, 1, slc)
+                or vcs.shape != kcs.shape or slc < h or kc.dtype != torch.int8
+                or vc.dtype != torch.int8 or kcs.dtype != torch.bfloat16
+                or vcs.dtype != torch.bfloat16):
+            raise ValueError(f"bad current row {kc.shape} {kcs.shape} for q {q8.shape}")
+        if write and slc != sl:
+            raise ValueError(f"the written scale row has {slc} entries, the cache's {sl}")
+        cur = [kc.data_ptr(), kcs.data_ptr(), vc.data_ptr(), vcs.data_ptr(), slc, int(write)]
+    else:
+        cur = [None] * 4 + [0, 0]
     lib = _build.load("flash_decode")
     fn = lib.flash_decode_int8_launch
-    fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
-                   + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
+    fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
-    rc = fn(q8.data_ptr(), qs.data_ptr(), k8.data_ptr(), ks.data_ptr(), v8.data_ptr(),
-            vs.data_ptr(), *[m.data_ptr() for m in masks], *ptrs, *extra, out.data_ptr(),
-            layer_idx, b, s_len, h, d, sl, bs, scale,
+    rc = fn(q8.data_ptr(), qs.data_ptr(), k.data_ptr(), ks.data_ptr(), v.data_ptr(),
+            vs.data_ptr(), *[m.data_ptr() for m in masks], *pre, *cur, out.data_ptr(),
+            layer_idx, b, s_len, h, d, sl, kv_stride, bs, scale,
             torch.cuda.current_stream(q8.device).cuda_stream)
+    return rc, out
+
+
+def _cache_checks(q8, k8, ks, v8, vs):
+    b, h, d = q8.shape
+    if k8.shape[1] != b or k8.shape[-1] != h * d or v8.shape != k8.shape \
+            or vs.shape != ks.shape or ks.shape[:3] != k8.shape[:3]:
+        raise ValueError(f"cache shapes {k8.shape} {ks.shape} do not fit q {q8.shape}")
+    if not all(t.is_contiguous() for t in (k8, ks, v8, vs)):
+        raise ValueError("K2 takes a contiguous cache")
+
+
+def flash_decode_int8_kernel(q8, qs, k8, ks, v8, vs, masks, layer_idx: int,
+                             scale: float, bs: int, shared=None, p0: int = 0):
+    """K2 (and K2' with per-lane intervals) on the card; same signature and
+    result as the plain version."""
+    _cache_checks(q8, k8, ks, v8, vs)
+    n_layers, _, s_len, hd = k8.shape
+    rc, out = _launch(q8, qs, k8, ks, v8, vs, masks, layer_idx, scale, bs, n_layers, s_len,
+                      hd, ks.shape[-1], shared=shared, p0=p0)
     flash_decode_int8_kernel.launches += 1
     _build.check(rc, "flash_decode_int8_launch")
     return out
 
 
 flash_decode_int8_kernel.launches = 0
+
+
+def flash_decode_int8_current_kernel(q8, qs, k8, ks, v8, vs, masks, layer_idx: int,
+                                     scale: float, bs: int, shared=None, p0: int = 0,
+                                     current=None, write_cache: bool = False):
+    """K2'' on the card: the plain version's signature with the step's own
+    row ``current``, written at slot b1 + 1 of each lane with
+    ``write_cache``. The caller keeps that slot below S."""
+    if current is None:
+        raise ValueError("K2'' takes the current row")
+    _cache_checks(q8, k8, ks, v8, vs)
+    n_layers, _, s_len, hd = k8.shape
+    rc, out = _launch(q8, qs, k8, ks, v8, vs, masks, layer_idx, scale, bs, n_layers, s_len,
+                      hd, ks.shape[-1], shared=shared, p0=p0, current=current,
+                      write=write_cache)
+    flash_decode_int8_current_kernel.launches += 1
+    _build.check(rc, "flash_decode_int8_launch")
+    return out
+
+
+flash_decode_int8_current_kernel.launches = 0
+
+
+def flash_decode_int8_fused_plain(q8, qs, kv8, kvs, masks, layer_idx: int, scale: float,
+                                  bs: int):
+    """Plain version of T1: K2's plain version over the two halves of the
+    interleaved buffers, as views. kv8 (L,B,S,2*H*D) int8 with k in the first
+    half of each row; kvs (L,B,S,2*H) bf16 with the k scales first."""
+    h, hd = q8.shape[1], q8.shape[1] * q8.shape[2]
+    return flash_decode_int8_plain(q8, qs, kv8[..., :hd], kvs[..., :h], kv8[..., hd:],
+                                   kvs[..., h:], masks, layer_idx, scale, bs)
+
+
+def flash_decode_int8_fused_kernel(q8, qs, kv8, kvs, masks, layer_idx: int, scale: float,
+                                   bs: int):
+    """T1 on the card: K2's lane kernel reading k at offset 0 and v at offset
+    H*D of each 2*H*D-byte row, and the scales likewise. Bitwise K2 on the
+    same data."""
+    b, h, d = q8.shape
+    n_layers, _, s_len, width = kv8.shape
+    if kv8.shape[1] != b or width != 2 * h * d or kvs.shape != (n_layers, b, s_len, 2 * h):
+        raise ValueError(f"fused cache shapes {kv8.shape} {kvs.shape} do not fit q {q8.shape}")
+    if not (kv8.is_contiguous() and kvs.is_contiguous()):
+        raise ValueError("T1 takes contiguous fused buffers")
+    hd = h * d
+    rc, out = _launch(q8, qs, kv8, kvs, kv8[..., hd:], kvs[..., h:], masks, layer_idx, scale,
+                      bs, n_layers, s_len, 2 * hd, 2 * h)
+    flash_decode_int8_fused_kernel.launches += 1
+    _build.check(rc, "flash_decode_int8_launch")
+    return out
+
+
+flash_decode_int8_fused_kernel.launches = 0
 
 
 def slot_masks(lengths: torch.Tensor, prompt_pad=None, step=None,
@@ -188,24 +309,61 @@ def slot_masks(lengths: torch.Tensor, prompt_pad=None, step=None,
                            for x in gen_intervals)
 
 
+def _resolve(q, s_len, scale, bs):
+    d = q.shape[2]
+    scale = float(scale if scale is not None else d ** -0.5)
+    return scale, default_bs(s_len) if bs is None else resolve_bs(s_len, bs)
+
+
 def flash_decode_int8(q: torch.Tensor, k8: torch.Tensor, ks: torch.Tensor,
                       v8: torch.Tensor, vs: torch.Tensor, lengths: torch.Tensor,
                       prompt_pad=None, step=None, layer_idx: int = 0,
                       scale: Optional[float] = None, bs: Optional[int] = None,
-                      shared=None, p0=None, gen_intervals=None) -> torch.Tensor:
+                      shared=None, p0=None, gen_intervals=None, current=None,
+                      write_cache: bool = False):
     """Single-token attention over layer ``layer_idx`` of the stacked int8
     cache. q (B,H,D) float; k8/v8 (L,B,S,H*D) int8; ks/vs (L,B,S,SL) bf16
     with SL >= H; lengths (B,) prompt-region lengths; (prompt_pad, step) the
     static-slot mask or gen_intervals (a1, b1, a2, b2) per lane; shared =
     (k0, ks0, v0, vs0) one layer's int8 prefix with p0 live rows. Returns
-    (B,H,D) in q.dtype."""
-    h, d = q.shape[1], q.shape[2]
+    (B,H,D) in q.dtype.
+
+    current = (kc8, kcs, vc8, vcs): the step's own K/V row, (B,1,H*D) int8
+    and (B,1,SL) bf16, always attended; the caller's mask ends one slot
+    before it (step - 1). With ``write_cache`` (the static-slot mask only)
+    the row is written in place at slot prompt_pad + step + 1 of layer
+    ``layer_idx`` in all four buffers, and the result is (o, (k8, ks, v8,
+    vs)), the same cache objects. A slot at or past S raises."""
     s_len = k8.shape[2]
-    scale = float(scale if scale is not None else d ** -0.5)
-    bs = default_bs(s_len) if bs is None else resolve_bs(s_len, bs)
+    scale, bs = _resolve(q, s_len, scale, bs)
+    if write_cache:
+        if current is None or gen_intervals is not None:
+            raise ValueError("write_cache takes the current row and the static-slot mask")
+        if int(prompt_pad) + int(step) + 1 >= s_len:
+            raise ValueError(f"write slot {int(prompt_pad) + int(step) + 1} is past the "
+                             f"cache's {s_len} slots")
     q8, qs = quantize_q(q)
     masks = slot_masks(lengths, prompt_pad, step, gen_intervals)
-    fn = flash_decode_int8_kernel if q.is_cuda else flash_decode_int8_plain
-    out = fn(q8, qs, k8, ks, v8, vs, masks, layer_idx, scale, bs,
-             shared=shared, p0=0 if p0 is None else int(p0))
-    return out.to(q.dtype)
+    kw = dict(shared=shared, p0=0 if p0 is None else int(p0))
+    if current is not None:
+        kw.update(current=current, write_cache=write_cache)
+        fn = flash_decode_int8_current_kernel if q.is_cuda else flash_decode_int8_plain
+    else:
+        fn = flash_decode_int8_kernel if q.is_cuda else flash_decode_int8_plain
+    out = fn(q8, qs, k8, ks, v8, vs, masks, layer_idx, scale, bs, **kw).to(q.dtype)
+    return (out, (k8, ks, v8, vs)) if write_cache else out
+
+
+def flash_decode_int8_fused(q: torch.Tensor, kv8: torch.Tensor, kvs: torch.Tensor,
+                            lengths: torch.Tensor, prompt_pad: int, step: int,
+                            layer_idx: int = 0, scale: Optional[float] = None,
+                            bs: Optional[int] = None) -> torch.Tensor:
+    """T1: ``flash_decode_int8`` with the static-slot mask and no prefix over
+    one interleaved buffer: kv8 (L,B,S,2*H*D) int8, k in the first half of
+    each row; kvs (L,B,S,2*H) bf16, the k scales first. Returns (B,H,D) in
+    q.dtype."""
+    scale, bs = _resolve(q, kv8.shape[2], scale, bs)
+    q8, qs = quantize_q(q)
+    masks = slot_masks(lengths, prompt_pad, step)
+    fn = flash_decode_int8_fused_kernel if q.is_cuda else flash_decode_int8_fused_plain
+    return fn(q8, qs, kv8, kvs, masks, layer_idx, scale, bs).to(q.dtype)

@@ -6,7 +6,10 @@ a card every test skips. K1 is held bitwise; K2 at atol=rtol=2e-3 (f32 sums
 in another order, and pv rounds to bf16 where an ulp of p can flip it), in
 the static-slot mode and with the ring's per-lane slot intervals; K4 bitwise
 (each group's integer sum is exact and the kernel adds the groups in the
-plain version's order with single rounded f32 operations); K5a and K5b (the
+plain version's order with single rounded f32 operations); K2'' (the
+current row attended and written in place) at K2's tolerance with its row
+bitwise and every other byte of the cache unchanged; T1 bitwise equal to K2
+on the same data; T2 and T3 bitwise (exact int32 sums); K5a and K5b (the
 flash-attention backward) each of dq, dk and dv at 8e-3 of its own largest
 reference value in bf16 (one bf16 step of that value at most; the spread of
 the plain version between block sizes reaches a quarter of it: a gradient
@@ -19,6 +22,7 @@ from radialog_tpu_torch.ops import flash_attention as tfa
 from radialog_tpu_torch.ops import flash_decode as tfd
 from radialog_tpu_torch.ops import q4_matmul as tq4
 from radialog_tpu_torch.ops import q8_matmul as tq8
+from radialog_tpu_torch.ops import w4_colscale as tw
 
 pytestmark = pytest.mark.cuda
 
@@ -306,3 +310,91 @@ def test_q4_kernel_refuses_what_it_does_not_take(card):
         tq4.q4_matmul_acc(x8, w, gs[:, :4], None, 128)
     with pytest.raises(ValueError, match="contiguous"):
         tq4.q4_matmul_acc(x8, w, gs.cpu(), None, 128)
+
+
+def _int8_cache(g, card, layers, lanes, slots, h, d):
+    k8 = torch.randint(-127, 128, (layers, lanes, slots, h * d), generator=g, device=card,
+                       dtype=torch.int8)
+    v8 = torch.randint(-127, 128, k8.shape, generator=g, device=card, dtype=torch.int8)
+    ks = (torch.rand(k8.shape[:3] + (h,), generator=g, device=card) / 50).to(torch.bfloat16)
+    vs = (torch.rand(k8.shape[:3] + (h,), generator=g, device=card) / 50).to(torch.bfloat16)
+    return [k8, ks, v8, vs]
+
+
+@pytest.mark.parametrize("pp,step,shared,hb,db", [(128, 0, True, 32, 128), (128, 150, True, 32, 128),
+                                                  (128, 255, False, 32, 128),
+                                                  (80, 3, True, 32, 128), (20, 7, False, 4, 16)])
+def test_flash_decode_current_kernel_matches_plain(card, pp, step, shared, hb, db):
+    """K2'': slot pp + step (the last slot S - 1 at pp=128, step=255; in the
+    block of b1 at pp=80, step=3), zeroed first in a clone; the kernel writes
+    that row and nothing else."""
+    g = torch.Generator(device=card).manual_seed(step + pp)
+    lb, sb, layers, li = 8, 384, 3, 1
+    cache = _int8_cache(g, card, layers, lb, sb, hb, db)
+    slot = pp + step
+    cur = [x[li, :, slot:slot + 1].clone() for x in cache]
+    for x in cache:
+        x[:, :, slot] = 0
+    before = [x.clone() for x in cache]
+    pre = ((cache[0][0, 0, :64].clone(), cache[1][0, 0, :64].clone(),
+            cache[2][0, 0, :64].clone(), cache[3][0, 0, :64].clone()) if shared else None)
+    q8, qs = tfd.quantize_q(torch.randn((lb, hb, db), generator=g, device=card))
+    lens = torch.randint(0, pp + 1, (lb,), generator=g, device=card, dtype=torch.int32)
+    args = (q8, qs, *cache, tfd.slot_masks(lens, pp, step - 1), li, db ** -0.5, 64)
+    n = tfd.flash_decode_int8_current_kernel.launches
+    got = tfd.flash_decode_int8_current_kernel(*args, shared=pre, p0=48, current=cur,
+                                               write_cache=True)
+    torch.cuda.synchronize()
+    assert tfd.flash_decode_int8_current_kernel.launches == n + 1
+    written = [x.clone() for x in cache]
+    for x, b in zip(cache, before):
+        x.copy_(b)
+    ref = tfd.flash_decode_int8_plain(*args, shared=pre, p0=48, current=cur, write_cache=True)
+    torch.testing.assert_close(got, ref, atol=2e-3, rtol=2e-3)
+    for w, x, b, c in zip(written, cache, before, cur):
+        assert torch.equal(w, x)                        # the plain version's writes
+        assert torch.equal(w[li, :, slot], c[:, 0])
+        mask = torch.ones(w.shape[:3], dtype=torch.bool, device=card)
+        mask[li, :, slot] = False
+        assert torch.equal(w[mask], b[mask])
+
+
+def test_flash_decode_fused_kernel_equals_k2(card):
+    """T1 at the JAX tool's default shape, one layer: bitwise K2."""
+    g = torch.Generator(device=card).manual_seed(3)
+    b, s, h, d = 56, 384, 32, 128
+    k8, ks, v8, vs = _int8_cache(g, card, 2, b, s, h, d)
+    kv8, kvs = torch.cat([k8, v8], -1), torch.cat([ks, vs], -1)
+    q8, qs = tfd.quantize_q(torch.randn((b, h, d), generator=g, device=card))
+    masks = tfd.slot_masks(torch.full((b,), 128, dtype=torch.int32, device=card), 128, 150)
+    n = tfd.flash_decode_int8_fused_kernel.launches
+    got = tfd.flash_decode_int8_fused_kernel(q8, qs, kv8, kvs, masks, 1, d ** -0.5, 64)
+    ref = tfd.flash_decode_int8_kernel(q8, qs, k8, ks, v8, vs, masks, 1, d ** -0.5, 64)
+    torch.cuda.synchronize()
+    assert tfd.flash_decode_int8_fused_kernel.launches == n + 1
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("m,k,n", [(32, 4096, 12288), (32, 11008, 4096), (5, 4096, 22016),
+                                   (5, 512, 1024), (70, 96, 40)])
+def test_w4_colscale_kernels_match_plain(card, m, k, n):
+    g = torch.Generator(device=card).manual_seed(m + k + n)
+    x8 = torch.randint(-127, 128, (m, k), generator=g, device=card, dtype=torch.int8)
+    w = tw.random_q4c(k, n, g, card).w
+    ref = tw.w4_int32_plain(x8, w)
+    n2, n3 = tw.w4_int32_split.launches, tw.w4_int32.launches
+    t2 = tw.w4_int32_split(*tw.split_even_odd(x8), w)
+    t3 = tw.w4_int32(x8, w)
+    torch.cuda.synchronize()
+    assert (tw.w4_int32_split.launches, tw.w4_int32.launches) == (n2 + 1, n3 + 1)
+    assert torch.equal(t2, ref) and torch.equal(t3, ref)
+
+
+def test_w4_colscale_kernels_refuse_what_they_do_not_take(card):
+    x8 = torch.zeros((4, 48), dtype=torch.int8, device=card)
+    with pytest.raises(ValueError, match="K % 32"):
+        tw.w4_int32(x8, torch.zeros((8, 24), dtype=torch.int8, device=card))
+    with pytest.raises(ValueError):
+        tw.w4_int32(torch.zeros((4, 64), dtype=torch.int8, device=card),
+                    torch.zeros((8, 16), dtype=torch.int8, device=card))
+

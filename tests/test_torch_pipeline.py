@@ -221,13 +221,16 @@ def test_entry_points_default_to_the_card():
 
 
 def test_port_imports_no_jax():
-    """The port and chip_smoke.py import neither jax, optax, orbax nor
-    radialog_tpu."""
-    files = sorted((REPO / "radialog_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    """The port, its tools and chip_smoke.py import neither jax, optax, orbax
+    nor radialog_tpu."""
+    files = (sorted((REPO / "radialog_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+             + sorted((REPO / "tools").glob("*torch*.py")) + [REPO / "tools" / "time_prefill_paths.py"])
     assert len(files) > 15
     assert {"continuous.py", "serve.py", "q4_matmul.py", "quant.py", "bridge.py",
             "chip_smoke.py", "finetune_lora.py", "optim.py", "steps.py", "checkpoint.py",
-            "datasets.py", "flash_attention.py", "tokenization.py"} <= {f.name for f in files}
+            "datasets.py", "flash_attention.py", "tokenization.py", "w4_colscale.py", "prng.py",
+            "profile_torch_slice.py", "time_prefill_paths.py", "microbench_kvfused_torch.py",
+            "microbench_w4_torch.py"} <= {f.name for f in files}
     for f in files:
         for node in ast.walk(ast.parse(f.read_text())):
             names = []

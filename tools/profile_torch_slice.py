@@ -16,6 +16,11 @@ JSON line per stage:
            device time by kernel, device busy share of the window, and
            kernel launches per step
 
+``--defer`` takes the report decode steps with in-kernel KV writes
+(``llama_apply(defer_kv=True)``: the flash-decode kernel attends each layer's
+new K/V row as an operand and writes it into the cache, K2'', in place of
+four row copies per layer).
+
 ``--ring`` profiles the multi-session server's decode step instead
 (decode/continuous.RingBatcher at Vicuna-7B width, 16 lanes over the int8
 ring, prompt region 256, ring 128, 8 steps per chunk, random prompts of
@@ -216,6 +221,8 @@ def main() -> int:
     ap.add_argument("--sync", action="store_true",
                     help="in --train mode: wait for the card after every micro-step")
     ap.add_argument("--table", help="write the profiler's operator table here")
+    ap.add_argument("--defer", action="store_true",
+                    help="report decode steps with in-kernel KV writes (K2'')")
     ap.add_argument("--ring", action="store_true",
                     help="profile the ring batcher's decode step, not the report step")
     ap.add_argument("--bits", type=int, default=8, choices=(4, 8),
@@ -278,7 +285,7 @@ def main() -> int:
         def step(s):
             return te.decode_step(pipe.llama, cfg, cache, tok, lens, t1, s, lora=pipe.lora,
                                   policy=pipe.policy, shared_kv=qp, pos_offset=p0,
-                                  shared_p0=p0)
+                                  shared_p0=p0, defer_kv=args.defer)
 
         _, total = clock_ms(lambda: [step(s) for s in range(DECODE_STEPS)])
         times["decode_step_ms"] = total / DECODE_STEPS
@@ -287,13 +294,14 @@ def main() -> int:
     report_stages()                                # warm-up
     times, step = report_stages()
     emit("stages", card=card, batch=BATCH, prompt=PROMPT, shared_prefix=p0,
-         decode_steps=DECODE_STEPS, **times)
+         decode_steps=DECODE_STEPS, defer_kv=args.defer, **times)
 
     for s in range(PROFILE_AT - 2, PROFILE_AT):
         step(s)
     ok = profiled(torch, card,
                   lambda: [step(s) for s in range(PROFILE_AT, PROFILE_AT + PROFILE_STEPS)],
-                  PROFILE_STEPS, times["decode_step_ms"], args.table, from_step=PROFILE_AT)
+                  PROFILE_STEPS, times["decode_step_ms"], args.table, from_step=PROFILE_AT,
+                  defer_kv=args.defer)
     return 0 if ok else 1
 
 
