@@ -9,7 +9,11 @@ each; any failing phase exits non-zero:
           kernel from csrc/ (one nvcc per source, started together)
   k1      W8A8 GEMM kernel vs its plain version, bitwise, at the five
           Vicuna-7B weight shapes x M in {1, 16, 56, 48, 256, 56*80} (16 and
-          256: the serve phase's decode lanes and a full admission); times
+          256: the serve phase's decode lanes and a full admission); each
+          line names the launch plan's route (TMA + wgmma on 128 x 256 or
+          128 x 128 tiles, or swapped operands at M <= 64); layer sums of the
+          four projections at M = 56, 16 and 4480 against torch._int_mm and
+          the bound
   k2      int8 flash-decode kernel vs its plain version (atol=rtol=2e-3) at
           B=56, H=32, D=128, S=384, L=32, shared prefix P0=48, at the
           binary-QA prefix (B=14, P0=427 of 448 rows), and with the serving
@@ -34,8 +38,10 @@ each; any failing phase exits non-zero:
           H=32, D=128, bf16, causal: B=1 with T=S in {256, 448, 1024}, the
           serve phase's admission (B=1, T=S=256, length 230, fused views), B=12
           with T=S=448 and lengths 300-448, and the qa phase's B=1 shapes
-          T=S in {431, 436} with q/k/v as views of one fused projection;
-          and H=4, D=16, f32, B=2, T=300; times, with
+          T=S in {431, 436} with q/k/v as views of one fused projection,
+          the train phase's shape (B=2, T=S=600, lengths 600 and 413); and
+          H=4, D=16, f32, B=2, T=300; each line names the kernel that ran
+          (TMA + wgmma for bf16 at D 64 and 128); times, with
           scaled_dot_product_attention as the yardstick
   k4      W4A8 GEMM kernel vs its plain version (bitwise: each group's
           integer sum is exact and both add the groups in K order with
@@ -215,18 +221,20 @@ def timed_ms(fn, iters: int, flush) -> float:
 def phase_k1(torch, tq8, flush):
     """Every LLaMA projection shape at the report path's decode, prefix and
     prefill rows and at the serve phase's: 16 lanes at decode, a batch-1
-    admission of a full prompt region (256 rows). The summary is one decoder
-    layer's four projections at M = 56, with the same sum at M = 16."""
+    admission of a full prompt region (256 rows). Each line names the
+    route of the launch plan. The summary is one decoder layer's four
+    projections at M = 56, with the same sums at M = 16 and at the report
+    prefill's M = 4480."""
     h, inter, v = 4096, 11008, 32001
     shapes = {"wqkv": (h, 3 * h), "wo": (h, h), "gateup": (h, 2 * inter),
               "down": (inter, h), "lm_head": (h, v)}
+    prefill = BATCH * (PROMPT - SHARED)
     g = torch.Generator(device="cuda").manual_seed(1)
-    summary = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-               "max_abs_err": 0, "bytes_bound": 0}
-    serve = {"kernel_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    sums = {m: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+                "bytes_bound": 0} for m in (BATCH, LANES, prefill)}
     for name, (k, n) in shapes.items():
         w8 = torch.randint(-127, 128, (n, k), generator=g, device="cuda", dtype=torch.int8)
-        for m in (1, LANES, 56, 48, PROMPT_REGION, BATCH * (PROMPT - SHARED)):
+        for m in (1, LANES, 56, 48, PROMPT_REGION, prefill):
             x8 = torch.randint(-127, 128, (m, k), generator=g, device="cuda", dtype=torch.int8)
             got = tq8.q8_matmul_int32(x8, w8)
             ref = tq8.q8_matmul_int32_plain(x8, w8)
@@ -234,6 +242,7 @@ def phase_k1(torch, tq8, flush):
             err = int((got.long() - ref.long()).abs().max())
             if err:
                 raise AssertionError(f"K1 {name} M={m}: int32 differs from plain by {err}")
+            plan = tq8._plan(m, n, k)
             ms = timed_ms(lambda: tq8.q8_matmul_int32(x8, w8), 20, flush)
             plain_ms = timed_ms(lambda: tq8.q8_matmul_int32_plain(x8, w8), 3, flush)
             lib_ms = None
@@ -242,25 +251,32 @@ def phase_k1(torch, tq8, flush):
             nbytes = m * k + n * k + 4 * m * n
             b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             b_ops = 2 * m * n * k / INT8_OPS_PER_S * 1e3
-            emit("k1", weight=name, m=m, k=k, n=n, bitwise=True, kernel_ms=ms,
-                 plain_ms=plain_ms, library_ms=lib_ms, bound_ms=max(b_bytes, b_ops),
+            emit("k1", weight=name, m=m, k=k, n=n, bitwise=True, route=plan.route,
+                 tile=list(plan.tile), wn=plan.wn, stages=plan.stages, splits=plan.splits,
+                 kernel_ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                 bound_ms=max(b_bytes, b_ops),
                  bound_by="bytes" if b_bytes >= b_ops else "operations",
                  roofline_share=max(b_bytes, b_ops) / ms)
-            if m == BATCH and name != "lm_head":
-                # the summary: one decoder layer's four projections at decode
-                summary["ms"] += ms
-                summary["plain_ms"] += plain_ms
-                summary["library_ms"] += lib_ms
-                summary["bound_ms"] += max(b_bytes, b_ops)
-                summary["bytes_bound"] += b_bytes >= b_ops
-            if m == LANES and name != "lm_head":
-                serve["kernel_ms"] += ms
-                serve["plain_ms"] += plain_ms
-                serve["bound_ms"] += max(b_bytes, b_ops)
+            if m in sums and name != "lm_head":
+                # one decoder layer's four projections at these rows
+                acc = sums[m]
+                acc["ms"] += ms
+                acc["plain_ms"] += plain_ms
+                acc["library_ms"] = None if lib_ms is None or acc["library_ms"] is None \
+                    else acc["library_ms"] + lib_ms
+                acc["bound_ms"] += max(b_bytes, b_ops)
+                acc["bytes_bound"] += b_bytes >= b_ops
         del w8
-    emit("k1", layer_sum="one decoder layer's 4 projections at the serve phase's decode",
-         m=LANES, roofline_share=serve["bound_ms"] / serve["kernel_ms"], **serve)
-    summary["ms_m16"], summary["bound_ms_m16"] = serve["kernel_ms"], serve["bound_ms"]
+    for m, what in ((LANES, "the serve phase's decode"), (prefill, "the report prefill")):
+        emit("k1", layer_sum=f"one decoder layer's 4 projections at {what}", m=m,
+             roofline_share=sums[m]["bound_ms"] / sums[m]["ms"],
+             **{key: val for key, val in sums[m].items() if key != "bytes_bound"})
+    summary = sums[BATCH]
+    summary["max_abs_err"] = 0
+    summary["ms_m16"], summary["bound_ms_m16"] = sums[LANES]["ms"], sums[LANES]["bound_ms"]
+    summary["ms_prefill"] = sums[prefill]["ms"]
+    summary["library_ms_prefill"] = sums[prefill]["library_ms"]
+    summary["bound_ms_prefill"] = sums[prefill]["bound_ms"]
     summary["bound_by"] = "bytes" if summary.pop("bytes_bound") == 4 else "operations"
     return summary
 
@@ -551,9 +567,10 @@ def phase_k3(torch, tfa, flush):
               (12, 448, 32, 128, "bfloat16", True, False),
               (1, 431, 32, 128, "bfloat16", False, True),
               (1, 436, 32, 128, "bfloat16", False, True),
+              (2, CUTOFF, 32, 128, "bfloat16", [CUTOFF, 413], False),
               (2, 300, 4, 16, "float32", True, False)]
     f = torch.nn.functional
-    summary, worst = None, 0.0
+    summary, train, worst = None, None, 0.0
     for i, (b, t, h, d, dt, ragged, fused) in enumerate(shapes):
         dtype = getattr(torch, dt)
         g = torch.Generator(device="cuda").manual_seed(30 + i)
@@ -585,20 +602,25 @@ def phase_k3(torch, tfa, flush):
                 & (pos[None, None, :] < lens[:, None, None].long()))[:, None]
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         ms = timed_ms(lambda: tfa.flash_attention_kernel(q, k, v, lens), 20, flush)
+        route = tfa._route(dtype, d)
         plain_ms = timed_ms(lambda: tfa.flash_attention_plain(q, k, v, lens), 3, flush)
         lib_ms = timed_ms(lambda: f.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask),
                           20, flush)
         bound, by = _k3_bound(b, t, h, d, lens.tolist(), q.element_size(),
                               BF16_OPS_PER_S if dt == "bfloat16" else F32_OPS_PER_S)
         emit("k3", batch=b, t=t, heads=h, head_dim=d, dtype=dt, fused_qkv_views=fused,
-             lengths=[int(x) for x in lens.tolist()], max_abs_err=err, tol=K3_TOL[dt],
-             plain_block_spread=spread, kernel_ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-             bound_ms=bound, bound_by=by, roofline_share=bound / ms)
+             lengths=[int(x) for x in lens.tolist()], route=route,
+             grid=list(tfa._grid(b, t, h, route)), max_abs_err=err, tol=K3_TOL[dt],
+             plain_block_spread=spread, kernel_ms=ms, plain_ms=plain_ms,
+             library_ms=lib_ms, bound_ms=bound, bound_by=by, roofline_share=bound / ms)
         if (b, t, dt) == (1, 431, "bfloat16"):
             # the binary-QA prefix prefill, one layer
             summary = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                        "bound_ms": bound, "bound_by": by}
+        if (b, t, dt) == (2, CUTOFF, "bfloat16"):
+            train = {"ms_train": ms, "library_ms_train": lib_ms, "bound_ms_train": bound}
     summary["max_abs_err"] = worst
+    summary.update(train)
     return summary
 
 
@@ -1651,6 +1673,11 @@ def main() -> int:
     def flush():
         flush_buf.zero_()
 
+    # the first timed run of a process reads up to twice as slow as later
+    # ones (K1 at M=1 on an H100 80GB HBM3 at 700 W): spend it on a throwaway
+    warm = torch.randn((8192, 8192), device="cuda", dtype=torch.bfloat16)
+    timed_ms(lambda: warm @ warm, 50, flush)
+    del warm
     k1 = phase_k1(torch, tq8, flush)
     k2, k2_ring, k2c = phase_k2(torch, tfd, flush)
     k3 = phase_k3(torch, tfa, flush)
@@ -1674,9 +1701,12 @@ def main() -> int:
          "max_abs_err": k1["max_abs_err"], "ms": k1["ms"], "plain_ms": k1["plain_ms"],
          "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
          "library_ms": k1["library_ms"], "ms_m16": k1["ms_m16"],
-         "bound_ms_m16": k1["bound_ms_m16"],
+         "bound_ms_m16": k1["bound_ms_m16"], "ms_prefill": k1["ms_prefill"],
+         "library_ms_prefill": k1["library_ms_prefill"],
+         "bound_ms_prefill": k1["bound_ms_prefill"],
          "work": "one decoder layer's 4 projections at decode, M=56 (report batch); "
-                 "ms_m16 and bound_ms_m16: the same at the serve phase's 16 lanes"},
+                 "ms_m16 and bound_ms_m16: the same at the serve phase's 16 lanes; "
+                 "*_prefill: the same at the report prefill's M=4480"},
         {"name": "flash_decode_int8", "route": "cuda",
          "source": "radialog_tpu_torch/csrc/flash_decode.cu",
          "replaces": "radialog_tpu/ops/flash_decode.py:128",
@@ -1699,8 +1729,11 @@ def main() -> int:
          "launches": qa_launches["flash_attention"], "max_abs_err": k3["max_abs_err"],
          "ms": k3["ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
          "bound_by": k3["bound_by"], "library_ms": k3["library_ms"],
+         "ms_train": k3["ms_train"],
+         "library_ms_train": k3["library_ms_train"], "bound_ms_train": k3["bound_ms_train"],
          "work": "one layer's binary-QA prefix attention, B=1, T=S=431, H=32, D=128, bf16, "
-                 "causal, q/k/v views of the fused projection; launches of the qa phase",
+                 "causal, q/k/v views of the fused projection; launches of the qa phase; "
+                 "*_train: the train phase's shape, B=2, T=S=600, lengths 600 and 413",
          "launches_train": train_launches["flash_attention"]},
         {"name": "q4_matmul", "route": "cuda", "source": "radialog_tpu_torch/csrc/q4_matmul.cu",
          "replaces": "radialog_tpu/ops/q4_matmul.py:177",

@@ -148,12 +148,12 @@ class RaDialogPipeline:
     @torch.no_grad()
     def label_reports(self, texts: Sequence[str], batch_size: int = 16) -> np.ndarray:
         """CheXbert labels (N, 14) in {nan, 1, 0, -1}, CHEXBERT_CONDITIONS
-        order. Texts are cut to the labeler's max_position (512 at BERT-base,
-        as the JAX package cuts them)."""
-        max_len = min(512, self.chexbert_cfg.max_position)
+        order. Texts are cut at 512 tokens, as the JAX package cuts them;
+        where the labeler has fewer positions (the mock's 128), the tokens
+        past them read its last position row (``bert_embeddings``)."""
         out = []
         for i in range(0, len(texts), batch_size):
-            ids = [self.bert_tokenizer(t, truncation=True, max_length=max_len)["input_ids"]
+            ids = [self.bert_tokenizer(t, truncation=True, max_length=512)["input_ids"]
                    for t in texts[i:i + batch_size]]
             toks, lengths = pad_batch_right(ids, 0)
             mask = (np.arange(toks.shape[1])[None] < lengths[:, None]).astype(np.int32)

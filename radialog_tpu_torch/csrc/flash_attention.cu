@@ -17,25 +17,40 @@
 // What bounds it on an H100: a prefill of T = S = 448 with H = 32, D = 128
 // does 4*H*D*T^2/2 ~ 1.6 GFLOP on 14.7 MB of q, k, v and out, about 110
 // operations per byte, below the 295 at which the bf16 tensor cores and not
-// the memory would be the limit; so the least time is the bytes', and a
-// simple kernel is held back by its instruction issue long before either.
-// The design, simple first:
-//   * bf16: one block of 4 warps per (64-query tile, head, lane); each warp
-//     owns 16 query rows, keeps its q fragments in registers and walks
-//     64-key tiles that cp.async stages in shared memory (rows padded by 8
-//     values, so fragment loads hit 32 banks); q.k^T and p @ v are
-//     mma.sync m16n8k16 bf16 -> f32, and the score accumulator fragment is
-//     reused as p's operand fragment (FlashAttention-2's register trick);
-//   * f32 (the mock's FP32 policy): 4 threads per query row split D, with
-//     plain FMA loops over 32-key tiles in shared memory (no TF32);
-//   * key tiles past min(S, len) or above the causal diagonal of the block
-//     are never read; tail rows of q (T not a multiple of 64) and of the
-//     keys are masked on load and on store.
-// wgmma, TMA and a pipelined ring of tiles come in a later change.
+// the memory would be the limit; so the least time is the bytes'. At these
+// sizes (a few MB, a few hundred blocks) what a kernel actually waits on is
+// the latency of its loads and of its two products per key tile, so the
+// design keeps both in flight and off the threads' instruction stream:
+//   * bf16 with D in {64, 128} (fwd_tma, FlashAttention-3 in shape): a
+//     block of 128 query rows for one (head, lane): two consumer warpgroups
+//     of 64 rows and one producer warp whose lane 0 loads Q once and K/V
+//     tiles of 128 keys into a 2-stage mbarrier ring with TMA. The maps are
+//     4-D {D, H, rows, B} over the strided views (the fused projection's
+//     q/k/v need no copy); rows past T or S arrive as zeros. S = Q.K^T is
+//     wgmma m64n128k16 from shared memory (both K-major, 128-byte swizzle);
+//     the online softmax runs in registers in log2 units (exp2f on scores
+//     prescaled by scale * log2 e), masking element by element only the
+//     tiles that cross the length or this warpgroup's diagonal; P, rounded
+//     to bf16, goes from the accumulator to wgmma's A registers (the same
+//     fragment order as FA2's trick) and O += P.V is a second wgmma with V
+//     MN-major from shared memory (the transpose bit). Key tiles past
+//     min(len, last query row + 1) are never loaded; a warpgroup whose rows
+//     all precede a tile skips its products. 128-row blocks give the qa
+//     prefix (B=1, T=431, H=32) 128 blocks, one wave on 132 SMs, and share
+//     each K/V tile between two warpgroups; the last query tiles (the most
+//     keys) are started first. No setmaxnreg: ptxas fits the 288-thread
+//     block in 168 registers a thread (D = 128 spills 96 bytes).
+//   * bf16 at other head dims (the mock's D = 16), fwd_bf16, the first
+//     kernel of this file: 4 warps per 64-query tile, cp.async K/V tiles in shared
+//     memory, mma.sync m16n8k16;
+//   * f32 (the mock's FP32 policy), fwd_f32: 4 threads per query row split
+//     D, with plain FMA loops over 32-key tiles in shared memory (no TF32).
 
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -317,6 +332,244 @@ fwd_f32(const float* __restrict__ q, const float* __restrict__ k, const float* _
   }
 }
 
+// ------------------------------------------------- bf16, D in {64, 128}: TMA + wgmma
+constexpr int TQ = 128;           // query rows per block: two consumer warpgroups of 64
+constexpr int TK = 128;           // key rows per stage
+constexpr int KV_STAGES = 2;
+constexpr int THREADS_TMA = 2 * 128 + 32;   // two consumer warpgroups, one producer warp
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+template <int D>
+constexpr int tma_smem_bytes() {
+  return (TQ + KV_STAGES * 2 * TK) * D * 2 + (1 + 2 * KV_STAGES) * 8 + 1024;
+}
+
+// Shared memory, 1024-byte aligned: Q [D/64][TQ rows][128 B], then per
+// stage K [D/64][TK][128 B] and V [D/64][TK][128 B]: every tile a 4-D TMA
+// box {64 d, 1 head, rows, 1 lane} with the 128-byte swizzle, one per
+// 64-column half. S = Q.K^T reads Q and K K-major; O += P.V takes P from
+// registers and V MN-major (the transpose bit).
+template <int D>
+__global__ void __launch_bounds__(THREADS_TMA)
+fwd_tma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+        const __grid_constant__ CUtensorMap tm_v, const int* __restrict__ lengths,
+        __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int T, int S, int H,
+        int causal, float scale_log2) {
+  constexpr int HALVES = D / 64;
+  constexpr int Q_BYTES = TQ * D * 2, KV_BYTES = TK * D * 2;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint8_t* q_s = smem;
+  uint8_t* kv_s = smem + Q_BYTES;           // stage s: K at 2s, V at 2s + 1
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(kv_s + KV_STAGES * 2 * KV_BYTES);
+  uint64_t* full = qbar + 1;
+  uint64_t* empty = full + KV_STAGES;
+
+  // the last query tiles have the most keys: start them first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * TQ, h = blockIdx.y, b = blockIdx.z;
+  const int len = min(lengths[b], S);
+  const int kend = causal ? min(len, q0 + TQ) : len;     // keys that can be valid
+  const int ntiles = kend > 0 ? (kend + TK - 1) / TK : 0;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(qbar, 1);
+    for (int s = 0; s < KV_STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 2 * 128);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == 8) {   // the producer warp: lane 0 issues every load
+    if (lane == 0 && ntiles > 0) {
+      hopper::mbar_expect_tx(qbar, Q_BYTES);
+      for (int hf = 0; hf < HALVES; ++hf) {
+        hopper::tma_load_4d(q_s + hf * TQ * 128, &tm_q, qbar, hf * 64, h, q0, b);
+      }
+      for (int j = 0; j < ntiles; ++j) {
+        const int s = j % KV_STAGES;
+        if (j >= KV_STAGES) hopper::mbar_wait(&empty[s], ((j / KV_STAGES) - 1) & 1);
+        uint8_t* ks = kv_s + (2 * s) * KV_BYTES;
+        hopper::mbar_expect_tx(&full[s], 2 * KV_BYTES);   // whole boxes, zero fill included
+        for (int hf = 0; hf < HALVES; ++hf) {
+          hopper::tma_load_4d(ks + hf * TK * 128, &tm_k, &full[s], hf * 64, h, j * TK, b);
+          hopper::tma_load_4d(ks + KV_BYTES + hf * TK * 128, &tm_v, &full[s], hf * 64, h,
+                              j * TK, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // a consumer: warpgroup wg owns query rows q0 + 64 wg .. + 63; in it warp
+  // w rows 16w + g and 16w + g + 8 (g = lane / 4), whose scores and outputs
+  // sit at columns 8c + 2t + {0, 1} (t = lane % 4) of the accumulators
+  const int wg = warp >> 2, g = lane >> 2, t4 = lane & 3;
+  const int first = q0 + wg * 64, last = first + 63;
+  const int r0 = first + (warp & 3) * 16 + g, r1 = r0 + 8;
+  const uint32_t q_a = hopper::smem_u32(q_s) + wg * 64 * 128;
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
+  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.0f, l1 = 0.0f;   // m in log2 units
+  if (ntiles > 0) hopper::mbar_wait(qbar, 0);
+
+  for (int j = 0; j < ntiles; ++j) {
+    const int s = j % KV_STAGES;
+    hopper::mbar_wait(&full[s], (j / KV_STAGES) & 1);
+    const int k0 = j * TK;
+    if (!causal || k0 <= last) {           // else every key of the tile is above our rows
+      const uint32_t k_a = hopper::smem_u32(kv_s + (2 * s) * KV_BYTES);
+      const uint32_t v_a = k_a + KV_BYTES;
+      float sc[TK / 2];
+      hopper::fence_regs(o);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk / 4) * TK * 128 + (kk % 4) * 32;
+        hopper::wgmma_ss_bf16<TK>(sc, hopper::desc_sw128(q_a + (kk / 4) * TQ * 128 + (kk % 4) * 32,
+                                                         16, 1024),
+                                  hopper::desc_sw128(k_a + off, 16, 1024), kk > 0 ? 1 : 0);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(sc);
+
+      // scores in log2 units; only a tile that crosses the length or the
+      // diagonal of this warpgroup's rows is masked element by element
+      const bool whole = k0 + TK <= len && (!causal || k0 + TK - 1 <= first);
+      float mx0 = NEG_INF, mx1 = NEG_INF;
+#pragma unroll
+      for (int c = 0; c < TK / 8; ++c) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = k0 + 8 * c + 2 * t4 + e;
+          float x0 = sc[4 * c + e] * scale_log2, x1 = sc[4 * c + 2 + e] * scale_log2;
+          if (!whole) {
+            if (!(col < len && (!causal || col <= r0))) x0 = NEG_INF;
+            if (!(col < len && (!causal || col <= r1))) x1 = NEG_INF;
+          }
+          sc[4 * c + e] = x0;
+          sc[4 * c + 2 + e] = x1;
+          mx0 = fmaxf(mx0, x0);
+          mx1 = fmaxf(mx1, x1);
+        }
+      }
+      const float mn0 = fmaxf(m0, quad_max(mx0)), mn1 = fmaxf(m1, quad_max(mx1));
+      const float al0 = exp2f(m0 - mn0), al1 = exp2f(m1 - mn1);
+      float ps0 = 0.0f, ps1 = 0.0f;
+#pragma unroll
+      for (int c = 0; c < TK / 8; ++c) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {     // a masked score adds nothing, never exp(0)
+          float& x0 = sc[4 * c + e];
+          float& x1 = sc[4 * c + 2 + e];
+          x0 = (whole || x0 != NEG_INF) ? exp2f(x0 - mn0) : 0.0f;
+          x1 = (whole || x1 != NEG_INF) ? exp2f(x1 - mn1) : 0.0f;
+          ps0 += x0;
+          ps1 += x1;
+        }
+      }
+      l0 = l0 * al0 + ps0;
+      l1 = l1 * al1 + ps1;
+      m0 = mn0;
+      m1 = mn1;
+#pragma unroll
+      for (int c = 0; c < D / 8; ++c) {
+        o[4 * c] *= al0;
+        o[4 * c + 1] *= al0;
+        o[4 * c + 2] *= al1;
+        o[4 * c + 3] *= al1;
+      }
+      // p rounded to bf16 in wgmma's A-register layout: keys 16kk..16kk+15
+      // are the accumulator columns of n8 groups 2kk and 2kk + 1
+      uint32_t pa[TK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < TK / 16; ++kk) {
+        pa[kk][0] = pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
+        pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+        pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+        pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+      }
+      hopper::fence_regs(o);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < TK / 16; ++kk) {
+        hopper::wgmma_rs_bf16_tb<D>(o, pa[kk],
+                                    hopper::desc_sw128(v_a + kk * 16 * 128, TK * 128, 1024), 1);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(o);
+#pragma unroll
+      for (int kk = 0; kk < TK / 16; ++kk) hopper::fence_regs(pa[kk]);
+    }
+    hopper::mbar_arrive(&empty[s]);
+  }
+
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+#pragma unroll
+  for (int c = 0; c < D / 8; ++c) {
+    const int col = 8 * c + 2 * t4;
+    if (r0 < T) {
+      *reinterpret_cast<uint32_t*>(out + (((long long)b * T + r0) * H + h) * D + col) =
+          l0 > 0.0f ? pack_bf16(o[4 * c] / d0, o[4 * c + 1] / d0) : 0u;
+    }
+    if (r1 < T) {
+      *reinterpret_cast<uint32_t*>(out + (((long long)b * T + r1) * H + h) * D + col) =
+          l1 > 0.0f ? pack_bf16(o[4 * c + 2] / d1, o[4 * c + 3] / d1) : 0u;
+    }
+  }
+  if (lse != nullptr && t4 == 0) {
+    float* row = lse + ((long long)b * H + h) * T;
+    if (r0 < T) row[r0] = l0 > 0.0f ? m0 * LN2 + logf(d0) : LSE_DEAD;
+    if (r1 < T) row[r1] = l1 > 0.0f ? m1 * LN2 + logf(d1) : LSE_DEAD;
+  }
+}
+
+// q (T rows) and k/v (S rows) as 4-D maps {D, H, rows, B} over their
+// strides (in elements); boxes of 64 values x TQ or TK rows
+template <int D>
+int launch_tma(const void* q, const void* k, const void* v, const int* lengths, void* out,
+               float* lse, int B, int T, int S, int H, Strides qs, Strides ks, Strides vs,
+               int causal, float scale, cudaStream_t st) {
+  constexpr int SMEM = tma_smem_bytes<D>();
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t e = cudaFuncSetAttribute(fwd_tma<D>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured = true;
+  }
+  CUtensorMap maps[3];
+  const void* base[3] = {q, k, v};
+  const Strides* str[3] = {&qs, &ks, &vs};
+  for (int i = 0; i < 3; ++i) {
+    const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(H),
+                                static_cast<cuuint64_t>(i == 0 ? T : S),
+                                static_cast<cuuint64_t>(B)};
+    const cuuint64_t strides[3] = {static_cast<cuuint64_t>(str[i]->h) * 2,
+                                   static_cast<cuuint64_t>(str[i]->t) * 2,
+                                   static_cast<cuuint64_t>(str[i]->b) * 2};
+    const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(i == 0 ? TQ : TK), 1};
+    const int rc = hopper::encode(&maps[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base[i], dims,
+                                  strides, box);
+    if (rc != 0) return rc;
+  }
+  const dim3 grid((T + TQ - 1) / TQ, H, B);
+  fwd_tma<D><<<grid, THREADS_TMA, SMEM, st>>>(maps[0], maps[1], maps[2], lengths,
+                                              static_cast<__nv_bfloat16*>(out), lse, T, S, H,
+                                              causal, scale * LOG2E);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* lengths, void* out,
                    float* lse, int B, int T, int S, int H, Strides qs, Strides ks, Strides vs,
@@ -339,7 +592,10 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* lengt
 }  // namespace
 
 // C interface, loaded with ctypes. Strides are in elements; lse may be
-// null. Returns the cudaError_t of the launch (0 on success).
+// null. bf16 with D in {64, 128} runs fwd_tma, other bf16 head dims
+// fwd_bf16, f32 fwd_f32 (ops/flash_attention.py `_route` names the same
+// choice). Returns 0, the cudaError_t of the launch, or a tensor-map code
+// of hopper.cuh.
 extern "C" int flash_attention_fwd_launch(
     const void* q, const void* k, const void* v, const void* lengths, void* out, void* lse,
     int B, int T, int S, int H, int D, long long qsb, long long qst, long long qsh,
@@ -351,6 +607,12 @@ extern "C" int flash_attention_fwd_launch(
   float* l = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool b16 = bf16 != 0;
+  if (b16 && D == 64) {
+    return launch_tma<64>(q, k, v, lens, out, l, B, T, S, H, qs, ks, vs, causal, scale, st);
+  }
+  if (b16 && D == 128) {
+    return launch_tma<128>(q, k, v, lens, out, l, B, T, S, H, qs, ks, vs, causal, scale, st);
+  }
   switch (D) {
     case 16: return launch<16>(q, k, v, lens, out, l, B, T, S, H, qs, ks, vs, causal, scale, b16, st);
     case 32: return launch<32>(q, k, v, lens, out, l, B, T, S, H, qs, ks, vs, causal, scale, b16, st);

@@ -40,9 +40,11 @@ def bert_embeddings_init(gen, cfg: BertConfig, device) -> Dict:
 
 def bert_embeddings(p: Dict, cfg: BertConfig, input_ids: torch.Tensor) -> torch.Tensor:
     """Word + position + token-type embeddings (every token of segment 0),
-    then LayerNorm."""
+    then LayerNorm. Positions past max_position read its last row, as the
+    JAX package's clamped gather does."""
     t = input_ids.shape[-1]
-    x = embedding_lookup(p["word"], input_ids) + p["position"][:t][None]
+    pos = torch.arange(t, device=input_ids.device).clamp(max=cfg.max_position - 1)
+    x = embedding_lookup(p["word"], input_ids) + p["position"][pos][None]
     x = x + embedding_lookup(p["token_type"], torch.zeros_like(input_ids))
     return layernorm(p["ln"], x, cfg.layer_norm_eps)
 

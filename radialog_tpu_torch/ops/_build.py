@@ -39,7 +39,10 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
+    """The library's path: its name carries a hash of the source, the shared
+    headers (csrc/*.cuh) and the flags, so any edit rebuilds it."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
@@ -95,7 +98,16 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+NO_DRIVER_ENTRY, ENCODE_FAILED = 990, 1000   # csrc/hopper.cuh
+
+
 def check(rc: int, what: str) -> None:
-    """Raise if a launch returned a CUDA error code."""
+    """Raise if a launch returned a CUDA error code, or a tensor map could
+    not be encoded (the codes of csrc/hopper.cuh)."""
+    if rc == NO_DRIVER_ENTRY:
+        raise RuntimeError(f"{what}: libcuda.so.1 has no cuTensorMapEncodeTiled")
+    if rc >= ENCODE_FAILED:
+        raise RuntimeError(f"{what}: cuTensorMapEncodeTiled failed with CUresult "
+                           f"{rc - ENCODE_FAILED}")
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with error {rc}")

@@ -49,6 +49,9 @@ from . import _build
 NEG_INF = -1e30
 LSE_DEAD = 1e30
 MAX_HEAD_DIM = 128
+TMA_HEAD_DIMS = (64, 128)   # the head dims of K3's TMA + wgmma kernel
+TQ, TK = 128, 128           # its query rows per block and key rows per stage
+BQ_MMA = 64                 # query rows per block of the mma.sync and f32 kernels
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -107,6 +110,33 @@ def _strided_ok(x: torch.Tensor) -> bool:
             and all(s % per16 == 0 for s in x.stride()[:-1]))
 
 
+def _route(dtype: torch.dtype, d: int) -> str:
+    """The kernel K3 launches (the C side chooses it the same way): "tma"
+    (bf16 with D in TMA_HEAD_DIMS: TMA + wgmma), "mma" (bf16 at other head
+    dims, as the mock's D = 16: an mma.sync kernel) or "fma" (f32)."""
+    if dtype == torch.float32:
+        return "fma"
+    return "tma" if d in TMA_HEAD_DIMS else "mma"
+
+
+def _grid(b: int, t: int, h: int, route: str):
+    """K3's grid: (query tiles, heads, lanes); a block holds TQ query rows
+    on the "tma" route and BQ_MMA on the others."""
+    return (-(-t // (TQ if route == "tma" else BQ_MMA)), h, b)
+
+
+def _strides(x: torch.Tensor):
+    """Batch, token and head strides of a (B, T, H, D) tensor for the
+    kernel; a dim of size 1 gets the stride a dense layout would give it,
+    which TMA takes (its strides are 16-byte multiples) and no index reads."""
+    b, t, h, d = x.shape
+    sb, st, sh = x.stride()[:3]
+    sh = d if h == 1 else sh
+    st = h * sh if t == 1 else st
+    sb = t * st if b == 1 else sb
+    return sb, st, sh
+
+
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            lengths: torch.Tensor, causal: bool = True,
                            scale: Optional[float] = None, with_lse: bool = False):
@@ -139,7 +169,7 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     fn.restype = ctypes.c_int
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(), b, t, s_len, h, d,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], int(causal), scale,
+            *_strides(q), *_strides(k), *_strides(v), int(causal), scale,
             int(q.dtype == torch.bfloat16), torch.cuda.current_stream(q.device).cuda_stream)
     flash_attention_kernel.launches += 1
     _build.check(rc, "flash_attention_fwd_launch")

@@ -10,7 +10,10 @@ TPU's (kt, nt, bk, bn) tiles and N/K padding are gone.
 it launches the hand-written kernel K1 (csrc/q8_matmul.cu, replacing the
 Pallas ``_kernel`` of the JAX package) and on a CPU tensor it runs the plain
 PyTorch version ``q8_matmul_int32_plain``. There is no fallback from one to
-the other.
+the other. ``_plan`` chooses K1's launch: TMA + wgmma on 128 x 256 (or 128 x
+128) tiles for prefill and admission rows, the same kernel with the operands
+swapped for decode rows (M <= 64), and a split of K when the tiles cannot
+fill the card.
 """
 from __future__ import annotations
 
@@ -23,8 +26,60 @@ import torch
 
 from . import _build
 
-SM_COUNT = 132  # H100 SXM: split K when the output has fewer tiles than 2x this
-TILE = 64       # the kernel's output tile (64 x 64)
+SM_COUNT = 132        # H100 SXM
+DECODE_MAX_M = 64     # rows up to this take the swapped route: wgmma's N is the rows
+MIN_SPLIT_KTILES = 4  # a split of K keeps at least this many K tiles
+KTILE = 128           # K bytes a stage holds: one 128-byte swizzle row
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """K1's launch. ``route``: "wgmma" (prefill and admission rows, two
+    consumer warpgroups on a 128 x ``wn`` tile) or "swap" (decode rows: C^T
+    = W . X^T, 64 weight rows x ``wn`` padded activation rows). ``tile`` is the
+    output tile (rows of M, columns of N); K is cut into ``splits`` ranges
+    of ``per`` tiles of KTILE bytes, whose int32 sums are added with atomics
+    when there is more than one."""
+
+    route: str
+    tile: Tuple[int, int]
+    wn: int
+    stages: int
+    splits: int
+    per: int
+
+    def blocks(self, m: int, n: int) -> int:
+        return -(-m // self.tile[0]) * -(-n // self.tile[1]) * self.splits
+
+
+def _split(tiles: int, ktiles: int, slots: int) -> Tuple[int, int]:
+    """(splits, K tiles per split): split K only where the output tiles
+    leave the card's ``slots`` (blocks that run at once) half empty, into as
+    many ranges as fit the slots, each at least MIN_SPLIT_KTILES deep."""
+    splits = 1
+    if 2 * tiles <= slots:
+        splits = max(1, min(slots // tiles, ktiles // MIN_SPLIT_KTILES))
+    per = -(-ktiles // splits)
+    return -(-ktiles // per), per
+
+
+def _plan(m: int, n: int, k: int) -> Plan:
+    """K1's launch plan for (M,K) x (N,K). Decode rows (M <= 64) swap the
+    operands and pad M to wgmma's N (8, 16, 32 or 64), with a ring of 8
+    stages (6 at 64) and two blocks an SM. More rows take 128 x 256 tiles
+    and 4 stages, one block an SM; where those tiles would leave half the
+    card empty and split K (an admission's 256 rows at N = 4096), 128 x 128
+    tiles and 6 stages, which split K less and measured faster there."""
+    if m <= DECODE_MAX_M:
+        wn = next(w for w in (8, 16, 32, 64) if m <= w)
+        route, tile, stages, slots = "swap", (wn, 64), (6 if wn == 64 else 8), 2 * SM_COUNT
+    else:
+        wide = 2 * -(-m // 128) * -(-n // 256) > SM_COUNT
+        wn, stages = (256, 4) if wide else (128, 6)
+        route, tile, slots = "wgmma", (128, wn), SM_COUNT
+    tiles = -(-m // tile[0]) * -(-n // tile[1])
+    splits, per = _split(tiles, -(-k // KTILE), slots)
+    return Plan(route, tile, wn, stages, splits, per)
 
 
 @dataclasses.dataclass
@@ -75,15 +130,6 @@ def q8_matmul_int32_plain(x8: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x8.double(), w8.double().T).to(torch.int32)
 
 
-def _splits(m: int, n: int, k: int) -> int:
-    tiles = -(-m // TILE) * -(-n // TILE)
-    ktiles = -(-k // TILE)
-    if tiles >= 2 * SM_COUNT:
-        return 1
-    # at least 8 K tiles (512 deep) per split
-    return max(1, min(-(-2 * SM_COUNT // tiles), ktiles // 8))
-
-
 def q8_matmul_int32(x8: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
     """(M,K) int8 x (N,K) int8 -> (M,N) int32. Kernel K1 on a CUDA tensor,
     the plain version on a CPU tensor."""
@@ -97,15 +143,17 @@ def q8_matmul_int32(x8: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"q8 kernel needs K % 16 == 0, got K={k}")
     if not (x8.is_contiguous() and w8.is_contiguous()) or w8.device != x8.device:
         raise ValueError("q8 kernel takes contiguous operands on one device")
-    splits = _splits(m, n, k)
-    out = (torch.zeros if splits > 1 else torch.empty)((m, n), dtype=torch.int32,
-                                                       device=x8.device)
+    if x8.data_ptr() % 16 or w8.data_ptr() % 16:
+        raise ValueError("q8 kernel takes operands at 16-byte aligned addresses (TMA)")
+    plan = _plan(m, n, k)
+    out = (torch.zeros if plan.splits > 1 else torch.empty)((m, n), dtype=torch.int32,
+                                                            device=x8.device)
     lib = _build.load("q8_matmul")
     fn = lib.q8_gemm_s8s8s32
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    rc = fn(x8.data_ptr(), w8.data_ptr(), out.data_ptr(), m, n, k, splits,
-            torch.cuda.current_stream(x8.device).cuda_stream)
+    rc = fn(x8.data_ptr(), w8.data_ptr(), out.data_ptr(), m, n, k, int(plan.route == "swap"),
+            plan.wn, plan.stages, plan.per, torch.cuda.current_stream(x8.device).cuda_stream)
     q8_matmul_int32.launches += 1
     _build.check(rc, "q8_gemm_s8s8s32")
     return out

@@ -36,6 +36,7 @@ from radialog_tpu_torch.apps import evaluate as tev
 from radialog_tpu_torch.apps.pipeline import MOCK_CHEXBERT, PipelineConfig, RaDialogPipeline
 from radialog_tpu_torch.data import downstream as tds
 from radialog_tpu_torch.eval import ce_metrics as tce
+from radialog_tpu_torch.models import bert as tbert
 from radialog_tpu_torch.models import chexbert as tcb
 
 import test_torch_llama as tll
@@ -93,6 +94,19 @@ def test_chexbert_apply_matches_jax():
         np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=1e-5, rtol=1e-5)
     np.testing.assert_array_equal(tcb.logits_to_labels([g.numpy() for g in got]),
                                   jcb.logits_to_labels([np.asarray(r) for r in ref]))
+
+
+@pytest.mark.parametrize("t", [24, 128, 201])
+def test_bert_embeddings_past_max_position_match_jax(t):
+    """More tokens than the mock's 128 positions: JAX's gather clamps every
+    position past 127 to the last row, and so does the port."""
+    params = jbert.bert_embeddings_init(jax.random.PRNGKey(5), J_MOCK_BERT)
+    tparams = bridge.to_torch(jax.tree_util.tree_map(np.asarray, params), "cpu")
+    ids = np.random.default_rng(t).integers(3, 512, (2, t)).astype(np.int32)
+    ref = jbert.bert_embeddings(params, J_MOCK_BERT, jnp.asarray(ids))
+    got = tbert.bert_embeddings(tparams, MOCK_CHEXBERT, torch.from_numpy(ids))
+    assert got.shape == (2, t, MOCK_CHEXBERT.hidden_size)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5, rtol=1e-5)
 
 
 # ------------------------------------------------------------- the QA passes
@@ -184,3 +198,33 @@ def test_label_reports_matches_jax(pipelines):
     got = tp.label_reports(texts)
     assert got.shape == (21, 14)
     np.testing.assert_array_equal(got, jp.label_reports(texts))
+
+
+@pytest.mark.parametrize("words", [160, 300])
+def test_label_reports_of_long_texts_match_jax(pipelines, words, monkeypatch):
+    """Texts of more tokens than the mock labeler's 128 positions: both cut
+    at 512 tokens and read positions past 127 from the last row, so the
+    token ids fed to CheXbert and the labels are JAX's."""
+    from radialog_tpu.apps import pipeline as jpipe
+    from radialog_tpu_torch.apps import pipeline as tpipe
+    jp, tp, _ = pipelines
+    tp.chexbert = bridge.chexbert(jax.tree_util.tree_map(np.asarray, jp.chexbert), device="cpu")
+    seen = {"jax": [], "port": []}
+    for mod, key in ((jpipe, "jax"), (tpipe, "port")):
+        inner = mod.chexbert_apply
+
+        def recording(p, cfg, toks, mask, _inner=inner, _key=key, **kw):
+            seen[_key].append(np.asarray(toks))
+            return _inner(p, cfg, toks, mask, **kw)
+        monkeypatch.setattr(mod, "chexbert_apply", recording)
+    vocab = ["heart", "size", "normal", "small", "left", "pleural", "effusion", "no",
+             "pneumothorax", "mild", "edema", "cardiomegaly", "opacity", "stable"]
+    rng = np.random.default_rng(words)
+    texts = [" ".join(rng.choice(vocab, words)) for _ in range(8)]
+    got = tp.label_reports(texts)
+    ref = jp.label_reports(texts)
+    assert seen["port"][0].shape[1] > MOCK_CHEXBERT.max_position
+    assert len(seen["port"]) == len(seen["jax"])
+    for a, b in zip(seen["port"], seen["jax"]):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(got, ref)

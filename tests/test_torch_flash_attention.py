@@ -195,3 +195,39 @@ def test_backward_wrappers_take_the_plain_versions_on_the_cpu(monkeypatch):
     q = torch.ones(1, 4, 1, 16, requires_grad=True)
     tfa.flash_attention(q, q, q, torch.tensor([4], dtype=torch.int32)).sum().backward()
     assert not calls and q.grad is not None
+
+
+# ------------------------------------------------- K3's kernel choice and grid
+@pytest.mark.parametrize("dtype,d,want", [
+    (torch.bfloat16, 128, "tma"), (torch.bfloat16, 64, "tma"), (torch.bfloat16, 16, "mma"),
+    (torch.bfloat16, 96, "mma"), (torch.float32, 128, "fma"), (torch.float32, 16, "fma")])
+def test_route_follows_dtype_and_head_dim(dtype, d, want):
+    assert tfa._route(dtype, d) == want
+
+
+@pytest.mark.parametrize("name,b,t,h,blocks", [
+    ("qa binary prefix", 1, 431, 32, (4, 32, 1)),
+    ("qa follow-up", 1, 436, 32, (4, 32, 1)),
+    ("serve admission", 1, 256, 32, (2, 32, 1)),
+    ("report prefill", 12, 448, 32, (4, 32, 12)),
+    ("train micro-batch", 2, 600, 32, (5, 32, 2))])
+def test_grid_at_the_paths_shapes(name, b, t, h, blocks):
+    """128 query rows a block on the TMA route (two warpgroups of 64): the
+    qa prefix fills 128 of the H100's 132 SMs in one wave; the mma.sync
+    kernel's 64-row blocks give 224 at the same shape."""
+    grid = tfa._grid(b, t, h, "tma")
+    assert grid == blocks
+    assert grid[0] * tfa.TQ >= t > (grid[0] - 1) * tfa.TQ
+    small = tfa._grid(b, t, h, "mma")
+    assert small[0] * tfa.BQ_MMA >= t > (small[0] - 1) * tfa.BQ_MMA
+
+
+def test_kernel_strides_of_views_and_unit_dims():
+    """q/k/v views of one fused projection keep their strides; a dim of
+    size 1 gets the dense stride (TMA takes only 16-byte multiples)."""
+    qkv = torch.zeros((2, 10, 3 * 4 * 64), dtype=torch.bfloat16)
+    q = qkv.reshape(2, 10, 3, 4, 64)[:, :, 0]
+    assert tfa._strides(q) == (10 * 3 * 4 * 64, 3 * 4 * 64, 64)
+    one = torch.zeros((1, 1, 1, 64), dtype=torch.bfloat16).expand(1, 1, 1, 64)
+    assert tfa._strides(one.as_strided((1, 1, 1, 64), (0, 0, 0, 1))) == (64, 64, 64)
+    assert tfa._strides(torch.zeros((1, 5, 2, 16))) == (5 * 2 * 16, 2 * 16, 16)

@@ -34,9 +34,17 @@ def card():
     return torch.device("cuda")
 
 
+VICUNA_KN = [(4096, 12288), (4096, 4096), (4096, 22016), (11008, 4096), (4096, 32001)]
+
+
+# more than one K stage and more than one N tile catch a wgmma descriptor
+# that disagrees with TMA's swizzle; (7, 48, 9) has K below one 128-byte box
 @pytest.mark.parametrize("m,k,n", [(1, 4096, 4096), (56, 11008, 4096), (56, 4096, 32001),
                                    (130, 4096, 12288), (7, 48, 9), (16, 4096, 22016),
-                                   (16, 4096, 32001), (256, 11008, 4096)])
+                                   (16, 4096, 32001), (256, 11008, 4096)]
+                         + [(4480, k, n) for k, n in VICUNA_KN]
+                         + [(m, 4096, 4096) for m in (1, 16, 64, 65, 128)]
+                         + [(m, 11008, 4096) for m in (1, 16, 64, 65, 128)])
 def test_q8_kernel_matches_plain(card, m, k, n):
     g = torch.Generator(device=card).manual_seed(m + n)
     x8 = torch.randint(-127, 128, (m, k), generator=g, device=card, dtype=torch.int8)
@@ -114,6 +122,9 @@ K3_TOL = {torch.bfloat16: dict(atol=1e-2, rtol=1e-2), torch.float32: dict(atol=1
     (2, 300, 4, 16, torch.float32, True, True),
     (2, 300, 4, 128, torch.float32, False, True),
     (3, 200, 8, 64, torch.bfloat16, False, True),
+    (2, 600, 32, 128, torch.bfloat16, True, [600, 413]),     # the train phase's shape
+    (2, 70, 2, 64, torch.bfloat16, True, [70, 33]),           # one query tile, T < TQ
+    (1, 129, 4, 128, torch.bfloat16, True, False),            # one row past a tile
 ])
 def test_flash_attention_kernel_matches_plain(card, b, t, h, d, dtype, causal, ragged):
     g = torch.Generator(device=card).manual_seed(t + b)
@@ -121,7 +132,9 @@ def test_flash_attention_kernel_matches_plain(card, b, t, h, d, dtype, causal, r
     qkv = torch.randn((b, t, 3, h, d), generator=g, device=card).to(dtype)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     lens = torch.full((b,), t, dtype=torch.int32, device=card)
-    if ragged:
+    if isinstance(ragged, list):
+        lens = torch.tensor(ragged, dtype=torch.int32, device=card)
+    elif ragged:
         lens = torch.randint(t * 2 // 3, t + 1, (b,), generator=g, device=card,
                              dtype=torch.int32)
     before = tfa.flash_attention_kernel.launches
@@ -142,6 +155,22 @@ def test_flash_attention_kernel_dead_lane(card):
     torch.cuda.synchronize()
     assert torch.equal(out[0], torch.zeros_like(out[0]))
     assert bool((lse[0] == tfa.LSE_DEAD).all()) and bool(torch.isfinite(out[1].float()).all())
+
+
+def test_flash_attention_tma_kernel_dead_lane(card):
+    """The TMA kernel (D = 128) on a lane of length 0: no key tile is
+    loaded, zeros and lse = LSE_DEAD; the live lane matches the plain
+    version."""
+    g = torch.Generator(device=card).manual_seed(7)
+    q, k, v = (torch.randn((2, 200, 2, 128), generator=g, device=card).to(torch.bfloat16)
+               for _ in range(3))
+    lens = torch.tensor([0, 150], dtype=torch.int32, device=card)
+    out, lse = tfa.flash_attention_kernel(q, k, v, lens, with_lse=True)
+    ref = tfa.flash_attention_plain(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert torch.equal(out[0], torch.zeros_like(out[0]))
+    assert bool((lse[0] == tfa.LSE_DEAD).all())
+    torch.testing.assert_close(out.float(), ref.float(), **K3_TOL[torch.bfloat16])
 
 
 K5_CASES = [

@@ -79,9 +79,54 @@ def test_q8_matmul_matches_pallas_interpret_bitwise(m, k, n):
     np.testing.assert_array_equal(got, ref)
 
 
+# the Vicuna-7B projections (K, N) and the rows of the main paths: serve
+# decode lanes, report decode, all-QA lanes, a full admission, report prefill
+VICUNA = [(4096, 12288), (4096, 4096), (4096, 22016), (11008, 4096), (4096, 32001)]
+ROWS = [1, 16, 48, 56, 64, 65, 128, 256, 4480]
+
+
 def test_split_rule_fills_the_card_at_decode():
-    # decode shapes with few output tiles split K; prefill shapes do not
-    assert tq8._splits(56, 4096, 4096) > 1
-    assert tq8._splits(56, 4096, 11008) > 1
-    assert tq8._splits(56 * 80, 4096, 4096) == 1
-    assert tq8._splits(56, 32001, 4096) == 1
+    # decode shapes with few output tiles split K and fill the card's 132
+    # SMs; prefill shapes do not split
+    for k, n in VICUNA:
+        plan = tq8._plan(56, n, k)
+        assert plan.route == "swap" and plan.blocks(56, n) >= tq8.SM_COUNT
+    assert tq8._plan(56, 4096, 4096).splits > 1
+    assert tq8._plan(56, 4096, 11008).splits > 1
+    assert tq8._plan(56 * 80, 4096, 4096).splits == 1
+    assert tq8._plan(56, 32001, 4096).splits == 1
+
+
+@pytest.mark.parametrize("m", ROWS)
+@pytest.mark.parametrize("k,n", VICUNA + [(48, 9), (64, 129), (11008, 33)])
+def test_plan_covers_every_k_tile_once(m, k, n):
+    plan = tq8._plan(m, n, k)
+    ktiles = -(-k // tq8.KTILE)
+    covered = [t for z in range(plan.splits)
+               for t in range(z * plan.per, min((z + 1) * plan.per, ktiles))]
+    assert covered == list(range(ktiles))
+    assert all(z * plan.per < ktiles for z in range(plan.splits))   # no empty split
+    if plan.splits > 1:
+        assert plan.per >= tq8.MIN_SPLIT_KTILES
+
+
+@pytest.mark.parametrize("m", ROWS)
+def test_plan_route_follows_m(m):
+    for k, n in VICUNA:
+        plan = tq8._plan(m, n, k)
+        if m <= tq8.DECODE_MAX_M:
+            # C^T = W . X^T: the rows are wgmma's N, padded to 8, 16, 32 or 64
+            assert plan.route == "swap" and plan.tile == (plan.wn, 64)
+            assert plan.wn in (8, 16, 32, 64) and m <= plan.wn and (plan.wn == 8 or plan.wn < 2 * m)
+            assert plan.blocks(m, n) >= tq8.SM_COUNT
+            # two blocks an SM: the split never queues a second wave
+            assert plan.splits == 1 or plan.blocks(m, n) <= 2 * tq8.SM_COUNT
+        else:
+            assert plan.route == "wgmma" and plan.tile == (128, plan.wn)
+            assert (plan.wn, plan.stages) in ((256, 4), (128, 6))
+            assert plan.splits == 1 or plan.blocks(m, n) <= tq8.SM_COUNT
+            # the narrow tile only where the wide one would leave half the card empty
+            wide_tiles = -(-m // 128) * -(-n // 256)
+            assert (plan.wn == 128) == (2 * wide_tiles <= tq8.SM_COUNT)
+    assert tq8._plan(4480, 4096, 4096).tile == (128, 256)
+    assert tq8._plan(256, 4096, 4096).tile == (128, 128)
