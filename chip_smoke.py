@@ -29,10 +29,16 @@ each; any failing phase exits non-zero:
   tproto  the TPU microbench tools' prototypes: T1 (K2 over one interleaved
           k|v buffer) bitwise equal to K2 and within K2_TOL of its plain
           version at tools/microbench_kvfused.py's defaults; T2 and T3
-          (per-column W4A8, exact int32) bitwise equal to the plain product at
-          the four Vicuna-7B projection shapes, M in {32, 5}; times, with
-          torch._int_mm on the widened codes as the yardstick; each tool's
-          chain, whose launches the kernels line reports
+          (per-column W4A8, exact int32; TMA + register-operand wgmma)
+          bitwise equal to the plain product at the four Vicuna-7B
+          projection shapes, M in {32, 5, 1, 16, 64, 256} (the wn boundaries
+          and one tiling of rows above 64), each line naming its launch plan;
+          times, with torch._int_mm on the widened codes as the yardstick
+          where M > 16; layer sums at M = 32, 5 and 256, and at M = 32 and 5
+          the plan beside three other configurations (64 or 128 weight rows
+          a block everywhere; no K split); the M = 32 layer again with a read as the L2 flush
+          and by torch.profiler's device time; each tool's chain, whose
+          launches the kernels line reports
   k3      flash-attention kernel vs its plain version (K3_TOL, beside the
           plain version's own spread between key blocks of 64 and 256) at
           H=32, D=128, bf16, causal: B=1 with T=S in {256, 448, 1024}, the
@@ -124,6 +130,7 @@ host.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import json
 import os
@@ -739,6 +746,56 @@ def phase_k5(torch, tfa, flush):
     return summary
 
 
+def _device_ms(torch, fn, flush, key: str, n: int = 10) -> float:
+    """The card's own time of the kernels of fn() whose names hold ``key``,
+    from torch.profiler: the median over n runs, each after flush()."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            flush()
+            fn()
+        torch.cuda.synchronize()
+    times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+             if e.device_type == DeviceType.CUDA and key in e.name]
+    return statistics.median(times) if times else float("nan")
+
+
+def _w4_breakdown(torch, tw, weights, shapes, g, flush):
+    """What a T2/T3 layer time at M = 32 holds besides the kernels' reading:
+    CUDA events around an empty call; the same layer with the L2 flushed by
+    a read (the default flush writes 64 MB, and the dirty lines it leaves
+    are written back while the kernel reads its weight); the card's own
+    kernel time (torch.profiler); torch._int_mm beside each, and a PyTorch
+    reduction that only reads the packed weights (amax of their bytes as
+    f32) as the yardstick of reading those bytes at all."""
+    rbuf = torch.zeros(64 * 1024 * 1024 // 4, device="cuda")
+
+    def read_flush():
+        rbuf.amax()
+
+    row = {"empty_event_ms": timed_ms(lambda: None, 20, flush)}
+    keys = ("T2", "T3", "int_mm", "read_w")
+    row.update({f"{key}_{what}": 0.0 for key in keys
+                for what in ("ms", "read_flush_ms", "device_ms")})
+    for wname, (k, n) in shapes.items():
+        w = weights[wname].w
+        codes = tw.unpack_q4(w)
+        x8 = torch.randint(-127, 128, (32, k), generator=g, device="cuda", dtype=torch.int8)
+        xlo, xhi = tw.split_even_odd(x8)
+        wf = w.view(torch.float32)
+        for key, fn, kernel in (("T2", lambda: tw.w4_int32_split(xlo, xhi, w), "w4_tma_kernel"),
+                                ("T3", lambda: tw.w4_int32(x8, w), "w4_tma_kernel"),
+                                ("int_mm", lambda: torch._int_mm(x8, codes.t()), "gemm"),
+                                ("read_w", lambda: wf.amax(), "reduce")):
+            row[f"{key}_ms"] += timed_ms(fn, 20, flush)
+            row[f"{key}_read_flush_ms"] += timed_ms(fn, 20, read_flush)
+            row[f"{key}_device_ms"] += _device_ms(torch, fn, flush, kernel)
+        del codes
+    emit("tproto", breakdown="one layer's 4 projections at M=32", **row)
+
+
 def phase_tproto(torch, tfd, tw, flush):
     """The prototypes of the TPU microbench tools at their tools' shapes.
     T1 (fused k|v flash-decode) at tools/microbench_kvfused.py's defaults
@@ -746,8 +803,12 @@ def phase_tproto(torch, tfd, tw, flush):
     to K2 on the same data and within K2_TOL of its plain version, timed
     beside K2. T2 and T3 (per-column W4A8, exact int32) bitwise equal to the
     plain product at the four Vicuna-7B projection shapes at M = 32 (the
-    tool's decode rows) and M = 5, timed against the byte bound and against
-    torch._int_mm on the codes widened to int8. Then each tool's chain
+    tool's decode rows), 5, 1, 16, 64 and 256, each line naming its launch
+    plan, timed against the byte bound and against torch._int_mm on the
+    codes widened to int8; at M = 32 and 5 the plan is timed beside 64 and
+    128 weight rows a block everywhere and beside no K split, and the M = 32 layer is
+    timed with a read as the L2 flush and by the profiler's device time
+    (``_w4_breakdown``). Then each tool's chain
     (T1: the 8 layer calls; T2, T3: 32 layers of the four projections, one
     distinct layer cycled) with the launch counts that the kernels line
     reports. Returns the summaries of T1, T2 and T3."""
@@ -788,44 +849,81 @@ def phase_tproto(torch, tfd, tw, flush):
 
     shapes = {"wqkv": (4096, 3 * 4096), "wo": (4096, 4096), "gateup": (4096, 2 * 11008),
               "down": (11008, 4096)}
-    sums = {name: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
-                   "max_abs_err": 0, "bytes_bound": 0} for name in ("T2", "T3")}
+    rows_m, summed = (32, 5, 1, 16, 64, 256), (32, 5, 256)
+    sums = {(name, m): {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                        "library_ms": 0.0 if m > 16 else None, "bytes_bound": 0}
+            for name in ("T2", "T3") for m in summed}
+    # the plan against the same kernel with 64 or 128 weight rows a block
+    # everywhere and with no K split, at the tool's decode rows and at M = 5:
+    # layer sums of kernel ms
+    sweep = {(name, m, cfg): 0.0 for name in ("T2", "T3") for m in (32, 5)
+             for cfg in ("plan", "rows64", "rows128", "nosplit")}
     weights = {}
     for wname, (k, n) in shapes.items():
         w = weights[wname] = tw.random_q4c(k, n, g, "cuda")
         codes = tw.unpack_q4(w.w)                        # (N, K) int8, for _int_mm
-        for m in (32, 5):
+        for m in rows_m:
             x8 = torch.randint(-127, 128, (m, k), generator=g, device="cuda", dtype=torch.int8)
             xlo, xhi = tw.split_even_odd(x8)
             plain = tw.w4_int32_plain(x8, w.w)
-            for name, fn in (("T2", lambda: tw.w4_int32_split(xlo, xhi, w.w)),
-                             ("T3", lambda: tw.w4_int32(x8, w.w))):
+            plain_ms = timed_ms(lambda: tw.w4_int32_plain(x8, w.w), 3, flush)
+            lib_ms = (timed_ms(lambda: torch._int_mm(x8, codes.t()), 20, flush)
+                      if m > 16 else None)              # torch._int_mm takes M > 16
+            b_bytes = (m * k + n * k // 2 + 4 * m * n) / HBM_BYTES_PER_S * 1e3
+            b_ops = 2 * m * n * k / INT8_OPS_PER_S * 1e3
+            plan = tw._plan(m, n, k)
+            for name, split, xs in (("T2", True, (xlo, xhi)), ("T3", False, (x8,))):
+                fn = (lambda: tw.w4_int32_split(xlo, xhi, w.w)) if split else \
+                    (lambda: tw.w4_int32(x8, w.w))
                 out = fn()
                 torch.cuda.synchronize()
                 if not torch.equal(out, plain):
                     raise AssertionError(f"{name} {wname} M={m}: differs from the plain product")
                 ms = timed_ms(fn, 20, flush)
-                plain_ms = timed_ms(lambda: tw.w4_int32_plain(x8, w.w), 3, flush)
-                lib_ms = (timed_ms(lambda: torch._int_mm(x8, codes.t()), 20, flush)
-                          if m > 16 else None)          # torch._int_mm takes M > 16
-                b_bytes = (m * k + n * k // 2 + 4 * m * n) / HBM_BYTES_PER_S * 1e3
-                b_ops = 2 * m * n * k / INT8_OPS_PER_S * 1e3
                 emit("tproto", kernel=name, weight=wname, m=m, k=k, n=n, bitwise=True,
-                     kernel_ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                     bound_ms=max(b_bytes, b_ops),
+                     plan=dataclasses.asdict(plan), kernel_ms=ms, plain_ms=plain_ms,
+                     library_ms=lib_ms, bound_ms=max(b_bytes, b_ops),
                      bound_by="bytes" if b_bytes >= b_ops else "operations",
                      roofline_share=max(b_bytes, b_ops) / ms)
-                if m == 32:
-                    x = sums[name]
+                if m in summed:
+                    x = sums[(name, m)]
                     x["ms"] += ms
                     x["plain_ms"] += plain_ms
-                    x["library_ms"] += lib_ms
+                    if lib_ms is not None:
+                        x["library_ms"] += lib_ms
                     x["bound_ms"] += max(b_bytes, b_ops)
                     x["bytes_bound"] += b_bytes >= b_ops
+                if m not in (32, 5):
+                    continue
+                ktiles = -(-k // tw.KTILE)
+                others = {"plan": plan, "rows64": tw._plan(m, n, k, rows=64),
+                          "rows128": tw._plan(m, n, k, rows=128),
+                          "nosplit": dataclasses.replace(plan, splits=1, per=ktiles)}
+                for cfg, p in others.items():
+                    other = tw._launch(split, xs, w.w, m, k, p)
+                    torch.cuda.synchronize()
+                    if not torch.equal(other, plain):
+                        raise AssertionError(f"{name} {wname} M={m} {cfg}: differs from plain")
+                    sweep_ms = timed_ms(lambda: tw._launch(split, xs, w.w, m, k, p), 20, flush)
+                    sweep[(name, m, cfg)] += sweep_ms
+                    emit("tproto", kernel=name, weight=wname, m=m, config=cfg,
+                         plan=dataclasses.asdict(p), bitwise=True,
+                         kernel_ms=sweep_ms)
         del codes
-    for name, variant, fn in (("T2", "w4", tw.w4_int32_split), ("T3", "w4p", tw.w4_int32)):
-        x = sums[name]
+    for (name, m, cfg), ms in sweep.items():
+        emit("tproto", kernel=name, layer_sum=f"one layer's 4 projections at M={m}", config=cfg,
+             kernel_ms=ms)
+    for (name, m), x in sums.items():
         x["bound_by"] = "bytes" if x.pop("bytes_bound") == 4 else "operations"
+        emit("tproto", kernel=name, layer_sum=f"one layer's 4 projections at M={m}",
+             roofline_share=x["bound_ms"] / x["ms"], **x)
+    _w4_breakdown(torch, tw, weights, shapes, g, flush)
+    out = {}
+    for name, variant, fn in (("T2", "w4", tw.w4_int32_split), ("T3", "w4p", tw.w4_int32)):
+        x = dict(sums[(name, 32)], max_abs_err=0)
+        for m in (5, 256):
+            x[f"ms_m{m}"], x[f"bound_ms_m{m}"] = sums[(name, m)]["ms"], sums[(name, m)]["bound_ms"]
+        x["library_ms_m256"] = sums[(name, 256)]["library_ms"]
         fn.launches = 0
         h0 = torch.randn((32, 4096), generator=g, device="cuda").to(torch.bfloat16)
         for _ in range(32):                 # the tool's chain, one distinct layer cycled
@@ -838,9 +936,9 @@ def phase_tproto(torch, tfd, tw, flush):
         x["launches"] = fn.launches
         if not bool(torch.isfinite(h0).all()) or x["launches"] != 4 * 32:
             raise AssertionError(f"{name}: the tool's chain failed")
-        emit("tproto", kernel=name, layer_sum="one layer's 4 projections at M=32",
-             roofline_share=x["bound_ms"] / x["ms"], **x)
-    return t1, sums["T2"], sums["T3"]
+        emit("tproto", kernel=name, chain_launches=x["launches"])
+        out[name] = x
+    return t1, out["T2"], out["T3"]
 
 
 def _prompts(tok, n: int, img_tokens: int):
@@ -1771,8 +1869,10 @@ def main() -> int:
          "source": "radialog_tpu_torch/csrc/w4_colscale.cu",
          "replaces": "tools/microbench_w4.py:93", **t2,
          "work": "one decoder layer's 4 projections at M=32, int4 per column, activations "
-                 "split even/odd; library_ms: torch._int_mm on the codes widened to int8; "
-                 "launches of the tool's 32-layer chain in the tproto phase"},
+                 "split even/odd, TMA + register-operand wgmma, wn 32, 64 weight rows a "
+                 "block (128 for gateup), K split 4 ways for wo and down; library_ms: "
+                 "torch._int_mm on the codes widened to int8; *_m5, *_m256: the same at M=5 "
+                 "and 256; launches of the tool's 32-layer chain in the tproto phase"},
         {"name": "w4_int32", "route": "cuda", "source": "radialog_tpu_torch/csrc/w4_colscale.cu",
          "replaces": "tools/microbench_w4.py:153", **t3,
          "work": "as w4_int32_split with whole activation rows"},

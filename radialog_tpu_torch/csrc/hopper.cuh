@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the TMA + wgmma kernels
-// (q8_matmul.cu, flash_attention.cu): tensor maps, mbarriers, TMA loads and
-// warpgroup matrix multiplies, in inline PTX.
+// (q8_matmul.cu, flash_attention.cu, w4_colscale.cu): tensor maps,
+// mbarriers, TMA loads and warpgroup matrix multiplies, in inline PTX.
 //
 // Tensor maps are encoded on the host for every launch (an activation's
 // address changes from call to call) through cuTensorMapEncodeTiled of the
@@ -167,6 +167,15 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
 template <int N>
 __device__ __forceinline__ void wgmma_s8(int (&d)[N / 2], uint64_t da, uint64_t db, int acc);
 
+// d (64 x N, s32) += A (64 x 32 int8, registers) . B (N x 32 int8, smem,
+// K-major)^T. A's fragment: a[0] rows 16 w + g, K 4t..4t+3 (g = lane / 4,
+// t = lane % 4, w the warp of the group); a[1] rows 16 w + g + 8, the same
+// K; a[2], a[3] the same rows at K 16+4t..16+4t+3; byte i of a register is
+// K + i. The registers must stay unchanged until the wgmma_wait that
+// retires the product.
+template <int N>
+__device__ __forceinline__ void wgmma_rs_s8(int (&d)[N / 2], const uint32_t (&a)[4], uint64_t db, int acc);
+
 // d (64 x N, f32) += A (64 x 16 bf16, smem, K-major) . B (N x 16, smem, K-major)^T
 template <int N>
 __device__ __forceinline__ void wgmma_ss_bf16(float (&d)[N / 2], uint64_t da, uint64_t db, int acc);
@@ -270,6 +279,51 @@ __device__ __forceinline__ void wgmma_s8<256>(int (&d)[128], uint64_t da, uint64
         "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
         "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
       : "l"(da), "l"(db), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_s8<8>(int (&d)[4], const uint32_t (&a)[4], uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k32.s32.s8.s8 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_s8<16>(int (&d)[8], const uint32_t (&a)[4], uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_s8<32>(int (&d)[16], const uint32_t (&a)[4], uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_s8<64>(int (&d)[32], const uint32_t (&a)[4], uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
 }
 
 template <>

@@ -17,21 +17,31 @@ and its K and N padding are gone.
   acc = x8 @ q (exact int32);  y = bf16(f32(acc) * x_scale[:, None] * scale)
 
 ``w4_int32_split`` (T2) and ``w4_int32`` (T3) compute ``acc``: on a CUDA
-tensor each launches its kernel of csrc/w4_colscale.cu, on a CPU tensor
-both run the one plain version ``w4_int32_plain``. Integer sums are exact,
-so kernel and plain version agree bit for bit.
+tensor each launches its kernel of csrc/w4_colscale.cu (TMA and an int8
+wgmma whose A operand is the weight's nibbles unpacked in registers, with
+the operands swapped: C^T = Q . X^T), on a CPU tensor both run the one
+plain version ``w4_int32_plain``. Integer sums are exact, so kernel and
+plain version agree bit for bit. ``_plan`` chooses the launch.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from . import _build
 from .q4_matmul import unpack_q4
-from .q8_matmul import quantize_act
+from .q8_matmul import SM_COUNT, _split, quantize_act
+
+KTILE = 256                  # K values a stage holds: 128 packed bytes a weight row
+SLOTS_PER_SM = 2             # blocks an SM holds: ~100 KB of shared memory each
+SMEM_PER_SM = 228 * 1024     # H100: shared memory an SM gives its blocks
+WNS = (8, 16, 32, 64)        # wgmma N: the activation rows a block takes
+# the ring's stages by weight rows a block and wn (csrc/w4_colscale.cu stages_of)
+STAGES = {128: {8: 6, 16: 5, 32: 4, 64: 3}, 64: {8: 8, 16: 8, 32: 6, 64: 4}}
+MAX_K = 131040               # the kernels sum 16 q x in int32: K * 2^14 < 2^31, K % 32 == 0
 
 
 @dataclasses.dataclass
@@ -98,11 +108,74 @@ def _check(xs, w, k: int, what: str) -> None:
                          f"bytes: K={k}, w {tuple(w.shape)}")
     if k % 32:
         raise ValueError(f"{what} needs K % 32 == 0, got K={k}")
+    if k > MAX_K:
+        raise ValueError(f"{what} sums 16 q x products in int32: K={k} > {MAX_K}")
     for t in (*xs, w):
         if not (t.is_cuda and t.is_contiguous() and t.device == w.device
                 and t.data_ptr() % 16 == 0):
             raise ValueError(f"{what} takes contiguous, 16-byte aligned CUDA operands on one "
                              f"device")
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """A launch of T2 or T3: ``wn`` activation rows (wgmma's N) by ``rows``
+    weight rows (64 per consumer warpgroup) a block, a ring of ``stages``,
+    K cut into ``splits`` ranges of ``per`` tiles of KTILE values, whose
+    int32 sums are added with atomics into a zeroed output when there is
+    more than one."""
+
+    wn: int
+    rows: int
+    stages: int
+    splits: int
+    per: int
+
+    def tiles(self, m: int, n: int) -> int:
+        return -(-m // self.wn) * -(-n // self.rows)
+
+    def smem(self) -> int:
+        """Shared memory a block takes: the ring, its mbarriers, alignment."""
+        return self.stages * 128 * (self.rows + 2 * self.wn) + 16 * self.stages + 1024
+
+
+def _plan(m: int, n: int, k: int, rows: Optional[int] = None) -> Plan:
+    """The launch for (M, K) activations x (N, K/2) packed weights. wn is the
+    least of 8, 16, 32, 64 that holds the rows (64 above 64 rows, which are
+    tiled over the grid). 64 weight rows a block (one consumer warpgroup,
+    the most blocks), unless those tiles would not fit the card's 2 x 132
+    slots at once: then 128 (two warpgroups share each stage of
+    activations), which halves them; ``rows`` forces either. The ring is as
+    deep as ~100 KB allows, two blocks an SM. K is split (K1's rule,
+    ``q8_matmul._split``) only where the output tiles leave the slots half
+    empty, into as many ranges as fit the slots, each at least 4 tiles
+    deep. Measured on an H100 at M = 32 (PERF.md): 64-row blocks spare
+    wqkv its K split and its zeroing and give wo and down twice the blocks;
+    gateup's 344 such tiles would take two waves."""
+    wn = next(w for w in WNS if min(m, WNS[-1]) <= w)
+    slots = SLOTS_PER_SM * SM_COUNT
+    if rows is None:
+        rows = 64 if -(-m // wn) * -(-n // 64) <= slots else 128
+    tiles = -(-m // wn) * -(-n // rows)
+    splits, per = _split(tiles, -(-k // KTILE), slots)
+    return Plan(wn, rows, STAGES[rows][wn], splits, per)
+
+
+def _launch(split: bool, xs, w: torch.Tensor, m: int, k: int, plan: Plan) -> torch.Tensor:
+    """Launch T2 (``split``, xs = (xlo, xhi)) or T3 (xs = (x8,)) with
+    ``plan``, counting the launch on its wrapper; raise on a failed launch."""
+    n = w.shape[0]
+    out = (torch.zeros if plan.splits > 1 else torch.empty)((m, n), dtype=torch.int32,
+                                                            device=w.device)
+    name = "w4_int32_split_launch" if split else "w4_int32_launch"
+    fn = getattr(_build.load("w4_colscale"), name)
+    fn.argtypes = [ctypes.c_void_p] * (len(xs) + 2) + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rc = fn(*(x.data_ptr() for x in xs), w.data_ptr(), out.data_ptr(), m, n, k, plan.wn,
+            plan.rows, plan.stages, plan.per, torch.cuda.current_stream(w.device).cuda_stream)
+    (w4_int32_split if split else w4_int32).launches += 1
+    _build.check(rc, name)
+    return out
 
 
 def w4_int32_split(xlo: torch.Tensor, xhi: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -115,16 +188,9 @@ def w4_int32_split(xlo: torch.Tensor, xhi: torch.Tensor, w: torch.Tensor) -> tor
         return w4_int32_plain(x8, w)
     if xhi.shape != xlo.shape:
         raise ValueError(f"T2 takes xlo and xhi of one shape: {xlo.shape} {xhi.shape}")
-    _check((xlo, xhi), w, 2 * xlo.shape[1], "T2")
-    out = torch.empty((m, w.shape[0]), dtype=torch.int32, device=w.device)
-    fn = _build.load("w4_colscale").w4_int32_split_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    rc = fn(xlo.data_ptr(), xhi.data_ptr(), w.data_ptr(), out.data_ptr(), m, w.shape[0],
-            2 * xlo.shape[1], torch.cuda.current_stream(w.device).cuda_stream)
-    w4_int32_split.launches += 1
-    _build.check(rc, "w4_int32_split_launch")
-    return out
+    k = 2 * xlo.shape[1]
+    _check((xlo, xhi), w, k, "T2")
+    return _launch(True, (xlo, xhi), w, m, k, _plan(m, w.shape[0], k))
 
 
 w4_int32_split.launches = 0
@@ -137,15 +203,7 @@ def w4_int32(x8: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return w4_int32_plain(x8, w)
     m, k = x8.shape
     _check((x8,), w, k, "T3")
-    out = torch.empty((m, w.shape[0]), dtype=torch.int32, device=w.device)
-    fn = _build.load("w4_colscale").w4_int32_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    rc = fn(x8.data_ptr(), w.data_ptr(), out.data_ptr(), m, w.shape[0], k,
-            torch.cuda.current_stream(w.device).cuda_stream)
-    w4_int32.launches += 1
-    _build.check(rc, "w4_int32_launch")
-    return out
+    return _launch(False, (x8,), w, m, k, _plan(m, w.shape[0], k))
 
 
 w4_int32.launches = 0

@@ -9,12 +9,15 @@ the static-slot mode and with the ring's per-lane slot intervals; K4 bitwise
 plain version's order with single rounded f32 operations); K2'' (the
 current row attended and written in place) at K2's tolerance with its row
 bitwise and every other byte of the cache unchanged; T1 bitwise equal to K2
-on the same data; T2 and T3 bitwise (exact int32 sums); K5a and K5b (the
+on the same data; T2 and T3 bitwise (exact int32 sums) at every plan's
+boundaries, and repeatable where K splits; K5a and K5b (the
 flash-attention backward) each of dq, dk and dv at 8e-3 of its own largest
 reference value in bf16 (one bf16 step of that value at most; the spread of
 the plain version between block sizes reaches a quarter of it: a gradient
 rounds to bf16 once, and ds and p round before the second product) and 1e-5
 in f32, and bitwise against their own second run."""
+import dataclasses
+
 import pytest
 import torch
 
@@ -404,8 +407,15 @@ def test_flash_decode_fused_kernel_equals_k2(card):
     assert torch.equal(got, ref)
 
 
+# the wn boundaries (8, 16, 32, 64, rows past 64 tiled); K = 96 (one short
+# box), 4096, 11008 (43 tiles, split K); a ragged last weight tile (N = 40,
+# 4100); wo and down split K at M <= 64
 @pytest.mark.parametrize("m,k,n", [(32, 4096, 12288), (32, 11008, 4096), (5, 4096, 22016),
-                                   (5, 512, 1024), (70, 96, 40)])
+                                   (5, 512, 1024), (70, 96, 40)]
+                         + [(m, 4096, 4096) for m in (1, 8, 9, 16, 17, 32, 33, 64, 65, 256)]
+                         + [(m, 96, 40) for m in (1, 9, 17, 33, 65)]
+                         + [(m, 11008, 4100) for m in (1, 16, 33, 64, 256)]
+                         + [(17, 4096, 40), (256, 4096, 12288)])
 def test_w4_colscale_kernels_match_plain(card, m, k, n):
     g = torch.Generator(device=card).manual_seed(m + k + n)
     x8 = torch.randint(-127, 128, (m, k), generator=g, device=card, dtype=torch.int8)
@@ -417,6 +427,37 @@ def test_w4_colscale_kernels_match_plain(card, m, k, n):
     torch.cuda.synchronize()
     assert (tw.w4_int32_split.launches, tw.w4_int32.launches) == (n2 + 1, n3 + 1)
     assert torch.equal(t2, ref) and torch.equal(t3, ref)
+
+
+@pytest.mark.parametrize("m,k,n", [(32, 11008, 4096), (5, 4096, 4096), (64, 11008, 4100)])
+def test_w4_colscale_split_k_repeats_itself(card, m, k, n):
+    """Split K adds partial sums with atomics into a zeroed output, in any
+    order: two runs are bitwise equal, and equal to the plain product."""
+    assert tw._plan(m, n, k).splits > 1
+    g = torch.Generator(device=card).manual_seed(k + n)
+    x8 = torch.randint(-128, 128, (m, k), generator=g, device=card, dtype=torch.int8)
+    w = tw.random_q4c(k, n, g, card).w
+    ref = tw.w4_int32_plain(x8, w)
+    for fn, xs in ((tw.w4_int32_split, tw.split_even_odd(x8)), (tw.w4_int32, (x8,))):
+        first, second = fn(*xs, w), fn(*xs, w)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second) and torch.equal(first, ref)
+
+
+@pytest.mark.parametrize("m,k,n", [(5, 4096, 4096), (32, 96, 40), (64, 11008, 4100),
+                                   (70, 4096, 12288)])
+def test_w4_colscale_other_configurations_match_plain(card, m, k, n):
+    """The configurations chip_smoke.py times beside the plan: 64 or 128
+    weight rows a block everywhere (one or two consumer warpgroups), and no
+    K split."""
+    g = torch.Generator(device=card).manual_seed(m * n)
+    x8 = torch.randint(-127, 128, (m, k), generator=g, device=card, dtype=torch.int8)
+    w = tw.random_q4c(k, n, g, card).w
+    ref = tw.w4_int32_plain(x8, w)
+    for p in (tw._plan(m, n, k, rows=64), tw._plan(m, n, k, rows=128),
+              dataclasses.replace(tw._plan(m, n, k), splits=1, per=-(-k // tw.KTILE))):
+        assert torch.equal(tw._launch(True, tw.split_even_odd(x8), w, m, k, p), ref)
+        assert torch.equal(tw._launch(False, (x8,), w, m, k, p), ref)
 
 
 def test_w4_colscale_kernels_refuse_what_they_do_not_take(card):

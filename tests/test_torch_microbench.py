@@ -128,6 +128,80 @@ def test_q4c_checks():
         tw.q4c_matmul(torch.zeros(2, 32), tw.pack_q4c(torch.ones(32, 8)), "w8")
 
 
+# T2/T3's launch plan (ops/w4_colscale.py ``_plan``), pure Python: the card
+# runs what it picks
+PLAN_SHAPES = [(m, k, n) for m in (1, 5, 16, 32, 64, 256)
+               for k, n in ((4096, 12288), (4096, 4096), (4096, 22016), (11008, 4096))] + [
+    (70, 96, 40), (1, 96, 40), (65, 11008, 4100), (33, 4096, 4100), (256, 11008, 40),
+    (1, 11008, 40), (5, 32768, 128)]
+
+
+@pytest.mark.parametrize("m,wn", [(1, 8), (5, 8), (8, 8), (9, 16), (16, 16), (17, 32), (32, 32),
+                                  (33, 64), (64, 64), (65, 64), (256, 64)])
+def test_w4_plan_picks_wn_by_rows(m, wn):
+    plan = tw._plan(m, 4096, 4096)
+    assert plan.wn == wn and plan.rows == 64
+    assert plan.stages == tw.STAGES[64][wn] >= 3
+
+
+@pytest.mark.parametrize("m,k,n", PLAN_SHAPES)
+@pytest.mark.parametrize("rows", [128, 64])
+def test_w4_plan_covers_every_k_tile_once(m, k, n, rows):
+    plan = tw._plan(m, n, k, rows=rows)
+    ktiles = -(-k // tw.KTILE)
+    ranges = [range(s * plan.per, min((s + 1) * plan.per, ktiles)) for s in range(plan.splits)]
+    assert all(len(r) > 0 for r in ranges)
+    assert sorted(kt for r in ranges for kt in r) == list(range(ktiles))
+    # every output element lies in one tile: ragged N and rows past 64 included
+    assert plan.tiles(m, n) == -(-m // plan.wn) * -(-n // rows)
+    assert plan.wn * -(-m // plan.wn) >= m and rows * -(-n // rows) >= n
+
+
+@pytest.mark.parametrize("m,k,n", PLAN_SHAPES)
+def test_w4_plan_splits_only_a_half_empty_card(m, k, n):
+    plan = tw._plan(m, n, k)
+    slots = tw.SLOTS_PER_SM * tw.SM_COUNT
+    if plan.splits > 1:
+        assert 2 * plan.tiles(m, n) <= slots and plan.per >= 4
+        assert plan.tiles(m, n) * plan.splits <= slots
+    else:
+        assert 2 * plan.tiles(m, n) > slots or -(-k // tw.KTILE) < 8
+
+
+@pytest.mark.parametrize("m", [1, 5, 32, 64])
+def test_w4_plan_at_decode_rows(m):
+    """64-row blocks where they fit the card at once (wqkv, wo, down), 128
+    for gateup, whose 344 tiles of 64 would not; K split for wo and down."""
+    plans = [tw._plan(m, n, k) for k, n in
+             ((4096, 12288), (4096, 4096), (4096, 22016), (11008, 4096))]
+    assert [p.rows for p in plans] == [64, 64, 128, 64]
+    assert [p.splits for p in plans] == [1, 4, 1, 4]
+
+
+@pytest.mark.parametrize("m,k,n", PLAN_SHAPES)
+def test_w4_plan_rows_fit_the_card_or_halve_the_tiles(m, k, n):
+    plan, slots = tw._plan(m, n, k), tw.SLOTS_PER_SM * tw.SM_COUNT
+    assert plan.rows == (64 if tw._plan(m, n, k, rows=64).tiles(m, n) <= slots else 128)
+
+
+@pytest.mark.parametrize("rows", [128, 64])
+@pytest.mark.parametrize("wn", tw.WNS)
+def test_w4_plan_blocks_fit_the_card(rows, wn):
+    """SLOTS_PER_SM blocks of the ring (and 1 KB the card reserves for each)
+    fit an SM's shared memory."""
+    plan = tw.Plan(wn, rows, tw.STAGES[rows][wn], 1, 1)
+    assert tw.SLOTS_PER_SM * (plan.smem() + 1024) <= tw.SMEM_PER_SM
+    assert plan.stages >= 3
+
+
+def test_w4_kernels_refuse_a_k_past_int32_reach():
+    """The kernels sum 16 q x products in int32: K up to MAX_K."""
+    w = torch.zeros((8, (tw.MAX_K + 32) // 2), dtype=torch.int8)
+    x8 = torch.zeros((1, tw.MAX_K + 32), dtype=torch.int8)
+    with pytest.raises(ValueError, match="int32"):
+        tw._check((x8,), w, tw.MAX_K + 32, "T3")
+
+
 def _run(args):
     out = subprocess.run([sys.executable, *args], cwd=REPO, capture_output=True, text=True,
                          timeout=300)

@@ -15,6 +15,12 @@ tool chains them (x = bf16(x + 0.001 * (wo-out + down-out))):
   w4x  torch._int_mm on the int4 codes widened to int8 (the TPU tool's
        XLA-native int4): the library yardstick, used nowhere in the port
 
+T2 and T3 are one design, K1's swapped decode route over packed nibbles:
+a TMA ring of 64 (or 128) weight rows x 256 K values a stage, the nibbles
+unpacked in registers into the A operand of an int8 wgmma whose N is the
+activation rows, K split across blocks for wo and down (ops/w4_colscale.py
+_plan).
+
 Weights are made on the card from a seeded generator (the TPU tool packs
 float weights on the host, ~26 GB of RAM at 32 layers); ``--layers``
 distinct layers are cycled to 32. First the tool's correctness spot check:
