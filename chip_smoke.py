@@ -62,10 +62,16 @@ each; any failing phase exits non-zero:
           projections give them), the same with q/k/v as views of one fused
           projection, the same with q scaled by 3 (peaked attention, where a
           dropped key tile shows), B=1 with T=S=256, a lane of length 0
-          beside a live one, non-causal with a length mask, and f32; H=4,
-          D=16, f32 (the mock); every case run twice and held bitwise equal;
-          times, with the backward of scaled_dot_product_attention as the
-          yardstick
+          beside a live one, non-causal with a length mask; the TMA route's
+          tile boundaries (T of 1 with 64 or 129 keys, 63, 65, 127, 129,
+          causal and not), the qa prefix's T=431 (lse rows not 16-byte
+          aligned), D=64 at the train shape; f32; H=4, D=16 in f32 and bf16
+          (the mock; the mma.sync route). Each case holds K5a and K5b, and
+          the whole backward (on the TMA route K5a computes delta itself),
+          each run twice and bitwise equal, and names its route; times the
+          kernels, the whole backward, the PyTorch delta alone and the
+          backward of scaled_dot_product_attention (the yardstick), and at
+          the train shape the same on the card's own clock (torch.profiler)
   small   the mock pipeline on the card vs the same weights on the CPU:
           query embeddings, prefill and teacher-forced decode logits, for
           the report batch (48-token shared prefix), for a batch whose
@@ -631,23 +637,45 @@ def phase_k3(torch, tfa, flush):
     return summary
 
 
-def _k5_bounds(b, t, h, d, lens, causal, elt, ops_per_s):
-    """(bound ms, bound_by) of K5a and of K5b: q, do and the two f32 row
-    statistics read once, k and v read once up to each lane's length (no
-    query attends a later key), dq (K5a) or dk and dv (K5b) written once,
-    over the memory rate, against 6*H*D (K5a: q.k, do.v, ds.k) or 8*H*D (K5b:
-    k.q, v.do, p.do, ds.q) operations per valid (query, key) pair of these
-    lengths over the peak of the type."""
-    pairs = sum(min(i + 1, min(int(n), t)) if causal else min(int(n), t)
+def _k5_bounds(b, t, s, h, d, lens, causal, elt, ops_per_s):
+    """(bound ms, bound_by) of K5a, of K5b and of the whole backward: q, do
+    and the f32 row statistics read once, k and v read once up to each
+    lane's length (no query attends a later key), dq (K5a) or dk and dv
+    (K5b) written once, over the memory rate, against 6*H*D (K5a: q.k, do.v,
+    ds.k) or 8*H*D (K5b: k.q, v.do, p.do, ds.q) operations per valid (query,
+    key) pair of these lengths over the peak of the type. The whole
+    backward reads out too and writes all three gradients, and needs 10*H*D
+    operations a pair (s, dp, dv, dk, dq: FA2's five products)."""
+    pairs = sum(min(i + 1, min(int(n), s)) if causal else min(int(n), s)
                 for n in lens for i in range(t))
-    kv_rows = sum(min(int(n), t) for n in lens)
+    kv_rows = sum(min(int(n), s) for n in lens)
     out = []
-    for full, per_pair in ((3, 6), (4, 8)):     # q, do, dq; q, do, dk, dv
-        b_bytes = ((full * b * t + 2 * kv_rows) * h * d * elt
-                   + 2 * 4 * b * h * t) / HBM_BYTES_PER_S * 1e3
+    for q_side, kv_out, stats, per_pair in ((3, 0, 2, 6), (2, 2, 2, 8), (4, 2, 1, 10)):
+        # q-side tensors (q, do, out, dq) of T rows, dk and dv of S rows, the
+        # f32 statistics (lse, delta) of T rows
+        b_bytes = ((q_side * b * t + 2 * kv_rows + kv_out * b * s) * h * d * elt
+                   + stats * 4 * b * h * t) / HBM_BYTES_PER_S * 1e3
         b_ops = per_pair * h * d * pairs / ops_per_s * 1e3
         out.append((max(b_bytes, b_ops), "bytes" if b_bytes >= b_ops else "operations"))
     return out
+
+
+def _k5_check(torch, name, got, want, want64, lens, dt, what):
+    """(err, largest, err of largest, plain block spread) of one gradient;
+    raises past K5_TOL, on a non-finite value, or on a non-zero row of dk/dv
+    past a lane's length (dq of a dead lane too)."""
+    if not torch.isfinite(got.float()).all():
+        raise AssertionError(f"K5 {what}: non-finite {name}")
+    largest = float(want.float().abs().max())
+    err = float((got.float() - want.float()).abs().max())
+    spread = float((want64.float() - want.float()).abs().max()) / largest
+    if err / largest > K5_TOL[dt]:
+        raise AssertionError(f"K5 {what}: {name} differs from plain by {err} (largest value "
+                             f"{largest})")
+    for j, n in enumerate(lens):     # rows past the length, a dead lane
+        if (name != "dq" and bool(got[j, n:].any())) or (n == 0 and bool(got[j].any())):
+            raise AssertionError(f"K5 {what}: lane {j} of length {n} must give zeros in {name}")
+    return err, largest, err / largest, spread
 
 
 def phase_k5(torch, tfa, flush):
@@ -656,92 +684,147 @@ def phase_k5(torch, tfa, flush):
     413, bf16, q/k/v contiguous (the stacked layout projects them apart).
     The case with q scaled by 3 has peaked attention: a few keys carry a
     row's gradient, so a kernel that lost a key tile would miss by far more
-    than the tolerance."""
-    shapes = [(2, CUTOFF, 32, 128, "bfloat16", True, [CUTOFF, 413], False, 1.0),
-              (2, CUTOFF, 32, 128, "bfloat16", True, [CUTOFF, 413], True, 1.0),
-              (2, CUTOFF, 32, 128, "bfloat16", True, [CUTOFF, 413], False, 3.0),
-              (1, 256, 32, 128, "bfloat16", True, None, False, 1.0),
-              (2, 300, 32, 128, "bfloat16", True, [0, 300], True, 1.0),
-              (2, 200, 32, 128, "bfloat16", False, [200, 77], True, 1.0),
-              (2, CUTOFF, 32, 128, "float32", True, [CUTOFF, 413], False, 1.0),
-              (2, 300, 4, 16, "float32", True, [300, 211], True, 1.0)]
+    than the tolerance. Each case holds K5a (given delta) and K5b, and the
+    whole backward (on the TMA route K5a computes delta itself), to the plain
+    versions, each twice and bitwise equal; it times the kernels, the whole
+    backward, the PyTorch delta alone and SDPA's whole backward. The TMA
+    route's boundary cases: T of 1 (64 or 129 keys), 63, 65, 127 and 129
+    with and without causal masking (one row short of and past one and two
+    64-row tiles), T = 431 (lse rows not 16-byte aligned), D = 64. T = 1
+    is non-causal only: causal, its one query attends key 0 alone, p = 1
+    and dq = dk = 0 exactly, so both versions give the rounding noise of
+    dp - delta and a relative check says nothing."""
+    # b, t, h, d, dtype, causal, lengths, q/k/v fused views, q scale, keys (None: t)
+    shapes = [(2, CUTOFF, 32, 128, "bfloat16", True, [CUTOFF, 413], False, 1.0, None),
+              (2, CUTOFF, 32, 128, "bfloat16", True, [CUTOFF, 413], True, 1.0, None),
+              (2, CUTOFF, 32, 128, "bfloat16", True, [CUTOFF, 413], False, 3.0, None),
+              (1, 256, 32, 128, "bfloat16", True, None, False, 1.0, None),
+              (2, 300, 32, 128, "bfloat16", True, [0, 300], True, 1.0, None),
+              (2, 200, 32, 128, "bfloat16", False, [200, 77], True, 1.0, None),
+              (1, 1, 8, 128, "bfloat16", False, [64], False, 1.0, 64),
+              *[(2, t, 8, 128, "bfloat16", causal, [t, t // 2 + 1], True, 3.0, None)
+                for t in (63, 65, 127, 129) for causal in (True, False)],
+              (1, 431, 32, 128, "bfloat16", True, None, True, 1.0, None),
+              (2, CUTOFF, 32, 64, "bfloat16", True, [CUTOFF, 413], False, 1.0, None),
+              (3, 200, 8, 64, "bfloat16", False, [200, 77, 131], True, 3.0, None),
+              (1, 1, 4, 64, "bfloat16", False, [50], True, 1.0, 129),
+              (2, CUTOFF, 32, 128, "float32", True, [CUTOFF, 413], False, 1.0, None),
+              (2, 300, 4, 16, "float32", True, [300, 211], True, 1.0, None),
+              (2, 300, 4, 16, "bfloat16", True, [300, 211], True, 1.0, None)]
     f = torch.nn.functional
     summary, worst = None, {"dq": 0.0, "dkv": 0.0}
-    for i, (b, t, h, d, dt, causal, lens_list, fused, q_scale) in enumerate(shapes):
+    for i, (b, t, h, d, dt, causal, lens_list, fused, q_scale, s) in enumerate(shapes):
+        s = s or t
         dtype = getattr(torch, dt)
+        what = f"{b}x{t}x{s} h{h} d{d} {dt} causal={causal} q*{q_scale}"
         g = torch.Generator(device="cuda").manual_seed(50 + i)
-        if fused:
+        if fused and s == t:
             qkv = torch.randn((b, t, 3 * h * d), generator=g, device="cuda")
             qkv[..., :h * d] *= q_scale
             qkv = qkv.to(dtype)
             q, k, v = (x.reshape(b, t, h, d) for x in qkv.split(h * d, dim=-1))
             assert not any(x.is_contiguous() for x in (q, k, v))
+        elif fused:     # k and v as views of one fused projection of S rows
+            q = (torch.randn((b, t, h, d), generator=g, device="cuda") * q_scale).to(dtype)
+            kv = torch.randn((b, s, 2 * h * d), generator=g, device="cuda").to(dtype)
+            k, v = (x.reshape(b, s, h, d) for x in kv.split(h * d, dim=-1))
         else:
-            q, k, v = (torch.randn((b, t, h, d), generator=g, device="cuda")
-                       for _ in range(3))
+            q = torch.randn((b, t, h, d), generator=g, device="cuda")
+            k, v = (torch.randn((b, s, h, d), generator=g, device="cuda") for _ in range(2))
             q, k, v = (q * q_scale).to(dtype), k.to(dtype), v.to(dtype)
         do = torch.randn((b, t, h, d), generator=g, device="cuda").to(dtype)
-        lens = torch.tensor(lens_list or [t] * b, dtype=torch.int32, device="cuda")
+        lens = torch.tensor(lens_list or [s] * b, dtype=torch.int32, device="cuda")
+        lens_l = [min(int(n), s) for n in lens.tolist()]
         out, lse = tfa.flash_attention_kernel(q, k, v, lens, causal=causal, with_lse=True)
         delta = tfa._delta(out, do)
         args = (q, k, v, lens, lse, delta, do, causal, None)
+        bwd_args = (q, k, v, lens, out, lse, do, causal, None)
         dq = tfa.flash_attention_dq_kernel(*args)
         dk, dv = tfa.flash_attention_dkv_kernel(*args)
+        whole = tfa.flash_attention_bwd_kernel(*bwd_args)
         dq2 = tfa.flash_attention_dq_kernel(*args)
         dk2, dv2 = tfa.flash_attention_dkv_kernel(*args)
+        whole2 = tfa.flash_attention_bwd_kernel(*bwd_args)
         torch.cuda.synchronize()
-        if not (torch.equal(dq, dq2) and torch.equal(dk, dk2) and torch.equal(dv, dv2)):
-            raise AssertionError(f"K5 {b}x{t} {dt}: a second run differs from the first")
+        if not (torch.equal(dq, dq2) and torch.equal(dk, dk2) and torch.equal(dv, dv2)
+                and all(torch.equal(x, y) for x, y in zip(whole, whole2))):
+            raise AssertionError(f"K5 {what}: a second run differs from the first")
         ref = (tfa.flash_attention_dq_plain(*args), *tfa.flash_attention_dkv_plain(*args))
         ref64 = (tfa.flash_attention_dq_plain(*args, bq=64, bk=64),
                  *tfa.flash_attention_dkv_plain(*args, bq=64, bk=64))
-        errs, spread, largest, rel = {}, {}, {}, {}
-        for name, got, want, want64 in zip(("dq", "dk", "dv"), (dq, dk, dv), ref, ref64):
-            if not torch.isfinite(got.float()).all():
-                raise AssertionError(f"K5 {b}x{t} {dt}: non-finite {name}")
-            largest[name] = float(want.float().abs().max())
-            errs[name] = float((got.float() - want.float()).abs().max())
-            rel[name] = errs[name] / largest[name]
-            spread[name] = float((want64.float() - want.float()).abs().max()) / largest[name]
-            if rel[name] > K5_TOL[dt]:
-                raise AssertionError(f"K5 {b}x{t} {dt} q*{q_scale}: {name} differs from plain "
-                                     f"by {errs[name]} (largest value {largest[name]})")
-        for j, n in enumerate(lens.tolist()):   # rows past the length, a dead lane
-            if bool(dk[j, n:].any()) or bool(dv[j, n:].any()) or (n == 0 and bool(dq[j].any())):
-                raise AssertionError(f"K5 {b}x{t} {dt}: lane {j} of length {n} must give zeros")
+        errs, spread, largest, rel, whole_rel = {}, {}, {}, {}, {}
+        for name, got, want, want64, w in zip(("dq", "dk", "dv"), (dq, dk, dv), ref, ref64,
+                                              whole):
+            errs[name], largest[name], rel[name], spread[name] = _k5_check(
+                torch, name, got, want, want64, lens_l, dt, what)
+            whole_rel[name] = _k5_check(torch, name, w, want, want64, lens_l, dt,
+                                        what + " whole backward")[2]
         worst["dq"] = max(worst["dq"], errs["dq"])
         worst["dkv"] = max(worst["dkv"], errs["dk"], errs["dv"])
-        pos = torch.arange(t, device="cuda")
-        mask = (pos[None, None, :] < lens[:, None, None].long()).expand(b, t, t)
+        route = tfa._bwd_route(dtype, d)
+        pos_q, pos_k = torch.arange(t, device="cuda"), torch.arange(s, device="cuda")
+        mask = (pos_k[None, None, :] < lens[:, None, None].long()).expand(b, t, s)
         if causal:
-            mask = mask & (pos[None, :] <= pos[:, None])[None]
+            mask = mask & (pos_k[None, :] <= pos_q[:, None])[None]
         qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_(True) for x in (q, k, v))
         lib_out = f.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask[:, None])
         dot = do.transpose(1, 2)
+
+        def lib_bwd():
+            return torch.autograd.grad(lib_out, (qt, kt, vt), dot, retain_graph=True)
+
+        if i == 0:
+            # the phase's first timed run can read 3x slow (K5a 0.124 against
+            # 0.041 ms on an H100 at 700 W, after phase k4): spend it on a
+            # throwaway
+            timed_ms(lambda: tfa.flash_attention_dq_kernel(*args), 20, flush)
         dq_ms = timed_ms(lambda: tfa.flash_attention_dq_kernel(*args), 20, flush)
         dkv_ms = timed_ms(lambda: tfa.flash_attention_dkv_kernel(*args), 20, flush)
+        bwd_ms = timed_ms(lambda: tfa.flash_attention_bwd_kernel(*bwd_args), 20, flush)
+        delta_ms = timed_ms(lambda: tfa._delta(out, do), 20, flush)
         dq_plain_ms = timed_ms(lambda: tfa.flash_attention_dq_plain(*args), 3, flush)
         dkv_plain_ms = timed_ms(lambda: tfa.flash_attention_dkv_plain(*args), 3, flush)
-        lib_ms = timed_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot,
-                                                      retain_graph=True), 20, flush)
-        (dq_bound, dq_by), (dkv_bound, dkv_by) = _k5_bounds(
-            b, t, h, d, lens.tolist(), causal, q.element_size(),
+        lib_ms = timed_ms(lib_bwd, 20, flush)
+        (dq_bound, dq_by), (dkv_bound, dkv_by), (bwd_bound, bwd_by) = _k5_bounds(
+            b, t, s, h, d, lens.tolist(), causal, q.element_size(),
             BF16_OPS_PER_S if dt == "bfloat16" else F32_OPS_PER_S)
-        emit("k5", batch=b, t=t, heads=h, head_dim=d, dtype=dt, causal=causal,
-             fused_qkv_views=fused, q_scale=q_scale,
-             lengths=[int(x) for x in lens.tolist()], max_abs_err=errs,
-             largest_gradient=largest, err_of_largest=rel, tol_of_largest=K5_TOL[dt],
-             plain_block_spread_of_largest=spread,
-             bitwise_repeat=True, dq_kernel_ms=dq_ms, dkv_kernel_ms=dkv_ms,
-             dq_plain_ms=dq_plain_ms, dkv_plain_ms=dkv_plain_ms,
-             library_backward_ms=lib_ms, dq_bound_ms=dq_bound, dq_bound_by=dq_by,
-             dkv_bound_ms=dkv_bound, dkv_bound_by=dkv_by,
-             dq_roofline_share=dq_bound / dq_ms, dkv_roofline_share=dkv_bound / dkv_ms)
+        line = dict(batch=b, t=t, s=s, heads=h, head_dim=d, dtype=dt, causal=causal,
+                    fused_qkv_views=fused, q_scale=q_scale,
+                    lengths=[int(x) for x in lens.tolist()], route=route,
+                    dq_grid=list(tfa._bwd_grid("dq", b, t, s, h, route)),
+                    dkv_grid=list(tfa._bwd_grid("dkv", b, t, s, h, route)),
+                    blocks_per_sm=({k: tfa._bwd_blocks_per_sm(k, d) for k in ("dq", "dkv")}
+                                   if route == "tma" else None),
+                    max_abs_err=errs, largest_gradient=largest, err_of_largest=rel,
+                    whole_backward_err_of_largest=whole_rel, tol_of_largest=K5_TOL[dt],
+                    plain_block_spread_of_largest=spread, bitwise_repeat=True,
+                    dq_kernel_ms=dq_ms, dkv_kernel_ms=dkv_ms, whole_backward_ms=bwd_ms,
+                    delta_ms=delta_ms,
+                    delta_share_unfolded=delta_ms / (delta_ms + dq_ms + dkv_ms),
+                    dq_plain_ms=dq_plain_ms, dkv_plain_ms=dkv_plain_ms,
+                    library_backward_ms=lib_ms, dq_bound_ms=dq_bound, dq_bound_by=dq_by,
+                    dkv_bound_ms=dkv_bound, dkv_bound_by=dkv_by, whole_bound_ms=bwd_bound,
+                    whole_bound_by=bwd_by, dq_roofline_share=dq_bound / dq_ms,
+                    dkv_roofline_share=dkv_bound / dkv_ms,
+                    whole_roofline_share=bwd_bound / bwd_ms)
         if i == 0:
+            # the card's own clock (torch.profiler), like for like
+            line["device_ms"] = {
+                "dq": _device_ms(torch, lambda: tfa.flash_attention_dq_kernel(*args), flush,
+                                 "dq_"),
+                "dkv": _device_ms(torch, lambda: tfa.flash_attention_dkv_kernel(*args), flush,
+                                  "dkv_"),
+                "whole_backward": _device_total_ms(
+                    torch, lambda: tfa.flash_attention_bwd_kernel(*bwd_args), flush),
+                "delta": _device_total_ms(torch, lambda: tfa._delta(out, do), flush),
+                "library_backward": _device_total_ms(torch, lib_bwd, flush)}
             summary = {"dq": {"ms": dq_ms, "plain_ms": dq_plain_ms, "bound_ms": dq_bound,
-                              "bound_by": dq_by, "library_ms": lib_ms},
+                              "bound_by": dq_by, "library_ms": lib_ms, "launch_route": route,
+                              "whole_backward_ms": bwd_ms, "whole_bound_ms": bwd_bound,
+                              "delta_ms": delta_ms},
                        "dkv": {"ms": dkv_ms, "plain_ms": dkv_plain_ms, "bound_ms": dkv_bound,
-                               "bound_by": dkv_by, "library_ms": lib_ms}}
+                               "bound_by": dkv_by, "library_ms": lib_ms, "launch_route": route}}
+        emit("k5", **line)
     summary["dq"]["max_abs_err"], summary["dkv"]["max_abs_err"] = worst["dq"], worst["dkv"]
     return summary
 
@@ -760,6 +843,22 @@ def _device_ms(torch, fn, flush, key: str, n: int = 10) -> float:
     times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
              if e.device_type == DeviceType.CUDA and key in e.name]
     return statistics.median(times) if times else float("nan")
+
+
+def _device_total_ms(torch, fn, flush, n: int = 10) -> float:
+    """The card's own time of every kernel of fn() (the flush's fill not
+    counted), from torch.profiler: the total over n runs, each after
+    flush(), divided by n."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            flush()
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() / 1e3 for e in prof.events()
+               if e.device_type == DeviceType.CUDA and "FillFunctor" not in e.name) / n
 
 
 def _w4_breakdown(torch, tw, weights, shapes, g, flush):

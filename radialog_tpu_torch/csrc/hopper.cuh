@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the TMA + wgmma kernels
-// (q8_matmul.cu, flash_attention.cu, w4_colscale.cu): tensor maps,
+// (q8_matmul.cu, flash_attention.cu, flash_attention_bwd.cu,
+// w4_colscale.cu): tensor maps,
 // mbarriers, TMA loads and warpgroup matrix multiplies, in inline PTX.
 //
 // Tensor maps are encoded on the host for every launch (an activation's

@@ -25,8 +25,9 @@ The math:
   blocks there, which no caller reaches)
 
 The backward (FlashAttention-2 style), from the saved out and lse:
-  delta = rowsum(do * out) in f32 (a PyTorch reduction, as the JAX package
-      leaves it to XLA)
+  delta = rowsum(do * out) in f32 (the JAX package leaves it to XLA; on the
+      card's TMA route, bf16 at D 64/128, K5a computes it as it starts, and
+      elsewhere it is a PyTorch reduction)
   p  = exp(s - lse) where the key is valid, exactly 0 elsewhere (so a row
       with lse = LSE_DEAD, and a lane of length 0, give zero gradients)
   dp = do . v in f32; ds = (p * (dp - delta) * scale) rounded to q's dtype
@@ -262,42 +263,102 @@ def flash_attention_bwd_plain(q, k, v, lengths, out, lse, do, causal: bool = Tru
     return dq, dk, dv
 
 
+def flash_attention_dq_delta_plain(q, k, v, lengths, lse, out, do, causal: bool = True,
+                                   scale: Optional[float] = None, bq: int = 256, bk: int = 256):
+    """Plain version of K5a with delta folded in: (dq, delta) from the
+    forward's out instead of delta, delta = rowsum(do * out) (B,H,T) f32."""
+    delta = _delta(out, do)
+    return flash_attention_dq_plain(q, k, v, lengths, lse, delta, do, causal, scale, bq,
+                                    bk), delta
+
+
 BWD_HEAD_DIMS = (16, 32, 64, 128)
+BWD_ROWS = 64     # owned rows a block of K5a (queries) and K5b (keys), every route
 
 
-def _bwd_launch(name: str, q, k, v, lengths, lse, delta, do, causal, scale, outs):
-    """Checks shared by K5a and K5b, then the launch of ``name``."""
+# K5a and K5b choose their kernels as K3 does (and the C side the same way):
+# "tma" dq_tma, dkv_tma; "mma" dq_bf16, dkv_bf16; "fma" dq_f32, dkv_f32
+_bwd_route = _route
+
+
+def _bwd_grid(kind: str, b: int, t: int, s: int, h: int, route: str):
+    """K5a's (kind "dq": query tiles of T) or K5b's ("dkv": key tiles of S)
+    grid, BWD_ROWS rows a tile. The TMA route: (heads, lanes, tiles), the
+    tile index slowest, so that the heavy tiles of every head and lane start
+    first (``_bwd_tile_order``); the other routes: (tiles, heads, lanes)."""
+    tiles = -(-(t if kind == "dq" else s) // BWD_ROWS)
+    return (h, b, tiles) if route == "tma" else (tiles, h, b)
+
+
+def _bwd_tile_order(kind: str, tiles: int):
+    """The tile each blockIdx.z takes on the TMA route: K5a the last query
+    tiles first (under causal masking they have the most keys), K5b the
+    first key tiles first (the most queries)."""
+    return list(range(tiles - 1, -1, -1)) if kind == "dq" else list(range(tiles))
+
+
+def _bwd_blocks_per_sm(kind: str, d: int) -> int:
+    """Blocks of K5a's (kind "dq") or K5b's ("dkv") TMA kernel at head dim
+    d that one SM of the current card holds at once (the design's two)."""
+    fn = _build.load("flash_attention_bwd").flash_attention_bwd_blocks_per_sm
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    n = fn(d, int(kind == "dkv"))
+    if n < 0:
+        _build.check(-n, "flash_attention_bwd_blocks_per_sm")
+    return n
+
+
+def _tma_ok(x: torch.Tensor) -> bool:
+    """A TMA map reads x through its strides: rows 16-byte aligned and no
+    broadcast (stride 0) dim, as autograd hands over the gradient of a sum."""
+    return _strided_ok(x) and all(st > 0 for st, n in zip(x.stride(), x.shape) if n > 1)
+
+
+def _bwd_launch(kind: str, q, k, v, lengths, lse, delta, do, causal, scale, outs, out=None):
+    """Checks shared by K5a and K5b, then the launch of K5a (kind "dq") or
+    K5b ("dkv"). With ``out`` (K5a on the TMA route), delta is written."""
     b, t, h, d = q.shape
     s_len = k.shape[1]
     if (k.shape != (b, s_len, h, d) or v.shape != k.shape or do.shape != q.shape
-            or lengths.shape != (b,) or lse.shape != (b, h, t) or delta.shape != (b, h, t)):
+            or lengths.shape != (b,) or lse.shape != (b, h, t) or delta.shape != (b, h, t)
+            or (out is not None and out.shape != q.shape)):
         raise ValueError(f"K5 shapes do not fit: q {q.shape} k {k.shape} v {v.shape} do "
                          f"{do.shape} lengths {lengths.shape} lse {lse.shape} delta "
                          f"{delta.shape}")
     if q.dtype not in (torch.bfloat16, torch.float32) or any(
-            x.dtype != q.dtype for x in (k, v, do)):
+            x.dtype != q.dtype for x in (k, v, do) + (() if out is None else (out,))):
         raise ValueError(f"K5 takes bf16 or f32 q/k/v/do of one dtype: {q.dtype} {k.dtype} "
                          f"{v.dtype} {do.dtype}")
     if d not in BWD_HEAD_DIMS:
         raise ValueError(f"K5 is built for head_dim in {BWD_HEAD_DIMS}: {d}")
-    for x in (q, k, v, do, lengths, lse, delta):
+    route = _bwd_route(q.dtype, d)
+    if out is not None and route != "tma":
+        raise ValueError(f"K5a computes delta only on the TMA route, not {route}")
+    for x in (q, k, v, do, lengths, lse, delta) + (() if out is None else (out,)):
         if not (x.is_cuda and x.device == q.device):
             raise ValueError("K5 takes CUDA tensors on one device")
-    q, k, v, do = (x if _strided_ok(x) else x.contiguous() for x in (q, k, v, do))
+    ok = _tma_ok if route == "tma" else _strided_ok
+    q, k, v, do = (x if ok(x) else x.contiguous() for x in (q, k, v, do))
+    if out is not None and not _strided_ok(out):
+        out = out.contiguous()
     lens = lengths.to(torch.int32).contiguous()
-    lse, delta = lse.float().contiguous(), delta.float().contiguous()
+    lse = lse.float().contiguous()
+    if out is None:
+        delta = delta.float().contiguous()
     scale = float(scale if scale is not None else d ** -0.5)
-    strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                                       *do.stride()[:3])
-    fn = getattr(_build.load("flash_attention_bwd"), name)
+    strides = (ctypes.c_longlong * 15)(*_strides(q), *_strides(k), *_strides(v), *_strides(do),
+                                       *(_strides(out) if out is not None else (0, 0, 0)))
+    fn = getattr(_build.load("flash_attention_bwd"), f"flash_attention_{kind}_launch")
     fn.argtypes = ([ctypes.c_void_p] * (7 + len(outs)) + [ctypes.c_int] * 5
                    + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_float,
-                      ctypes.c_int, ctypes.c_void_p])
+                      ctypes.c_int, ctypes.c_void_p]
+                   + ([ctypes.c_void_p] if kind == "dq" else []))
     fn.restype = ctypes.c_int
+    extra = (None if out is None else out.data_ptr(),) if kind == "dq" else ()
     return fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
               delta.data_ptr(), lens.data_ptr(), *(o.data_ptr() for o in outs), b, t, s_len, h,
               d, strides, int(causal), scale, int(q.dtype == torch.bfloat16),
-              torch.cuda.current_stream(q.device).cuda_stream)
+              torch.cuda.current_stream(q.device).cuda_stream, *extra)
 
 
 def flash_attention_dq_kernel(q, k, v, lengths, lse, delta, do, causal: bool = True,
@@ -305,11 +366,23 @@ def flash_attention_dq_kernel(q, k, v, lengths, lse, delta, do, causal: bool = T
     """K5a on the card; same signature and result as ``flash_attention_dq_plain``.
     q/k/v/do are read through their strides."""
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    rc = _bwd_launch("flash_attention_dq_launch", q, k, v, lengths, lse, delta, do, causal,
-                     scale, (dq,))
+    rc = _bwd_launch("dq", q, k, v, lengths, lse, delta, do, causal, scale, (dq,))
     flash_attention_dq_kernel.launches += 1
     _build.check(rc, "flash_attention_dq_launch")
     return dq
+
+
+def flash_attention_dq_delta_kernel(q, k, v, lengths, lse, out, do, causal: bool = True,
+                                    scale: Optional[float] = None):
+    """K5a with delta folded in (the TMA route only); same signature and
+    result as ``flash_attention_dq_delta_plain``: (dq, delta). Counts as a
+    launch of K5a (``flash_attention_dq_kernel.launches``)."""
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    delta = torch.empty(lse.shape, dtype=torch.float32, device=q.device)
+    rc = _bwd_launch("dq", q, k, v, lengths, lse, delta, do, causal, scale, (dq,), out=out)
+    flash_attention_dq_kernel.launches += 1
+    _build.check(rc, "flash_attention_dq_launch")
+    return dq, delta
 
 
 def flash_attention_dkv_kernel(q, k, v, lengths, lse, delta, do, causal: bool = True,
@@ -317,8 +390,7 @@ def flash_attention_dkv_kernel(q, k, v, lengths, lse, delta, do, causal: bool = 
     """K5b on the card; same signature and result as ``flash_attention_dkv_plain``."""
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    rc = _bwd_launch("flash_attention_dkv_launch", q, k, v, lengths, lse, delta, do, causal,
-                     scale, (dk, dv))
+    rc = _bwd_launch("dkv", q, k, v, lengths, lse, delta, do, causal, scale, (dk, dv))
     flash_attention_dkv_kernel.launches += 1
     _build.check(rc, "flash_attention_dkv_launch")
     return dk, dv
@@ -330,9 +402,14 @@ flash_attention_dkv_kernel.launches = 0
 
 def flash_attention_bwd_kernel(q, k, v, lengths, out, lse, do, causal: bool = True,
                                scale: Optional[float] = None):
-    """The whole backward on the card: delta, then K5a and K5b."""
-    delta = _delta(out, do)
-    dq = flash_attention_dq_kernel(q, k, v, lengths, lse, delta, do, causal, scale)
+    """The whole backward on the card: K5a then K5b. On the TMA route K5a
+    computes delta itself; on the others a PyTorch reduction does first."""
+    if _bwd_route(q.dtype, q.shape[3]) == "tma":
+        dq, delta = flash_attention_dq_delta_kernel(q, k, v, lengths, lse, out, do, causal,
+                                                    scale)
+    else:
+        delta = _delta(out, do)
+        dq = flash_attention_dq_kernel(q, k, v, lengths, lse, delta, do, causal, scale)
     dk, dv = flash_attention_dkv_kernel(q, k, v, lengths, lse, delta, do, causal, scale)
     return dq, dk, dv
 

@@ -231,3 +231,138 @@ def test_kernel_strides_of_views_and_unit_dims():
     one = torch.zeros((1, 1, 1, 64), dtype=torch.bfloat16).expand(1, 1, 1, 64)
     assert tfa._strides(one.as_strided((1, 1, 1, 64), (0, 0, 0, 1))) == (64, 64, 64)
     assert tfa._strides(torch.zeros((1, 5, 2, 16))) == (5 * 2 * 16, 2 * 16, 16)
+
+
+# ------------------------------------------ K5a/K5b's kernel choice and grid
+@pytest.mark.parametrize("dtype,d,want", [
+    (torch.bfloat16, 128, "tma"), (torch.bfloat16, 64, "tma"), (torch.bfloat16, 16, "mma"),
+    (torch.bfloat16, 32, "mma"), (torch.float32, 128, "fma"), (torch.float32, 16, "fma")])
+def test_bwd_route_follows_dtype_and_head_dim(dtype, d, want):
+    assert tfa._bwd_route(dtype, d) == want
+
+
+@pytest.mark.parametrize("kind", ["dq", "dkv"])
+@pytest.mark.parametrize("name,b,t,h", [
+    ("train micro-batch", 2, 600, 32),
+    ("qa binary prefix", 1, 431, 32),
+    ("serve admission", 1, 256, 32)])
+def test_bwd_grid_covers_every_row_once_heaviest_first(kind, name, b, t, h):
+    """The TMA route's grid is (heads, lanes, tiles of 64 rows): every query
+    (K5a) or key (K5b) row lies in exactly one tile, and the tiles launch
+    heaviest first under causal masking, counted in the kernels' own steps
+    (one 64-row tile of the other axis each; K5a: the last query tiles walk
+    the most key tiles, K5b: the first key tiles the most query tiles), so
+    that the light ones fill the last wave."""
+    grid = tfa._bwd_grid(kind, b, t, t, h, "tma")
+    tiles = grid[2]
+    assert grid[:2] == (h, b) and (tiles - 1) * tfa.BWD_ROWS < t <= tiles * tfa.BWD_ROWS
+    order = tfa._bwd_tile_order(kind, tiles)
+    covered = np.zeros(t, int)
+    for z in order:
+        covered[z * tfa.BWD_ROWS:(z + 1) * tfa.BWD_ROWS] += 1
+    assert sorted(order) == list(range(tiles)) and (covered == 1).all()
+
+    def work(z):      # tiles of the other axis that hold a valid pair at full length
+        last = min((z + 1) * tfa.BWD_ROWS, t) - 1
+        return last // tfa.BWD_ROWS + 1 if kind == "dq" else tiles - z
+
+    loads = [work(z) for z in order]
+    assert loads == sorted(loads, reverse=True)
+    assert tfa._bwd_grid(kind, b, t, t, h, "mma") == (tiles, h, b)
+
+
+def test_tma_ok_refuses_broadcast_and_misaligned_rows():
+    """A TMA map takes neither a stride of 0 (autograd's gradient of a sum)
+    nor rows that start off a 16-byte boundary: the wrapper densifies both."""
+    assert tfa._tma_ok(torch.zeros(2, 8, 2, 64, dtype=torch.bfloat16))
+    ones = torch.ones(1, 1, 1, 64, dtype=torch.bfloat16)
+    assert not tfa._tma_ok(ones.expand(2, 8, 2, 64))
+    assert tfa._tma_ok(ones.expand(1, 1, 1, 64))
+    wide = torch.zeros(2, 8, 2 * 64 + 1, dtype=torch.bfloat16)
+    assert not tfa._tma_ok(wide[..., :128].unflatten(-1, (2, 64)))
+
+
+@pytest.mark.parametrize("b,t,h,d,lens,causal,blk", [
+    (1, 64, 2, 64, [64], True, 32),
+    (2, 40, 1, 64, [40, 23], True, 16),      # T not a multiple of 4 after the block
+    (2, 72, 2, 16, [72, 50], False, 32),     # non-causal, the mock's head size
+])
+def test_dq_delta_plain_matches_pallas_bwd(b, t, h, d, lens, causal, blk):
+    """The folded-delta plain twin (K5a's version that computes delta from
+    out) and K5b's plain version against the JAX package's `_flash_bwd`
+    under Pallas interpret mode, fed the JAX forward's own out and lse; f32,
+    the same blocks, the JAX gradient test's atol 2e-4 / rtol 1e-3. delta
+    against rowsum(do * out) in numpy."""
+    from radialog_tpu.ops.flash_attention import _flash_bwd
+    q, k, v = _inputs(b, t, t, h, d, seed=6)
+    do = _loss_weights(b, t, h, d, lens, seed=7)
+    lengths = np.asarray(lens, np.int32)
+    scale = d ** -0.5
+    tp = -(-t // blk) * blk
+
+    def padded(x):
+        return jnp.asarray(np.pad(x, ((0, 0), (0, tp - t), (0, 0), (0, 0))).transpose(0, 2, 1, 3))
+
+    qt, kt, vt, dot = (padded(x) for x in (q, k, v, do))
+    out, lse = _fwd_call(qt, kt, vt, jnp.asarray(lengths), causal, scale, blk, blk, True, True)
+    jdq, jdk, jdv, _ = _flash_bwd(causal, scale, blk, blk, True,
+                                  (qt, kt, vt, jnp.asarray(lengths), out, lse), dot)
+    out_np = np.asarray(out)[:, :, :t].transpose(0, 2, 1, 3)
+    tq, tk, tv, tdo, tout = (torch.from_numpy(np.ascontiguousarray(x))
+                             for x in (q, k, v, do, out_np))
+    tlse = torch.from_numpy(np.ascontiguousarray(np.asarray(lse)[:, :, :t, 0]))
+    tlens = torch.from_numpy(lengths)
+    dq, delta = tfa.flash_attention_dq_delta_plain(tq, tk, tv, tlens, tlse, tout, tdo, causal,
+                                                   bq=blk, bk=blk)
+    dk, dv = tfa.flash_attention_dkv_plain(tq, tk, tv, tlens, tlse, delta, tdo, causal,
+                                           bq=blk, bk=blk)
+    np.testing.assert_allclose(delta.numpy(), (do * out_np).sum(-1).transpose(0, 2, 1),
+                               atol=1e-5, rtol=1e-5)
+    for got, want, name in ((dq, jdq, "dq"), (dk, jdk, "dk"), (dv, jdv, "dv")):
+        want = np.asarray(want)[:, :, :t].transpose(0, 2, 1, 3)
+        np.testing.assert_allclose(got.numpy(), want, atol=2e-4, rtol=1e-3, err_msg=name)
+
+
+@pytest.mark.parametrize("dtype,d,folded", [
+    (torch.bfloat16, 64, True), (torch.bfloat16, 128, True), (torch.bfloat16, 16, False),
+    (torch.float32, 128, False)])
+def test_whole_backward_folds_delta_only_on_the_tma_route(monkeypatch, dtype, d, folded):
+    """``flash_attention_bwd_kernel`` hands K5a the forward's out on the TMA
+    route (K5a computes delta) and a PyTorch delta on the others; with the
+    kernels standing in as their plain versions, it equals the plain
+    backward bit for bit either way."""
+    calls = []
+
+    def stand_in(name, plain):
+        return lambda *a: calls.append(name) or plain(*a)
+
+    monkeypatch.setattr(tfa, "flash_attention_dq_delta_kernel",
+                        stand_in("dq+delta", tfa.flash_attention_dq_delta_plain))
+    monkeypatch.setattr(tfa, "flash_attention_dq_kernel",
+                        stand_in("dq", tfa.flash_attention_dq_plain))
+    monkeypatch.setattr(tfa, "flash_attention_dkv_kernel",
+                        stand_in("dkv", tfa.flash_attention_dkv_plain))
+    q, k, v = (torch.from_numpy(x).to(dtype) for x in _inputs(2, 40, 40, 2, d, seed=8))
+    do = torch.from_numpy(_loss_weights(2, 40, 2, d, [40, 29], seed=9)).to(dtype)
+    lengths = torch.tensor([40, 29], dtype=torch.int32)
+    out, lse = tfa.flash_attention_plain(q, k, v, lengths, with_lse=True)
+    got = tfa.flash_attention_bwd_kernel(q, k, v, lengths, out, lse, do)
+    assert calls == (["dq+delta", "dkv"] if folded else ["dq", "dkv"])
+    for g, w in zip(got, tfa.flash_attention_bwd_plain(q, k, v, lengths, out, lse, do)):
+        assert torch.equal(g, w)
+
+
+def test_backward_kernels_raise_on_cpu_tensors():
+    """The kernel wrappers take CUDA tensors only; on the CPU the dispatching
+    ``flash_attention`` uses the plain versions instead (tested above)."""
+    q = torch.zeros(1, 8, 2, 64, dtype=torch.bfloat16)
+    lens = torch.tensor([8], dtype=torch.int32)
+    stat = torch.zeros(1, 2, 8)
+    for call in (lambda: tfa.flash_attention_dq_delta_kernel(q, q, q, lens, stat, q, q),
+                 lambda: tfa.flash_attention_dq_kernel(q, q, q, lens, stat, stat, q),
+                 lambda: tfa.flash_attention_dkv_kernel(q, q, q, lens, stat, stat, q)):
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
+    with pytest.raises(ValueError, match="TMA route"):
+        tfa.flash_attention_dq_delta_kernel(q.float(), q.float(), q.float(), lens, stat,
+                                            q.float(), q.float())

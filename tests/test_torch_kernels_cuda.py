@@ -177,37 +177,75 @@ def test_flash_attention_tma_kernel_dead_lane(card):
 
 
 K5_CASES = [
-    # b, t, h, d, dtype, causal, lengths (None: full), fused views
-    (2, 600, 32, 128, torch.bfloat16, True, [600, 413], False),   # the training shape
-    (2, 600, 32, 128, torch.bfloat16, True, [600, 413], True),    # the same through views
-    (1, 256, 32, 128, torch.bfloat16, True, None, False),
-    (2, 300, 32, 128, torch.bfloat16, True, [0, 300], True),      # a dead lane beside a live one
-    (2, 200, 8, 64, torch.bfloat16, False, [200, 77], True),      # non-causal, length mask
-    (3, 130, 4, 32, torch.bfloat16, True, [130, 64, 1], False),
-    (2, 300, 4, 16, torch.float32, True, [300, 211], True),       # the mock's shape
-    (2, 100, 2, 128, torch.float32, False, [100, 33], False),
-    (2, 70, 2, 64, torch.float32, True, [0, 70], True),
+    # b, t, h, d, dtype, causal, lengths (None: full), fused views, keys (None: t)
+    (2, 600, 32, 128, torch.bfloat16, True, [600, 413], False, None),   # the training shape
+    (2, 600, 32, 128, torch.bfloat16, True, [600, 413], True, None),    # the same through views
+    (1, 256, 32, 128, torch.bfloat16, True, None, False, None),
+    (2, 300, 32, 128, torch.bfloat16, True, [0, 300], True, None),      # a dead lane beside a live one
+    (2, 200, 8, 64, torch.bfloat16, False, [200, 77], True, None),      # non-causal, length mask
+    (3, 130, 4, 32, torch.bfloat16, True, [130, 64, 1], False, None),
+    (2, 300, 4, 16, torch.float32, True, [300, 211], True, None),       # the mock's shape
+    (2, 100, 2, 128, torch.float32, False, [100, 33], False, None),
+    (2, 70, 2, 64, torch.float32, True, [0, 70], True, None),
+    # the TMA route's tile boundaries: a 64-row stage, 64- and 128-row blocks,
+    # one row past either; T % 4 != 0 (lse and delta rows not 16-byte aligned)
+    (1, 1, 4, 128, torch.bfloat16, False, [64], False, 64),             # one query, 64 keys
+    (2, 1, 4, 64, torch.bfloat16, False, [129, 50], True, 129),
+    (2, 63, 4, 128, torch.bfloat16, True, [63, 40], True, None),
+    (2, 63, 4, 64, torch.bfloat16, False, [63, 40], False, None),
+    (2, 65, 4, 128, torch.bfloat16, True, [65, 33], False, None),
+    (2, 65, 4, 64, torch.bfloat16, False, [65, 33], True, None),
+    (2, 127, 4, 64, torch.bfloat16, True, [127, 64], True, None),
+    (2, 127, 4, 128, torch.bfloat16, False, [127, 64], False, None),
+    (2, 129, 4, 128, torch.bfloat16, True, [129, 0], True, None),
+    (2, 129, 4, 64, torch.bfloat16, False, [129, 128], False, None),
+    (1, 431, 32, 128, torch.bfloat16, True, None, True, None),          # the qa prefix length
+    (2, 600, 32, 64, torch.bfloat16, True, [600, 413], False, None),    # D = 64 at the train shape
+    (2, 300, 4, 16, torch.bfloat16, True, [300, 211], True, None),      # the mma.sync route
 ]
 
 
-def k5_inputs(card, b, t, h, d, dtype, lens, fused, seed):
+def k5_inputs(card, b, t, h, d, dtype, lens, fused, seed, s=None):
+    s = s or t
     g = torch.Generator(device=card).manual_seed(seed)
-    if fused:   # q, k, v as strided views of one fused projection
+    if fused and s == t:   # q, k, v as strided views of one fused projection
         qkv = torch.randn((b, t, 3, h, d), generator=g, device=card).to(dtype)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    elif fused:            # k and v as views of one fused projection of S rows
+        q = torch.randn((b, t, h, d), generator=g, device=card).to(dtype)
+        kv = torch.randn((b, s, 2, h, d), generator=g, device=card).to(dtype)
+        k, v = kv[:, :, 0], kv[:, :, 1]
     else:
-        q, k, v = (torch.randn((b, t, h, d), generator=g, device=card).to(dtype)
-                   for _ in range(3))
+        q = torch.randn((b, t, h, d), generator=g, device=card).to(dtype)
+        k, v = (torch.randn((b, s, h, d), generator=g, device=card).to(dtype)
+                for _ in range(2))
     do = torch.randn((b, t, h, d), generator=g, device=card).to(dtype)
-    lengths = torch.tensor(lens if lens is not None else [t] * b, dtype=torch.int32,
+    lengths = torch.tensor(lens if lens is not None else [s] * b, dtype=torch.int32,
                            device=card)
     return q, k, v, do, lengths
 
 
-@pytest.mark.parametrize("b,t,h,d,dtype,causal,lens,fused", K5_CASES)
+def assert_k5_close(dtype, lengths, got, want):
+    """dq, dk, dv each within K5_TOL of its own largest reference value, in
+    the input dtype, dense, finite, and zero past each lane's length (dk,
+    dv) or in a dead lane (all three)."""
+    rel = 8e-3 if dtype == torch.bfloat16 else 1e-5
+    for name, g, r in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == dtype and g.shape == r.shape and g.is_contiguous()
+        assert torch.isfinite(g.float()).all(), name
+        err = float((g.float() - r.float()).abs().max())
+        assert err <= rel * float(r.float().abs().max()), (name, err)
+    dq, dk, dv = got
+    for i, n in enumerate(lengths.tolist()):
+        assert not dk[i, n:].any() and not dv[i, n:].any()       # rows past the length
+        if n == 0:
+            assert not dq[i].any()                                # a dead lane
+
+
+@pytest.mark.parametrize("b,t,h,d,dtype,causal,lens,fused,s", K5_CASES)
 def test_flash_attention_backward_kernels_match_plain(card, b, t, h, d, dtype, causal, lens,
-                                                      fused):
-    q, k, v, do, lengths = k5_inputs(card, b, t, h, d, dtype, lens, fused, seed=t + d)
+                                                      fused, s):
+    q, k, v, do, lengths = k5_inputs(card, b, t, h, d, dtype, lens, fused, seed=t + d, s=s)
     out, lse = tfa.flash_attention_plain(q, k, v, lengths, causal=causal, with_lse=True)
     delta = tfa._delta(out, do)
     args = (q, k, v, lengths, lse, delta, do, causal, None)
@@ -217,22 +255,59 @@ def test_flash_attention_backward_kernels_match_plain(card, b, t, h, d, dtype, c
     torch.cuda.synchronize()
     assert (tfa.flash_attention_dq_kernel.launches,
             tfa.flash_attention_dkv_kernel.launches) == (before[0] + 1, before[1] + 1)
-    ref_dq = tfa.flash_attention_dq_plain(*args)
-    ref_dk, ref_dv = tfa.flash_attention_dkv_plain(*args)
-    rel = 8e-3 if dtype == torch.bfloat16 else 1e-5
-    for name, got, ref in (("dq", dq, ref_dq), ("dk", dk, ref_dk), ("dv", dv, ref_dv)):
-        assert got.dtype == dtype and got.shape == ref.shape and got.is_contiguous()
-        assert torch.isfinite(got.float()).all(), name
-        err = float((got.float() - ref.float()).abs().max())
-        assert err <= rel * float(ref.float().abs().max()), (name, err)
-    for i, n in enumerate(lengths.tolist()):
-        assert not dk[i, n:].any() and not dv[i, n:].any()       # rows past the length
-        if n == 0:
-            assert not dq[i].any()                                # a dead lane
+    ref = (tfa.flash_attention_dq_plain(*args), *tfa.flash_attention_dkv_plain(*args))
+    assert_k5_close(dtype, lengths, (dq, dk, dv), ref)
     # no float atomics: a second run repeats the first bit for bit
     assert torch.equal(dq, tfa.flash_attention_dq_kernel(*args))
     dk2, dv2 = tfa.flash_attention_dkv_kernel(*args)
     assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+
+
+@pytest.mark.parametrize("b,t,h,d,causal,lens,s", [
+    (2, 600, 32, 128, True, [600, 413], None),
+    (2, 129, 4, 64, True, [129, 0], None),
+    (2, 63, 4, 128, False, [63, 40], None),
+    (1, 1, 4, 128, False, [64], 64),
+    (1, 431, 8, 128, True, None, None)])
+def test_flash_attention_whole_backward_folds_delta(card, b, t, h, d, causal, lens, s):
+    """On the TMA route K5a computes delta = rowsum(do * out) itself: the
+    whole backward launches K5a and K5b once each and matches the plain
+    backward within K5_TOL, repeatably; delta matches the PyTorch reduction
+    up to the order of its f32 sum (rtol 1e-5 of a sum of D products)."""
+    q, k, v, do, lengths = k5_inputs(card, b, t, h, d, torch.bfloat16, lens, True, seed=t, s=s)
+    out, lse = tfa.flash_attention_plain(q, k, v, lengths, causal=causal, with_lse=True)
+    assert tfa._bwd_route(q.dtype, d) == "tma"
+    before = (tfa.flash_attention_dq_kernel.launches, tfa.flash_attention_dkv_kernel.launches)
+    got = tfa.flash_attention_bwd_kernel(q, k, v, lengths, out, lse, do, causal)
+    dq, delta = tfa.flash_attention_dq_delta_kernel(q, k, v, lengths, lse, out, do, causal)
+    torch.cuda.synchronize()
+    assert (tfa.flash_attention_dq_kernel.launches,
+            tfa.flash_attention_dkv_kernel.launches) == (before[0] + 2, before[1] + 1)
+    want_dq, want_delta = tfa.flash_attention_dq_delta_plain(q, k, v, lengths, lse, out, do,
+                                                             causal)
+    torch.testing.assert_close(delta, want_delta, rtol=1e-5,
+                               atol=1e-5 * float(want_delta.abs().max()))
+    assert torch.equal(dq, got[0])
+    ref = tfa.flash_attention_bwd_plain(q, k, v, lengths, out, lse, do, causal)
+    assert_k5_close(torch.bfloat16, lengths, got, ref)
+    again = tfa.flash_attention_bwd_kernel(q, k, v, lengths, out, lse, do, causal)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+def test_flash_attention_tma_backward_raises_rather_than_falls_back(card, monkeypatch):
+    """A tensor the TMA route cannot take (rows 2 bytes past a 16-byte
+    multiple, let through by a wrapper told every layout is fine) makes the
+    launch raise: the C side refuses the tensor map and runs no other
+    kernel."""
+    b, t, h, d = 1, 64, 2, 128
+    wide = torch.randn((b, t, h * d + 1), device=card).to(torch.bfloat16)
+    q = wide[..., :h * d].unflatten(-1, (h, d))
+    lengths = torch.tensor([t], dtype=torch.int32, device=card)
+    stat = torch.zeros((b, h, t), device=card)
+    monkeypatch.setattr(tfa, "_tma_ok", lambda x: True)
+    for launch in (tfa.flash_attention_dq_kernel, tfa.flash_attention_dkv_kernel):
+        with pytest.raises(RuntimeError, match="cuTensorMapEncodeTiled"):
+            launch(q, q, q, lengths, stat, stat, q)
 
 
 def test_flash_attention_autograd_runs_the_kernels(card):
@@ -253,6 +328,20 @@ def test_flash_attention_autograd_runs_the_kernels(card):
         torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
 
 
+def test_flash_attention_autograd_tma_route_with_a_summed_loss(card):
+    """bf16 at D = 128 through autograd with the gradient of a sum (a
+    broadcast do, strides 0): the TMA route makes it dense and agrees with
+    the plain backward."""
+    q, k, v, _, lengths = k5_inputs(card, 2, 130, 4, 128, torch.bfloat16, [130, 77], True, 5)
+    qkv = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    grads = torch.autograd.grad(tfa.flash_attention(*qkv, lengths).float().sum(), qkv)
+    ref_out, lse = tfa.flash_attention_plain(q, k, v, lengths, with_lse=True)
+    ones = torch.ones_like(q)
+    ref = tfa.flash_attention_bwd_plain(q, k, v, lengths, ref_out, lse, ones)
+    torch.cuda.synchronize()
+    assert_k5_close(torch.bfloat16, lengths, grads, ref)
+
+
 def test_flash_attention_backward_refuses_what_it_does_not_take(card):
     q = torch.zeros((1, 8, 2, 48), device=card)
     lens = torch.tensor([8], dtype=torch.int32, device=card)
@@ -264,6 +353,8 @@ def test_flash_attention_backward_refuses_what_it_does_not_take(card):
         tfa.flash_attention_dkv_kernel(q, q, q, lens, stat[:, :, :4], stat, q)
     with pytest.raises(ValueError, match="one dtype"):
         tfa.flash_attention_dq_kernel(q, q, q.bfloat16(), lens, stat, stat, q)
+    with pytest.raises(ValueError, match="TMA route"):     # delta is folded only there
+        tfa.flash_attention_dq_delta_kernel(q, q, q, lens, stat, q, q)
 
 
 def ring_interval_cases(p, ring, device):
