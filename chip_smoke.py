@@ -25,7 +25,10 @@ each; any failing phase exits non-zero:
           in b1's block and at the last slot S - 1, the slot zeroed first:
           within K2_TOL of its plain version and of K2 on the cache with the
           row in place, the row bitwise, every other byte of the four buffers
-          unchanged; times
+          unchanged; each case run twice, bitwise equal, its launch plan
+          printed (ops/flash_decode.py _plan: splits, prefix tiles, warps,
+          loads); times, prefix_kernel and lane_kernel apart on the card's
+          clock, and with the L2 flushed by a read
   tproto  the TPU microbench tools' prototypes: T1 (K2 over one interleaved
           k|v buffer) bitwise equal to K2 and within K2_TOL of its plain
           version at tools/microbench_kvfused.py's defaults; T2 and T3
@@ -306,6 +309,35 @@ def _k2_bound(b, h, d, rows, prefix_rows, written_rows=0):
     return max(b_bytes, b_ops), "bytes" if b_bytes >= b_ops else "operations"
 
 
+def _read_flush(torch):
+    """Flush the 50 MB L2 by reading 64 MB: unlike flush(), which writes,
+    it leaves no dirty lines to be written back while the next kernel
+    reads."""
+    buf = getattr(_read_flush, "buf", None)
+    if buf is None:
+        buf = _read_flush.buf = torch.zeros(16 * 1024 * 1024, device="cuda")
+    buf.amax()
+
+
+def _k2_repeat_plan(torch, tfd, fn, first, b, s, d, p0, flush):
+    """A K2 case's second run, which must equal the first bit for bit; its
+    launch plan (ops/flash_decode.py ``_plan``: splits per (head, lane),
+    blocks of bs slots per split, warps, bytes and threads per head row,
+    rows per warp chunk; ``_prefix_plan``); the card's own time of
+    prefix_kernel and lane_kernel in fn() (torch.profiler); and fn's time
+    with the L2 flushed by a read (``_read_flush``)."""
+    again = fn()
+    torch.cuda.synchronize()
+    if not torch.equal(again, first):
+        raise AssertionError(f"K2 B={b} S={s}: a second run differs bitwise")
+    plan = dataclasses.asdict(tfd._plan(b, 32, d, s, tfd.default_bs(s)))
+    plan["prefix_tiles"], plan["prefix_sub_tiles"] = tfd._prefix_plan(p0)
+    return {"plan": plan, "bitwise_repeat": True,
+            "prefix_device_ms": _device_ms(torch, fn, flush, "prefix_kernel") if p0 else None,
+            "lane_device_ms": _device_ms(torch, fn, flush, "lane_kernel"),
+            "read_flush_ms": timed_ms(fn, 20, lambda: _read_flush(torch))}
+
+
 def _k2c_check(torch, tfd, flush, cache, q8, qs, lens, t1, step, layer, shared, p0, k2_out):
     """K2'' at slot t1 + step of ``layer``: the row is taken from the cache
     as it stands, that slot is zeroed in every layer, and the kernel attends
@@ -338,6 +370,8 @@ def _k2c_check(torch, tfd, flush, cache, q8, qs, lens, t1, step, layer, shared, 
         raise AssertionError(f"K2'' step {step}: non-finite output")
     torch.testing.assert_close(got, ref, **K2_TOL)
     torch.testing.assert_close(got, k2_out, **K2_TOL)
+    extra = _k2_repeat_plan(torch, tfd, lambda: tfd.flash_decode_int8_current_kernel(*args, **kw),
+                            got, b, cache[0].shape[2], d, p0 if shared is not None else 0, flush)
     ms = timed_ms(lambda: tfd.flash_decode_int8_current_kernel(*args, **kw), 20, flush)
     plain_ms = timed_ms(lambda: tfd.flash_decode_int8_plain(*args, **kw), 3, flush)
     # lane rows read from the cache (the slot row comes from the operand),
@@ -346,7 +380,7 @@ def _k2c_check(torch, tfd, flush, cache, q8, qs, lens, t1, step, layer, shared, 
     bound, by = _k2_bound(b, h, d, rows + b, p0 if shared is not None else 0, written_rows=b)
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
             "max_abs_err": float((got - ref).abs().max()),
-            "max_abs_err_vs_k2": float((got - k2_out).abs().max())}
+            "max_abs_err_vs_k2": float((got - k2_out).abs().max()), **extra}
 
 
 def _k2_case(torch, tfd, flush, b, s, p0, t1, steps, seed, current=()):
@@ -383,6 +417,9 @@ def _k2_case(torch, tfd, flush, b, s, p0, t1, steps, seed, current=()):
             raise AssertionError(f"K2 step {step}: non-finite output")
         torch.testing.assert_close(got, ref, **K2_TOL)
         err = float((got - ref).abs().max())
+        extra = _k2_repeat_plan(torch, tfd,
+                                lambda: tfd.flash_decode_int8_kernel(*args, shared=shared, p0=p0),
+                                got, b, s, d, p0, flush)
         ms = timed_ms(lambda: tfd.flash_decode_int8_kernel(*args, shared=shared, p0=p0), 20,
                       flush)
         plain_ms = timed_ms(lambda: tfd.flash_decode_int8_plain(*args, shared=shared, p0=p0),
@@ -392,10 +429,10 @@ def _k2_case(torch, tfd, flush, b, s, p0, t1, steps, seed, current=()):
         # and out once
         bound, by = _k2_bound(b, h, d, int(lens.long().sum()) + b * (step + 1), p0)
         out[step] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-                     "max_abs_err": err}
+                     "max_abs_err": err, **extra}
         emit("k2", batch=b, prefix_rows=p0p, step=step, max_abs_err=err, kernel_ms=ms,
              plain_ms=plain_ms, library_ms=None, bound_ms=bound, bound_by=by,
-             roofline_share=bound / ms)
+             roofline_share=bound / ms, **extra)
         if step in current:
             c = out_c[step] = _k2c_check(torch, tfd, flush, [k8, ks, v8, vs], q8, qs, lens, t1,
                                          step, layer, shared, p0, got)
@@ -466,6 +503,8 @@ def _k2_ring_case(torch, tfd, flush):
         raise AssertionError("K2 intervals: a lane with no valid slot must give zeros")
     torch.testing.assert_close(got, ref, **K2_TOL)
     err = float((got - ref).abs().max())
+    extra = _k2_repeat_plan(torch, tfd, lambda: tfd.flash_decode_int8_kernel(*args), got, b, s,
+                            d, 0, flush)
     ms = timed_ms(lambda: tfd.flash_decode_int8_kernel(*args), 20, flush)
     plain_ms = timed_ms(lambda: tfd.flash_decode_int8_plain(*args), 3, flush)
     # bytes this run's data needs: each lane's valid rows (K, V, both
@@ -476,11 +515,12 @@ def _k2_ring_case(torch, tfd, flush):
     b_bytes = (rows * (2 * h * d + 4 * h) + 2 * 4 * b * h * d) / HBM_BYTES_PER_S * 1e3
     b_ops = 4 * rows * h * d / INT8_OPS_PER_S * 1e3
     out = {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(b_bytes, b_ops),
-           "bound_by": "bytes" if b_bytes >= b_ops else "operations", "max_abs_err": err}
+           "bound_by": "bytes" if b_bytes >= b_ops else "operations", "max_abs_err": err,
+           **extra}
     emit("k2", mode="ring intervals", batch=b, slots=s, valid_rows=rows,
          bs=tfd.default_bs(s), max_abs_err=err, kernel_ms=ms, plain_ms=plain_ms,
          library_ms=None, bound_ms=out["bound_ms"], bound_by=out["bound_by"],
-         roofline_share=out["bound_ms"] / ms)
+         roofline_share=out["bound_ms"] / ms, **extra)
     return out
 
 
@@ -495,10 +535,15 @@ def phase_k2(torch, tfd, flush):
     qa = _k2_case(torch, tfd, flush, 14, 128, 427, 8, (0, 9), seed=4)
     summary = dict(report[150])
     summary["max_abs_err"] = max(r["max_abs_err"] for r in [*report.values(), *qa.values()])
+    for key in ("ms", "plain_ms", "bound_ms", "prefix_device_ms", "lane_device_ms",
+                "read_flush_ms"):
+        summary[f"{key}_qa"] = qa[9][key]
+    ring = _k2_ring_case(torch, tfd, flush)
     summary_c = dict(current[150])
     summary_c["max_abs_err"] = max(_k2c_awkward(torch, tfd, flush),
                                    *(c["max_abs_err"] for c in current.values()))
-    return summary, _k2_ring_case(torch, tfd, flush), summary_c
+    _read_flush.buf = None
+    return summary, ring, summary_c
 
 
 def phase_k4(torch, tq4, flush):
@@ -1910,14 +1955,22 @@ def main() -> int:
          "launches": launches["flash_decode_int8"], "max_abs_err": k2["max_abs_err"],
          "ms": k2["ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
          "bound_by": k2["bound_by"], "library_ms": None,
-         "work": "one layer at decode step 150, B=56, S=384, P0=48"},
+         **{k: v for k, v in k2.items() if k.endswith(("_qa", "device_ms", "read_flush_ms"))
+            or k == "plan"},
+         "launches_qa": qa_launches["flash_decode_int8"],
+         "work": "one layer at decode step 150, B=56, S=384, P0=48; prefix_device_ms and "
+                 "lane_device_ms: the card's own time of the two kernels; read_flush_ms: the "
+                 "L2 flushed by a read; *_qa: the binary-QA pass's shape, B=14, 427 of 448 "
+                 "prefix rows, S=128, step 9, and the qa phase's launches"},
         {"name": "flash_decode_int8_intervals", "route": "cuda",
          "source": "radialog_tpu_torch/csrc/flash_decode.cu",
          "replaces": "radialog_tpu/ops/flash_decode.py:521",
          "launches": serve_launches["flash_decode_int8"],
          "max_abs_err": k2_ring["max_abs_err"], "ms": k2_ring["ms"],
          "plain_ms": k2_ring["plain_ms"], "bound_ms": k2_ring["bound_ms"],
-         "bound_by": k2_ring["bound_by"], "library_ms": None,
+         "bound_by": k2_ring["bound_by"], "library_ms": None, "plan": k2_ring["plan"],
+         "lane_device_ms": k2_ring["lane_device_ms"],
+         "read_flush_ms": k2_ring["read_flush_ms"],
          "work": "one layer, the ring's per-lane slot intervals, no prefix, B=16, S=384, "
                  "prompts of 100-256 rows; launches of the serve phase (W8A8)"},
         {"name": "flash_attention", "route": "cuda",

@@ -17,10 +17,23 @@ The math (the TPU kernel's ``_process_block``):
   scores = float(q8 . k8, exact int32) * ks * qs * D^-1/2, masked to -1e30
   online softmax in f32; pv = bf16(p * vs); acc += pv @ bf16(v8) in f32
   out = acc * (1 / max(l, 1e-30))
+
+On the card a call is one launch of csrc/flash_decode.cu's ``lane_kernel``,
+behind one of ``prefix_kernel`` where a shared prefix has live rows. How the
+kernels cover the cache (``_plan``: splits of a (head, lane) over a
+thread-block cluster, the loads of a row; ``_prefix_plan``: tiles of the
+prefix) is a function of the shapes alone; the wrapper never reads the
+lengths or intervals on the host. The kernels compute every p and pv
+against the plain version's own running max (the prefix's, then block by
+block of ``bs`` slots), so only the order of the f32 sums differs: they
+agree with the plain version to a few ulp, well within K2's tolerance, and
+repeat themselves bit for bit.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -102,7 +115,9 @@ def flash_decode_int8_plain(q8, qs, k8, ks, v8, vs, masks, layer_idx: int,
     kcs, vc, vcs) the step's own row, (B,1,H*D) int8 and (B,1,SLc) scales,
     attended after the prefix and before the lane's blocks; write_cache
     stores it at slot b1 + 1 of each lane in layer ``layer_idx``, in place,
-    and nothing else. Returns (B,H,D) f32."""
+    and nothing else. A block of ``bs`` slots where no lane has a valid slot
+    is not walked, which changes nothing: it would leave (m, l, acc) as they
+    were (m_new = m, alpha = 1, p = 0). Returns (B,H,D) f32."""
     b, h, d = q8.shape
     s_len = k8.shape[2]
     dev = q8.device
@@ -119,18 +134,20 @@ def flash_decode_int8_plain(q8, qs, k8, ks, v8, vs, masks, layer_idx: int,
     if current is not None:
         state = _current_block(state, q32, qs, scale, current, h, d)
     lens, a1, b1, a2, b2 = masks
-    live = int(torch.maximum(torch.maximum(lens - 1, b1), b2).max())
-    nblk = 0 if live < 0 else min(live // bs + 1, s_len // bs)
+    pos = torch.arange(s_len, device=dev)[None, :]
+    valid = ((pos < lens[:, None]) | ((pos >= a1[:, None]) & (pos <= b1[:, None]))
+             | ((pos >= a2[:, None]) & (pos <= b2[:, None])))[..., None]       # (B,S,1)
+    nblk = s_len // bs
+    walk = valid.reshape(b, nblk, bs).any(dim=2).any(dim=0).tolist()
     k_l, v_l = k8[layer_idx], v8[layer_idx]
     ks_l, vs_l = ks[layer_idx], vs[layer_idx]
     for i in range(nblk):
+        if not walk[i]:
+            continue
         rows = slice(i * bs, (i + 1) * bs)
-        pos = torch.arange(i * bs, (i + 1) * bs, device=dev)[None, :]
-        valid = ((pos < lens[:, None]) | ((pos >= a1[:, None]) & (pos <= b1[:, None]))
-                 | ((pos >= a2[:, None]) & (pos <= b2[:, None])))[..., None]
         state = _block(state, q32, qs, scale, k_l[:, rows].reshape(b, bs, h, d),
                        ks_l[:, rows, :h].float(), v_l[:, rows].reshape(b, bs, h, d),
-                       vs_l[:, rows, :h].float(), valid)
+                       vs_l[:, rows, :h].float(), valid[:, rows])
     _, l, acc = state
     if write_cache:
         kc, kcs, vc, vcs = current
@@ -143,9 +160,67 @@ def flash_decode_int8_plain(q8, qs, k8, ks, v8, vs, masks, layer_idx: int,
     return acc * (1.0 / torch.clamp(l, min=1e-30))[..., None]
 
 
-_ARGTYPES = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 7
-             + [ctypes.c_int] * 2 + [ctypes.c_void_p] + [ctypes.c_int] * 8
+_ARGTYPES = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 7
+             + [ctypes.c_int] * 2 + [ctypes.c_void_p] + [ctypes.c_int] * 11
              + [ctypes.c_float, ctypes.c_void_p])
+
+SMS = 132              # streaming multiprocessors of an H100 SXM
+BLOCKS_PER_SM = 8      # lane-kernel blocks an SM holds (csrc/flash_decode.cu LANE_BLOCKS)
+MAX_SPLITS = 8         # the portable thread-block cluster size
+WARPS, CHUNK = 4, 16   # a lane-kernel block's warps, and the rows a warp loads at once
+PREFIX_TILE = 64       # prefix rows of a prefix-kernel block
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How csrc/flash_decode.cu's ``lane_kernel`` covers the cache: each
+    (head, lane) is a cluster of ``splits`` blocks, split i over the ``per``
+    blocks of ``bs`` slots from i * per; each of the ``warps`` warps of a
+    block takes ``chunk``-row chunks in turn, ``tpr`` threads a head row,
+    ``vec`` bytes each (16, or 4 where D % 16 != 0)."""
+    splits: int
+    per: int
+    bs: int
+    warps: int
+    vec: int
+    tpr: int
+    chunk: int
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(b: int, h: int, d: int, s_len: int, bs: int) -> Plan:
+    """The lane kernel's plan, a function of the shapes alone (never of the
+    lengths or intervals, which stay on the card): split a (head, lane)'s
+    S / bs blocks of slots over as many blocks (at most MAX_SPLITS, never an
+    empty one) as it takes for B * H * splits to reach BLOCKS_PER_SM blocks
+    on each of the SMS multiprocessors. A split past a lane's live bound
+    reads nothing and leaves the empty state, which merges exactly."""
+    nblk = s_len // bs
+    want = -(-SMS * BLOCKS_PER_SM // (b * h))
+    splits = max(1, min(MAX_SPLITS, nblk, want))
+    per = -(-nblk // splits)
+    splits = -(-nblk // per)
+    vec = 16 if d % 16 == 0 else 4
+    tpr = 1
+    while tpr * vec < d:
+        tpr *= 2
+    rows = 32 // tpr
+    return Plan(splits=splits, per=per, bs=bs, warps=WARPS, vec=vec, tpr=tpr,
+                chunk=max(rows, CHUNK))
+
+
+def _prefix_plan(p0: int) -> Tuple[int, int]:
+    """prefix_kernel's (tiles, sub-tiles a tile) over the p0 live prefix rows,
+    in sub-tiles of PREFIX_TILE rows: at most MAX_SPLITS tiles, one cluster
+    per (head, group of 16 lanes), so that the tiles can share the prefix's
+    max score. No tile for p0 = 0 (rows past p0 are masked)."""
+    n = -(-int(p0) // PREFIX_TILE)
+    sub = max(1, -(-n // MAX_SPLITS))
+    return -(-n // sub), sub
+
+
+def _aligned16(*tensors) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def _launch(q8, qs, k, ks, v, vs, masks, layer_idx: int, scale: float, bs: int,
@@ -154,7 +229,9 @@ def _launch(q8, qs, k, ks, v, vs, masks, layer_idx: int, scale: float, bs: int,
     """Checks what every mode of the kernel shares and launches it on q8's
     stream: k/v hold the layer's rows kv_stride bytes apart, ks/vs its
     scales sl elements apart (k, ks, v, vs are tensors whose data pointers
-    are the first row's). Returns (CUDA error code, out (B,H,D) f32)."""
+    are the first row's). One launch, two with a live shared prefix; no
+    read of the masks on the host. Returns (CUDA error code, out (B,H,D)
+    f32)."""
     b, h, d = q8.shape
     if d % 4 or d > 128 or sl < h:
         raise ValueError(f"K2 needs head_dim % 4 == 0, <= 128 and SL >= H: {d}, {sl}")
@@ -173,20 +250,27 @@ def _launch(q8, qs, k, ks, v, vs, masks, layer_idx: int, scale: float, bs: int,
     if any(m.dtype != torch.int32 or m.shape != (b,) for m in masks) \
             or qs.dtype != torch.float32:
         raise ValueError("K2 takes (B,) int32 masks and f32 q scales")
+    plan = _plan(b, h, d, s_len, bs)
+    # 16-byte loads need every row segment (q, K, V, the prefix) 16-byte aligned
+    aligned = kv_stride % 16 == 0 and _aligned16(q8, k, v, *(shared or ())[::2])
+    vec = plan.vec if aligned else 4
     out = torch.empty((b, h, d), dtype=torch.float32, device=q8.device)
+    tiles = 0
     if shared is not None:
         k0, ks0, v0, vs0 = shared
         p0p, sl0 = k0.shape[0], ks0.shape[-1]
         if k0.shape != (p0p, h * d) or v0.shape != k0.shape or vs0.shape != ks0.shape \
                 or sl0 < h or ks0.dtype != torch.bfloat16 or vs0.dtype != torch.bfloat16:
             raise ValueError(f"bad shared prefix {k0.shape} {ks0.shape}")
-        pm = torch.empty((b, h), dtype=torch.float32, device=q8.device)
+        tiles, sub = _prefix_plan(min(p0, p0p))
+    if tiles:
+        pm = torch.empty((tiles, b, h), dtype=torch.float32, device=q8.device)
         pl = torch.empty_like(pm)
-        pacc = torch.empty((b, h, d), dtype=torch.float32, device=q8.device)
-        pre = [k0.data_ptr(), ks0.data_ptr(), v0.data_ptr(), vs0.data_ptr(), int(p0), p0p, sl0,
-               pm.data_ptr(), pl.data_ptr(), pacc.data_ptr()]
+        pacc = torch.empty((tiles, b, h, d), dtype=torch.float32, device=q8.device)
+        pre = [k0.data_ptr(), ks0.data_ptr(), v0.data_ptr(), vs0.data_ptr(), min(p0, p0p), p0p,
+               sl0, tiles, sub, pm.data_ptr(), pl.data_ptr(), pacc.data_ptr()]
     else:
-        pre = [None] * 4 + [0, 0, 0] + [None] * 3
+        pre = [None] * 4 + [0] * 5 + [None] * 3
     if current is not None:
         kc, kcs, vc, vcs = current
         slc = kcs.shape[-1]
@@ -206,7 +290,7 @@ def _launch(q8, qs, k, ks, v, vs, masks, layer_idx: int, scale: float, bs: int,
     fn.restype = ctypes.c_int
     rc = fn(q8.data_ptr(), qs.data_ptr(), k.data_ptr(), ks.data_ptr(), v.data_ptr(),
             vs.data_ptr(), *[m.data_ptr() for m in masks], *pre, *cur, out.data_ptr(),
-            layer_idx, b, s_len, h, d, sl, kv_stride, bs, scale,
+            layer_idx, b, s_len, h, d, sl, kv_stride, plan.splits, plan.per * bs, bs, vec, scale,
             torch.cuda.current_stream(q8.device).cuda_stream)
     return rc, out
 

@@ -4,7 +4,10 @@ Imports torch and the port only (no JAX), so it runs on a machine with a
 GPU and no JAX: ``pytest -m cuda tests/test_torch_kernels_cuda.py``. Without
 a card every test skips. K1 is held bitwise; K2 at atol=rtol=2e-3 (f32 sums
 in another order, and pv rounds to bf16 where an ulp of p can flip it), in
-the static-slot mode and with the ring's per-lane slot intervals; K4 bitwise
+the static-slot mode and with the ring's per-lane slot intervals, under
+split plans (a (head, lane) over a cluster of up to 8 blocks), over shared
+prefixes of 1 to 2000 rows, at D of 4 to 128, each run twice and bitwise
+equal; K4 bitwise
 (each group's integer sum is exact and the kernel adds the groups in the
 plain version's order with single rounded f32 operations); K2'' (the
 current row attended and written in place) at K2's tolerance with its row
@@ -81,7 +84,7 @@ def test_flash_decode_kernel_matches_plain(card, step, shared, hb, db):
     lens = torch.randint(0, 80, (lb,), generator=g, device=card, dtype=torch.int32)
     q8, qs = tfd.quantize_q(q)
     args = (q8, qs, k8, ks, v8, vs, tfd.slot_masks(lens, 80, step), 1, db ** -0.5, 64)
-    got = tfd.flash_decode_int8_kernel(*args, shared=pre, p0=48)
+    got = _k2_twice(lambda: tfd.flash_decode_int8_kernel(*args, shared=pre, p0=48))
     ref = tfd.flash_decode_int8_plain(*args, shared=pre, p0=48)
     torch.cuda.synchronize()
     assert torch.isfinite(got).all()
@@ -106,11 +109,104 @@ def test_flash_decode_kernel_long_shared_prefix(card, p0):
     q8, qs = tfd.quantize_q(torch.randn((lb, h, d), generator=g, device=card))
     lens = torch.tensor([5, 0, 17, 9], dtype=torch.int32, device=card)
     args = (q8, qs, k8, ks, v8, vs, tfd.slot_masks(lens, 20, 3), 1, d ** -0.5, 64)
-    got = tfd.flash_decode_int8_kernel(*args, shared=pre, p0=p0)
+    got = _k2_twice(lambda: tfd.flash_decode_int8_kernel(*args, shared=pre, p0=p0))
     ref = tfd.flash_decode_int8_plain(*args, shared=pre, p0=p0)
     torch.cuda.synchronize()
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, ref, atol=2e-3, rtol=2e-3)
+
+
+def _k2_twice(fn):
+    """fn() run twice: the second run must equal the first bit for bit."""
+    first = fn()
+    again = fn()
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+    return first
+
+
+# (lanes, heads, head dim, slots, shared prefix rows): split plans at small
+# B x H with long lanes (up to 8 blocks a (head, lane), one cluster); prefixes
+# of 1, 64, 427 and 2000 rows (1 to 32 prefix tiles); D = 16 (the mock's), and
+# the 4-byte route's D = 12 and D = 4; D = 96 (threads of a row group idle)
+@pytest.mark.parametrize("b,h,d,s,p0", [(2, 4, 128, 512, 0), (3, 8, 128, 384, 1),
+                                        (3, 8, 128, 384, 64), (14, 32, 128, 128, 427),
+                                        (2, 4, 128, 256, 2000), (5, 4, 16, 128, 48),
+                                        (3, 4, 12, 96, 20), (2, 2, 4, 64, 0),
+                                        (4, 8, 96, 256, 70)])
+def test_flash_decode_kernel_plans(card, b, h, d, s, p0):
+    g = torch.Generator(device=card).manual_seed(b * s + p0)
+    k8, ks, v8, vs = _int8_cache(g, card, 2, b, s, h, d)
+    p0p = -(-p0 // 32) * 32
+    pre = ((torch.randint(-127, 128, (p0p, h * d), generator=g, device=card, dtype=torch.int8),
+            (torch.rand((p0p, h), generator=g, device=card) / 50).to(torch.bfloat16),
+            torch.randint(-127, 128, (p0p, h * d), generator=g, device=card, dtype=torch.int8),
+            (torch.rand((p0p, h), generator=g, device=card) / 50).to(torch.bfloat16))
+           if p0 else None)
+    q8, qs = tfd.quantize_q(torch.randn((b, h, d), generator=g, device=card) * 2)
+    lens = torch.randint(s // 2, s - 1, (b,), generator=g, device=card, dtype=torch.int32)
+    lens[-1] = 0                                  # the last lane: its prefix only, or nothing
+    a1 = torch.full((b,), s - 1, dtype=torch.int32, device=card)
+    b1 = torch.where(lens > 0, a1, -1).to(torch.int32)
+    masks = (lens, a1, b1, torch.zeros_like(lens), torch.full_like(lens, -1))
+    args = (q8, qs, k8, ks, v8, vs, masks, 1, d ** -0.5, tfd.default_bs(s))
+    got = _k2_twice(lambda: tfd.flash_decode_int8_kernel(*args, shared=pre, p0=p0))
+    ref = tfd.flash_decode_int8_plain(*args, shared=pre, p0=p0)
+    assert torch.isfinite(got).all()
+    if not p0:
+        assert torch.equal(got[-1], torch.zeros_like(got[-1]))   # no valid slot: zeros
+    torch.testing.assert_close(got, ref, atol=2e-3, rtol=2e-3)
+
+
+def test_flash_decode_current_kernel_under_a_split_plan(card):
+    """K2'' where a (head, lane) is a cluster of 8 blocks: the written row
+    bitwise, every other byte unchanged, the output within K2's tolerance of
+    the plain version and bitwise repeatable."""
+    b, h, d, s, li, pp, step = 2, 4, 128, 512, 1, 200, 250
+    g = torch.Generator(device=card).manual_seed(11)
+    cache = _int8_cache(g, card, 3, b, s, h, d)
+    assert tfd._plan(b, h, d, s, tfd.default_bs(s)).splits == 8
+    slot = pp + step
+    cur = [x[li, :, slot:slot + 1].clone() for x in cache]
+    for x in cache:
+        x[:, :, slot] = 0
+    before = [x.clone() for x in cache]
+    q8, qs = tfd.quantize_q(torch.randn((b, h, d), generator=g, device=card))
+    lens = torch.tensor([pp, 37], dtype=torch.int32, device=card)
+    args = (q8, qs, *cache, tfd.slot_masks(lens, pp, step - 1), li, d ** -0.5,
+            tfd.default_bs(s))
+    kw = dict(current=cur, write_cache=True)
+    got = _k2_twice(lambda: tfd.flash_decode_int8_current_kernel(*args, **kw))
+    for x, old, c in zip(cache, before, cur):
+        assert torch.equal(x[li, :, slot], c[:, 0])
+        old[li, :, slot] = c[:, 0]
+        assert torch.equal(x, old)
+    for x, old in zip(cache, before):
+        x[li, :, slot] = 0
+    ref = tfd.flash_decode_int8_plain(*args, **kw)
+    torch.testing.assert_close(got, ref, atol=2e-3, rtol=2e-3)
+
+
+def test_flash_decode_kernel_takes_unaligned_views(card):
+    """A cache whose rows are not 16-byte aligned (a view at an odd offset)
+    goes the 4-byte route (its own order of sums), within K2's tolerance of
+    the plain version and of the 16-byte route on the same values."""
+    g = torch.Generator(device=card).manual_seed(2)
+    b, h, d, s = 3, 4, 128, 128
+    k8, ks, v8, vs = _int8_cache(g, card, 1, b, s, h, d)
+    raw = torch.empty(k8.numel() + 4, dtype=torch.int8, device=card)
+    k_odd = raw[4:].view(k8.shape)
+    k_odd.copy_(k8)
+    assert k_odd.data_ptr() % 16
+    q8, qs = tfd.quantize_q(torch.randn((b, h, d), generator=g, device=card))
+    lens = torch.tensor([100, 7, 128], dtype=torch.int32, device=card)
+    masks = tfd.slot_masks(lens, 0, -1)
+    aligned = tfd.flash_decode_int8_kernel(q8, qs, k8, ks, v8, vs, masks, 0, d ** -0.5, 64)
+    odd = _k2_twice(lambda: tfd.flash_decode_int8_kernel(q8, qs, k_odd, ks, v8, vs, masks, 0,
+                                                         d ** -0.5, 64))
+    ref = tfd.flash_decode_int8_plain(q8, qs, k8, ks, v8, vs, masks, 0, d ** -0.5, 64)
+    torch.testing.assert_close(odd, ref, atol=2e-3, rtol=2e-3)
+    torch.testing.assert_close(odd, aligned, atol=2e-3, rtol=2e-3)
 
 
 K3_TOL = {torch.bfloat16: dict(atol=1e-2, rtol=1e-2), torch.float32: dict(atol=1e-5, rtol=1e-5)}
@@ -387,7 +483,7 @@ def test_flash_decode_kernel_ring_intervals(card, hb, db, layers):
     q8, qs = tfd.quantize_q(q)
     masks = tfd.slot_masks(lens, gen_intervals=(a1, b1, a2, b2))
     args = (q8, qs, k8, ks, v8, vs, masks, layers - 1, db ** -0.5, tfd.default_bs(sb))
-    got = tfd.flash_decode_int8_kernel(*args)
+    got = _k2_twice(lambda: tfd.flash_decode_int8_kernel(*args))
     ref = tfd.flash_decode_int8_plain(*args)
     torch.cuda.synchronize()
     assert torch.isfinite(got).all()
@@ -491,10 +587,11 @@ def test_flash_decode_fused_kernel_equals_k2(card):
     q8, qs = tfd.quantize_q(torch.randn((b, h, d), generator=g, device=card))
     masks = tfd.slot_masks(torch.full((b,), 128, dtype=torch.int32, device=card), 128, 150)
     n = tfd.flash_decode_int8_fused_kernel.launches
-    got = tfd.flash_decode_int8_fused_kernel(q8, qs, kv8, kvs, masks, 1, d ** -0.5, 64)
+    got = _k2_twice(lambda: tfd.flash_decode_int8_fused_kernel(q8, qs, kv8, kvs, masks, 1,
+                                                               d ** -0.5, 64))
     ref = tfd.flash_decode_int8_kernel(q8, qs, k8, ks, v8, vs, masks, 1, d ** -0.5, 64)
     torch.cuda.synchronize()
-    assert tfd.flash_decode_int8_fused_kernel.launches == n + 1
+    assert tfd.flash_decode_int8_fused_kernel.launches == n + 2
     assert torch.equal(got, ref)
 
 
