@@ -20,25 +20,41 @@ a last group may be fitted on real rows and zeros (K = 11008: 22 groups of
 
 ``q4_matmul_acc`` computes ``acc``: on a CUDA tensor it launches the
 hand-written kernel K4 (csrc/q4_matmul.cu, replacing the Pallas kernel of
-``_make_kernel``) and on a CPU tensor it runs the plain PyTorch version
-``q4_matmul_acc_plain``. Each group's integer sums are exact and both add
-the groups in the same order with single rounded f32 operations, so the two
-agree bit for bit. There is no fallback from one to the other.
+``_make_kernel``: T3's TMA ring and register-operand int8 wgmma, with the
+group's rescale in registers) and on a CPU tensor it runs the plain PyTorch
+version ``q4_matmul_acc_plain``. Each group's integer sums are exact and
+both add the groups in the same order with single rounded f32 operations,
+so the two agree bit for bit, also where the kernel splits K across blocks:
+the last block of a tile to arrive adds the other splits' group terms in
+group order. ``_plan`` chooses the launch. There is no fallback from one to
+the other.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Optional
+import math
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from . import _build
-from .q8_matmul import quantize_act
+from .q8_matmul import MIN_SPLIT_KTILES, SM_COUNT, quantize_act
 
 GROUP = 512        # K rows per scale group
-KERNEL_BK = 128    # the kernel's K tile: a group must be a multiple of it
+KERNEL_BK = 128    # one activation box of the kernel: a group must be a multiple of it
+MAX_GROUP = 131040  # the kernel sums 16 q x in int32 over a group: group * 2^14 < 2^31
+TICKETS = 1024     # output tiles a split launch may have: one int32 ticket each
+SCALE_SLOTS = 3    # groups whose scales a block holds at once (csrc/q4_matmul.cu)
+# the W4A8 ring of K4 and T2/T3 (csrc/w4_tma.cuh)
+KTILE = 256                  # K values a stage holds: 128 packed bytes a weight row
+SLOTS_PER_SM = 2             # blocks an SM holds: ~100 KB of shared memory each
+SMEM_PER_SM = 228 * 1024     # H100: shared memory an SM gives its blocks
+WNS = (8, 16, 32, 64)        # wgmma N: the activation rows a block takes
+# the ring's stages by weight rows a block and wn (w4_tma.cuh stages_of); K4
+# takes 128 rows only at wn <= 32
+STAGES = {128: {8: 6, 16: 5, 32: 4, 64: 3}, 64: {8: 8, 16: 8, 32: 6, 64: 4}}
 
 
 def pick_bk(k: int, cap: int = 2048) -> int:
@@ -169,6 +185,115 @@ def q4_matmul_acc_plain(x8: torch.Tensor, w: torch.Tensor, gscale: torch.Tensor,
     return acc
 
 
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """A launch of K4: ``wn`` activation rows (wgmma's N) by ``rows`` weight
+    rows (64 per consumer warpgroup) a block, a ring of ``stages``, K cut
+    into ``splits`` ranges of ``per`` stages of KTILE values, each starting
+    on a group boundary; ``asym``: the asymmetric grid, whose block has a
+    row-sum warp."""
+
+    wn: int
+    rows: int
+    stages: int
+    splits: int
+    per: int
+    asym: bool
+
+    def tiles(self, m: int, n: int) -> int:
+        return -(-m // self.wn) * -(-n // self.rows)
+
+    def smem(self) -> int:
+        """Shared memory a block takes (csrc/q4_matmul.cu smem_of): the ring,
+        its mbarriers, alignment, the row-sum barriers and, on the
+        asymmetric grid, the row sums; SCALE_SLOTS groups' scales and offsets."""
+        ring = self.stages * 128 * (self.rows + 2 * self.wn) + 16 * self.stages + 1024
+        return (ring + self.stages * (8 + (8 * self.wn if self.asym else 0))
+                + SCALE_SLOTS * 2 * self.rows * 4)
+
+
+def group_stages(group: int) -> int:
+    """The fewest whole stages that end on a group boundary: a K split's unit."""
+    return math.lcm(group, KTILE) // KTILE
+
+
+def _plan(m: int, n: int, k: int, group: int, asym: bool, rows: Optional[int] = None) -> Plan:
+    """The launch for (M, K) activations x (N, K/2) packed weights in groups
+    of ``group``, T3's plan (``ops/w4_colscale._plan``) with K4's limits. wn
+    is the least of 8, 16, 32, 64 that holds the rows (64 above 64 rows,
+    tiled over the grid). 64 weight rows a block, unless those tiles would
+    not fit the card's 2 x 132 slots at once: then 128 (two consumer
+    warpgroups share each stage of activations), but never at wn = 64,
+    where two warpgroups' registers would not leave two blocks an SM;
+    ``rows`` forces either. The ring is as deep as ~100 KB allows. K is
+    split (K1's rule) only where the output tiles leave the slots half
+    empty, into as many ranges as fit the slots, each at least 4 stages
+    deep and a whole number of ``group_stages`` long, so that every split
+    starts on a group boundary: down at M = 16 (43 stages, groups of 2)
+    takes 4 splits of 12, not T3's 11."""
+    wn = next(w for w in WNS if min(m, WNS[-1]) <= w)
+    slots = SLOTS_PER_SM * SM_COUNT
+    if rows is None:
+        rows = 64 if wn == 64 or -(-m // wn) * -(-n // 64) <= slots else 128
+    tiles = -(-m // wn) * -(-n // rows)
+    ktiles = -(-k // KTILE)
+    unit = group_stages(group)
+    splits = 1
+    if 2 * tiles <= slots:
+        splits = max(1, min(slots // tiles, ktiles // MIN_SPLIT_KTILES))
+    per = -(-(-(-ktiles // splits)) // unit) * unit
+    return Plan(wn, rows, STAGES[rows][wn], -(-ktiles // per), per, asym)
+
+
+_split_buffers: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _workspace(device: torch.device, numel: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The split launches' workspace (f32, at least ``numel``) and tickets
+    (TICKETS int32, zero between calls: the last block of a tile resets
+    its own) on ``device``, allocated once per device and grown, never
+    zeroed per call. Calls on one device share them, so they run on one
+    stream, in order."""
+    ws, tickets = _split_buffers.get(device, (None, None))
+    if tickets is None:
+        tickets = torch.zeros(TICKETS, dtype=torch.int32, device=device)
+    if ws is None or ws.numel() < numel:
+        ws = torch.empty(max(numel, 1 << 20), dtype=torch.float32, device=device)
+    _split_buffers[device] = (ws, tickets)
+    return ws, tickets
+
+
+def _launch(x8: torch.Tensor, w: torch.Tensor, gscale: torch.Tensor,
+            goff: Optional[torch.Tensor], group: int, plan: Plan) -> torch.Tensor:
+    """Launch K4 with ``plan``, counting the launch on ``q4_matmul_acc``;
+    raise on a plan the kernel does not take or a failed launch."""
+    m, k = x8.shape
+    n = w.shape[0]
+    splits = -(-(-(-k // KTILE)) // plan.per)
+    if plan.asym != (goff is not None):
+        raise ValueError(f"K4: a plan for the {'a' if plan.asym else ''}symmetric grid with "
+                         f"goff {'absent' if goff is None else 'present'}")
+    if splits > 1 and (plan.per % group_stages(group) or plan.tiles(m, n) > TICKETS):
+        raise ValueError(f"K4 splits K on group boundaries over at most {TICKETS} tiles: "
+                         f"{plan} at M={m}, N={n}, group={group}")
+    ws = tickets = None
+    if splits > 1:
+        ws, tickets = _workspace(x8.device,
+                                 plan.tiles(m, n) * -(-k // group) * plan.wn * plan.rows)
+    out = torch.empty((m, n), dtype=torch.float32, device=x8.device)
+    fn = _build.load("q4_matmul").q4_gemm_launch
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rc = fn(x8.data_ptr(), w.data_ptr(), gscale.data_ptr(),
+            None if goff is None else goff.data_ptr(), out.data_ptr(),
+            None if ws is None else ws.data_ptr(), None if tickets is None else tickets.data_ptr(),
+            m, n, k, group, plan.wn, plan.rows, plan.stages, plan.per,
+            torch.cuda.current_stream(x8.device).cuda_stream)
+    q4_matmul_acc.launches += 1
+    _build.check(rc, "q4_gemm_launch")
+    return out
+
+
 def q4_matmul_acc(x8: torch.Tensor, w: torch.Tensor, gscale: torch.Tensor,
                   goff: Optional[torch.Tensor], group: int) -> torch.Tensor:
     """(M,K) int8 x packed (N,K/2) int4 -> (M,N) f32 group-rescaled sums.
@@ -180,9 +305,9 @@ def q4_matmul_acc(x8: torch.Tensor, w: torch.Tensor, gscale: torch.Tensor,
     groups = -(-k // group)
     if k != 2 * k2 or x8.dtype != torch.int8 or w.dtype != torch.int8:
         raise ValueError(f"q4 kernel takes int8 (M,K) x packed (N,K/2): {x8.shape} {w.shape}")
-    if k % 32 or group % KERNEL_BK:
+    if k % 32 or group % KERNEL_BK or group > MAX_GROUP:
         raise ValueError(f"q4 kernel needs K % 32 == 0 and group % {KERNEL_BK} == 0, "
-                         f"got K={k}, group={group}")
+                         f"group <= {MAX_GROUP}, got K={k}, group={group}")
     scales = [gscale] if goff is None else [gscale, goff]
     for s in scales:
         if s.dtype != torch.float32 or s.shape[0] < groups or s.shape[1:] != (n,):
@@ -190,17 +315,10 @@ def q4_matmul_acc(x8: torch.Tensor, w: torch.Tensor, gscale: torch.Tensor,
     for t in (x8, w, *scales):
         if not (t.is_cuda and t.is_contiguous() and t.device == x8.device):
             raise ValueError("q4 kernel takes contiguous CUDA operands on one device")
-    out = torch.empty((m, n), dtype=torch.float32, device=x8.device)
-    lib = _build.load("q4_matmul")
-    fn = lib.q4_gemm_s8s4f32
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    rc = fn(x8.data_ptr(), w.data_ptr(), gscale.data_ptr(),
-            None if goff is None else goff.data_ptr(), out.data_ptr(), m, n, k, group,
-            torch.cuda.current_stream(x8.device).cuda_stream)
-    q4_matmul_acc.launches += 1
-    _build.check(rc, "q4_gemm_s8s4f32")
-    return out
+    for t in (x8, w):
+        if t.data_ptr() % 16:
+            raise ValueError("q4 kernel takes 16-byte aligned activations and weights")
+    return _launch(x8, w, gscale, goff, group, _plan(m, n, k, group, goff is not None))
 
 
 q4_matmul_acc.launches = 0

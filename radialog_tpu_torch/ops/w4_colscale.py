@@ -32,15 +32,10 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
-from .q4_matmul import unpack_q4
+# the ring that T2/T3 share with K4 (csrc/w4_tma.cuh), and its limits
+from .q4_matmul import KTILE, SLOTS_PER_SM, SMEM_PER_SM, STAGES, WNS, unpack_q4
 from .q8_matmul import SM_COUNT, _split, quantize_act
 
-KTILE = 256                  # K values a stage holds: 128 packed bytes a weight row
-SLOTS_PER_SM = 2             # blocks an SM holds: ~100 KB of shared memory each
-SMEM_PER_SM = 228 * 1024     # H100: shared memory an SM gives its blocks
-WNS = (8, 16, 32, 64)        # wgmma N: the activation rows a block takes
-# the ring's stages by weight rows a block and wn (csrc/w4_colscale.cu stages_of)
-STAGES = {128: {8: 6, 16: 5, 32: 4, 64: 3}, 64: {8: 8, 16: 8, 32: 6, 64: 4}}
 MAX_K = 131040               # the kernels sum 16 q x in int32: K * 2^14 < 2^31, K % 32 == 0
 
 

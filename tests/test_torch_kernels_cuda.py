@@ -9,7 +9,9 @@ split plans (a (head, lane) over a cluster of up to 8 blocks), over shared
 prefixes of 1 to 2000 rows, at D of 4 to 128, each run twice and bitwise
 equal; K4 bitwise
 (each group's integer sum is exact and the kernel adds the groups in the
-plain version's order with single rounded f32 operations); K2'' (the
+plain version's order with single rounded f32 operations, also where K
+splits: the last block of a tile adds the splits' group terms in order) and
+bitwise against its own second run, under every plan; K2'' (the
 current row attended and written in place) at K2's tolerance with its row
 bitwise and every other byte of the cache unchanged; T1 bitwise equal to K2
 on the same data; T2 and T3 bitwise (exact int32 sums) at every plan's
@@ -495,25 +497,83 @@ def test_flash_decode_kernel_ring_intervals(card, hb, db, layers):
     torch.testing.assert_close(out, ref, atol=2e-3, rtol=2e-3)
 
 
-@pytest.mark.parametrize("mode", ["asym", "sym"])
-@pytest.mark.parametrize("m,k,n,group", [
-    (16, 4096, 4096, 512), (56, 4096, 12288, 512), (56, 11008, 4096, 512),
-    (256, 4096, 22016, 512), (1, 4096, 4096, 512), (70, 640, 72, 640), (33, 64, 192, 128),
-    (5, 128, 64, 128), (19, 2560, 40, 512)])
-def test_q4_kernel_matches_plain(card, m, k, n, group, mode):
-    g = torch.Generator(device=card).manual_seed(m + n)
+def _q4_operands(card, m, k, n, group, mode, seed):
+    g = torch.Generator(device=card).manual_seed(seed)
     groups = -(-k // tq4.pick_bk(k)) * tq4.pick_bk(k) // group
     x8 = torch.randint(-127, 128, (m, k), generator=g, device=card, dtype=torch.int8)
     w = torch.randint(-128, 128, (n, k // 2), generator=g, device=card, dtype=torch.int8)
     gscale = torch.rand((groups, n), generator=g, device=card) * 1e-3 + 1e-4
     goff = (torch.rand((groups, n), generator=g, device=card) - 0.5) * 1e-3 \
         if mode == "asym" else None
+    return x8, w, gscale, goff
+
+
+Q4_VICUNA = [(4096, 12288), (4096, 4096), (4096, 22016), (11008, 4096)]
+
+
+# the four Vicuna-7B shapes at every wn boundary and a row tiling past 64
+# (wo and down split K at M <= 64), the mock's shapes (K = 64 and 128, one
+# group of 128; 640, one of 640), a ragged K of five groups of 512 and N of 40
+@pytest.mark.parametrize("mode", ["asym", "sym"])
+@pytest.mark.parametrize("m,k,n,group", [
+    (m, k, n, 512) for m in (1, 5, 16, 56, 64, 65, 256) for k, n in Q4_VICUNA] + [
+    (70, 640, 72, 640), (33, 64, 192, 128), (5, 128, 64, 128), (3, 64, 256, 128),
+    (19, 2560, 40, 512)])
+def test_q4_kernel_matches_plain(card, m, k, n, group, mode):
+    x8, w, gscale, goff = _q4_operands(card, m, k, n, group, mode, m + n)
     before = tq4.q4_matmul_acc.launches
     got = tq4.q4_matmul_acc(x8, w, gscale, goff, group)
+    again = tq4.q4_matmul_acc(x8, w, gscale, goff, group)
     ref = tq4.q4_matmul_acc_plain(x8, w, gscale, goff, group)
     torch.cuda.synchronize()
-    assert tq4.q4_matmul_acc.launches == before + 1
+    assert tq4.q4_matmul_acc.launches == before + 2
     assert torch.equal(got, ref), float((got - ref).abs().max())
+    assert torch.equal(again, got)
+
+
+# each plan beside the same call unsplit, split as finely as the groups
+# allow (groups of 128 end mid-stage; 2 stages a group of 512), and with 64
+# and with 128 weight rows a block
+@pytest.mark.parametrize("m,k,n,group", [(16, 11008, 4096, 512), (5, 4096, 4096, 512),
+                                         (56, 4096, 12288, 512), (16, 1184, 200, 128),
+                                         (9, 1056, 64, 128), (3, 640, 72, 640),
+                                         (256, 4096, 4096, 512), (17, 2560, 130, 512)])
+@pytest.mark.parametrize("mode", ["asym", "sym"])
+def test_q4_kernel_plans_match_plain(card, m, k, n, group, mode):
+    x8, w, gscale, goff = _q4_operands(card, m, k, n, group, mode, k + n)
+    ref = tq4.q4_matmul_acc_plain(x8, w, gscale, goff, group)
+    ktiles, unit = -(-k // tq4.KTILE), tq4.group_stages(group)
+    plan = tq4._plan(m, n, k, group, mode == "asym")
+    plans = [plan, dataclasses.replace(plan, splits=1, per=ktiles),
+             tq4._plan(m, n, k, group, mode == "asym", rows=64)]
+    if plan.wn <= 32:
+        plans.append(tq4._plan(m, n, k, group, mode == "asym", rows=128))
+    finest = dataclasses.replace(plan, splits=-(-ktiles // unit), per=unit)
+    if finest.tiles(m, n) <= tq4.TICKETS:
+        plans.append(finest)
+    for p in plans:
+        n0 = tq4.q4_matmul_acc.launches
+        first = tq4._launch(x8, w, gscale, goff, group, p)
+        second = tq4._launch(x8, w, gscale, goff, group, p)
+        torch.cuda.synchronize()
+        assert tq4.q4_matmul_acc.launches == n0 + 2
+        assert torch.equal(first, ref), (p, float((first - ref).abs().max()))
+        assert torch.equal(second, first), p
+
+
+def test_q4_kernel_split_calls_back_to_back(card):
+    """Split launches of different shapes queued back to back: each tile's
+    ticket is reset by its last block, so every call is right."""
+    cases = [(16, 11008, 4096), (5, 4096, 4096), (16, 11008, 4096), (64, 4096, 4096),
+             (1, 11008, 4096)]
+    ops = [_q4_operands(card, m, k, n, 512, "asym", i) for i, (m, k, n) in enumerate(cases)]
+    assert all(tq4._plan(m, n, k, 512, True).splits > 1 for m, k, n in cases)
+    outs = [tq4.q4_matmul_acc(*o, 512) for o in ops]
+    torch.cuda.synchronize()
+    for o, out in zip(ops, outs):
+        assert torch.equal(out, tq4.q4_matmul_acc_plain(*o, 512))
+    ws, tickets = tq4._split_buffers[ops[0][0].device]
+    assert int(tickets.abs().sum()) == 0
 
 
 def test_q4_kernel_refuses_what_it_does_not_take(card):
@@ -529,6 +589,16 @@ def test_q4_kernel_refuses_what_it_does_not_take(card):
         tq4.q4_matmul_acc(x8, w, gs[:, :4], None, 128)
     with pytest.raises(ValueError, match="contiguous"):
         tq4.q4_matmul_acc(x8, w, gs.cpu(), None, 128)
+    with pytest.raises(ValueError, match="group"):
+        tq4.q4_matmul_acc(x8, w, gs, None, tq4.MAX_GROUP + 128)
+    # a split plan must split on group boundaries, and its route must fit the grid
+    x8 = torch.zeros((2, 4096), dtype=torch.int8, device=card)
+    w, gs = x8.new_zeros((64, 2048)), torch.ones((8, 64), device=card)
+    plan = tq4._plan(2, 64, 4096, 512, asym=False)
+    with pytest.raises(ValueError, match="group boundaries"):
+        tq4._launch(x8, w, gs, None, 512, dataclasses.replace(plan, per=5, splits=4))
+    with pytest.raises(ValueError, match="symmetric grid"):
+        tq4._launch(x8, w, gs, gs, 512, plan)
 
 
 def _int8_cache(g, card, layers, lanes, slots, h, d):
