@@ -8,18 +8,23 @@ each; any failing phase exits non-zero:
   device  card name and power limit, torch/CUDA versions; builds every
           kernel from csrc/ (one nvcc per source, started together)
   k1      W8A8 GEMM kernel vs its plain version, bitwise, at the five
-          Vicuna-7B weight shapes x M in {1, 16, 56, 48, 256, 56*80} (16 and
-          256: the serve phase's decode lanes and a full admission); each
+          Vicuna-7B weight shapes x M in {1, 16, 56, 48, 256, 440, 448, 56*80}
+          (16 and 256: the serve phase's decode lanes and a full admission;
+          1, 440 and 448: the eval phase's batch-1 decode and correction
+          prefills, whose last 64-row tile is partial); each
           line names the launch plan's route (TMA + wgmma on 128 x 256 or
           128 x 128 tiles, or swapped operands at M <= 64); layer sums of the
-          four projections at M = 56, 16 and 4480 against torch._int_mm and
-          the bound
+          four projections at M = 56, 16, 4480, 1 and 440 against
+          torch._int_mm and the bound
   k2      int8 flash-decode kernel vs its plain version (atol=rtol=2e-3) at
           B=56, H=32, D=128, S=384, L=32, shared prefix P0=48, at the
           binary-QA prefix (B=14, P0=427 of 448 rows), and with the serving
           ring's per-lane slot intervals and no prefix (B=16, S=384, prompts
           of 100-256 rows: a window inside the ring, a wrapped window, a full
-          ring, a lane with no valid slot, a full prompt region); K2'' (the
+          ring, a lane with no valid slot, a full prompt region), at the
+          eval phase's batch-1 correction decode (B=1, no prefix, S=768, a
+          437-token prompt in 440 slots, steps 0, 128 and 255: 12 blocks of
+          slots over 6 splits of one cluster); K2'' (the
           step's own row attended as an operand and written in place) at the
           report shape at steps 0, 150 and 298 and without a prefix at a slot
           in b1's block and at the last slot S - 1, the slot zeroed first:
@@ -47,7 +52,9 @@ each; any failing phase exits non-zero:
           H=32, D=128, bf16, causal: B=1 with T=S in {256, 448, 1024}, the
           serve phase's admission (B=1, T=S=256, length 230, fused views), B=12
           with T=S=448 and lengths 300-448, and the qa phase's B=1 shapes
-          T=S in {431, 436} with q/k/v as views of one fused projection,
+          T=S in {431, 436} and the eval phase's correction prefills (437
+          of 440 and 445 of 448 rows) with q/k/v as views of one fused
+          projection,
           the train phase's shape (B=2, T=S=600, lengths 600 and 413); and
           H=4, D=16, f32, B=2, T=300; each line names the kernel that ran
           (TMA + wgmma for bf16 at D 64 and 128); times, with
@@ -94,7 +101,11 @@ each; any failing phase exits non-zero:
           attention runs, 4 micro-steps with accumulation 2, float base in
           FP32 and int8 base in BF16) on the card vs the same run on the
           CPU: losses and the updated LoRA tree, every K3/K5a/K5b call held
-          against its plain version
+          against its plain version; then the eval command line
+          (apps/evaluate.py main) over the mock at W8A8 on the CPU and on the
+          card from the same weights, and at W4A8 on the card (K4 launched):
+          its four files, finite metrics, and per record the teacher-forced
+          logits of the report turn and of its correction turn at LOGIT_TOL
   slice   the full-width pipeline (Vicuna-7B W8A8, 32 layers, int8 KV,
           BioViL-T at 448, BERT-base Q-Former, CheXpert classifier at 488)
           with random weights from a seeded generator: 56 uint8 X-rays,
@@ -111,6 +122,18 @@ each; any failing phase exits non-zero:
           shape: prefill without a cache, then install_prefill) and the
           BERT-base CheXbert labels of 16 reports; seconds, launches per
           kernel (K3 exactly 32 x 3) and the metrics
+  eval    the evaluation harness at full width through the eval command
+          line (apps/evaluate.py main, the root test.py's counterpart):
+          --synthetic --int8 --use_embs --do_corr --do_cp_bin_qa
+          --do_cp_all_qa over the first 3 test studies of tests/fixtures,
+          batch 12, 300 new tokens, files under build/chip_eval/: the report
+          pass, the batch-1 correction pass (256 tokens a study), binary QA,
+          all-QA, CheXbert labels; seconds per pass, launches of K1, K2 and
+          K3 (K3 exactly as models/llama.py _use_flash predicts from the
+          prompts that reached the pipeline), the four files and finite
+          metrics; K1 (bitwise), K2 and K3 held against their plain
+          versions on the inputs the run gave them in the first and the
+          last correction; cut from the test split in depth only (3 studies)
 
   serve   the multi-session server at full width on the slice's weights:
           RaDialogServer over the int8 ring, 16 lanes, prompt region 256,
@@ -175,6 +198,15 @@ K3_TOL = {"bfloat16": dict(atol=1e-2, rtol=1e-2), "float32": dict(atol=1e-5, rto
 # f32: only the order of the f32 sums differs (errors up to 1.1e-6)
 K5_TOL = {"bfloat16": 8e-3, "float32": 1e-5}
 QA_STUDIES, ALL_QA_STUDIES, LABELED, FOLLOW_UP_NEW = 2, 5, 16, 32
+# the eval phase's batch-1 correction turn at full width: 437, 442 and 445
+# prompt tokens (a 118-token report prompt, its 300 generated tokens, the
+# correction request; the eval phase prints them), padded to a multiple of
+# 8 (apps/tokenization.py pad_batch_right): 440 and 448 rows, whose last
+# 64-row tile is partial; 256 new tokens in a cache of 768 slots
+# (decode/kvcache.py bucket_length). The eval phase also holds each kernel
+# against its plain version on the inputs the run itself gave it there
+CORR_T, CORR_T2, CORR_LEN, CORR_LEN2, CORR_NEW, CORR_S = 440, 448, 437, 445, 256, 768
+EVAL_STUDIES = 3
 LOGIT_TOL = {"mean": 3e-2, "max": 0.3}   # why: phase_small's docstring
 # the serve phase: lanes, prompt region, cache length (ring 128), steps per chunk
 LANES, PROMPT_REGION, CACHE_LEN, CHUNK = 16, 256, 384, 8
@@ -239,20 +271,22 @@ def timed_ms(fn, iters: int, flush) -> float:
 def phase_k1(torch, tq8, flush):
     """Every LLaMA projection shape at the report path's decode, prefix and
     prefill rows and at the serve phase's: 16 lanes at decode, a batch-1
-    admission of a full prompt region (256 rows). Each line names the
-    route of the launch plan. The summary is one decoder layer's four
-    projections at M = 56, with the same sums at M = 16 and at the report
-    prefill's M = 4480."""
+    admission of a full prompt region (256 rows); and at the eval phase's:
+    batch-1 decode (M = 1) and the correction prefill (440 and 448 rows, a
+    partial last 64-row tile). Each line names the route of the launch
+    plan. The summary is one decoder layer's four projections at M = 56,
+    with the same sums at M = 16, at the report prefill's M = 4480, at
+    M = 1 and at the correction prefill's M = 440."""
     h, inter, v = 4096, 11008, 32001
     shapes = {"wqkv": (h, 3 * h), "wo": (h, h), "gateup": (h, 2 * inter),
               "down": (inter, h), "lm_head": (h, v)}
     prefill = BATCH * (PROMPT - SHARED)
     g = torch.Generator(device="cuda").manual_seed(1)
     sums = {m: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-                "bytes_bound": 0} for m in (BATCH, LANES, prefill)}
+                "bytes_bound": 0} for m in (BATCH, LANES, prefill, 1, CORR_T)}
     for name, (k, n) in shapes.items():
         w8 = torch.randint(-127, 128, (n, k), generator=g, device="cuda", dtype=torch.int8)
-        for m in (1, LANES, 56, 48, PROMPT_REGION, prefill):
+        for m in (1, LANES, 56, 48, PROMPT_REGION, CORR_T, CORR_T2, prefill):
             x8 = torch.randint(-127, 128, (m, k), generator=g, device="cuda", dtype=torch.int8)
             got = tq8.q8_matmul_int32(x8, w8)
             ref = tq8.q8_matmul_int32_plain(x8, w8)
@@ -285,7 +319,8 @@ def phase_k1(torch, tq8, flush):
                 acc["bound_ms"] += max(b_bytes, b_ops)
                 acc["bytes_bound"] += b_bytes >= b_ops
         del w8
-    for m, what in ((LANES, "the serve phase's decode"), (prefill, "the report prefill")):
+    for m, what in ((LANES, "the serve phase's decode"), (prefill, "the report prefill"),
+                    (1, "batch-1 decode"), (CORR_T, "the correction prefill")):
         emit("k1", layer_sum=f"one decoder layer's 4 projections at {what}", m=m,
              roofline_share=sums[m]["bound_ms"] / sums[m]["ms"],
              **{key: val for key, val in sums[m].items() if key != "bytes_bound"})
@@ -295,6 +330,9 @@ def phase_k1(torch, tq8, flush):
     summary["ms_prefill"] = sums[prefill]["ms"]
     summary["library_ms_prefill"] = sums[prefill]["library_ms"]
     summary["bound_ms_prefill"] = sums[prefill]["bound_ms"]
+    for m, key in ((1, "m1"), (CORR_T, "correction_prefill")):
+        summary[f"ms_{key}"], summary[f"bound_ms_{key}"] = sums[m]["ms"], sums[m]["bound_ms"]
+        summary[f"library_ms_{key}"] = sums[m]["library_ms"]
     summary["bound_by"] = "bytes" if summary.pop("bytes_bound") == 4 else "operations"
     return summary
 
@@ -385,12 +423,12 @@ def _k2c_check(torch, tfd, flush, cache, q8, qs, lens, t1, step, layer, shared, 
             "max_abs_err_vs_k2": float((got - k2_out).abs().max()), **extra}
 
 
-def _k2_case(torch, tfd, flush, b, s, p0, t1, steps, seed, current=()):
+def _k2_case(torch, tfd, flush, b, s, p0, t1, steps, seed, current=(), lens=None):
     """K2 at one cache shape: lanes of t1 remainder slots (ragged, one
-    empty), a shared prefix of p0 live rows padded to 32, decode steps
-    ``steps``; also K2'' at the steps in ``current`` (``_k2c_check``).
-    Emits one line per step; returns {step: numbers} and, with ``current``,
-    {step: K2'' numbers}."""
+    empty; or the one length ``lens``), a shared prefix of p0 live rows
+    padded to 32 (none at p0 = 0), decode steps ``steps``; also K2'' at the
+    steps in ``current`` (``_k2c_check``). Emits one line per step; returns
+    {step: numbers} and, with ``current``, {step: K2'' numbers}."""
     h, d, L, layer = 32, 128, 32, 16
     g = torch.Generator(device="cuda").manual_seed(seed)
     k8 = torch.randint(-127, 128, (L, b, s, h * d), generator=g, device="cuda", dtype=torch.int8)
@@ -403,11 +441,14 @@ def _k2_case(torch, tfd, flush, b, s, p0, t1, steps, seed, current=()):
     ks0 = (torch.rand((p0p, h), generator=g, device="cuda") * 0.01 + 0.002).to(torch.bfloat16)
     vs0 = (torch.rand((p0p, h), generator=g, device="cuda") * 0.01 + 0.002).to(torch.bfloat16)
     q = torch.randn((b, h, d), generator=g, device="cuda", dtype=torch.float32)
-    lens = torch.full((b,), t1, dtype=torch.int32, device="cuda")
-    lens[::3] = max(t1 - 7, 1)          # ragged remainders
-    lens[1] = 0                          # a lane with only its shared prefix
+    if lens is None:
+        lens = torch.full((b,), t1, dtype=torch.int32, device="cuda")
+        lens[::3] = max(t1 - 7, 1)          # ragged remainders
+        lens[1] = 0                          # a lane with only its shared prefix
+    else:
+        lens = torch.full((b,), lens, dtype=torch.int32, device="cuda")
     q8, qs = tfd.quantize_q(q)
-    shared = (k0, ks0, v0, vs0)
+    shared = (k0, ks0, v0, vs0) if p0 else None
     out, out_c = {}, {}
     for step in steps:
         masks = tfd.slot_masks(lens, t1, step)
@@ -432,7 +473,7 @@ def _k2_case(torch, tfd, flush, b, s, p0, t1, steps, seed, current=()):
         bound, by = _k2_bound(b, h, d, int(lens.long().sum()) + b * (step + 1), p0)
         out[step] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
                      "max_abs_err": err, **extra}
-        emit("k2", batch=b, prefix_rows=p0p, step=step, max_abs_err=err, kernel_ms=ms,
+        emit("k2", batch=b, slots=s, prefix_rows=p0p, step=step, max_abs_err=err, kernel_ms=ms,
              plain_ms=plain_ms, library_ms=None, bound_ms=bound, bound_by=by,
              roofline_share=bound / ms, **extra)
         if step in current:
@@ -529,9 +570,9 @@ def _k2_ring_case(torch, tfd, flush):
 def phase_k2(torch, tfd, flush):
     """The report path's decode shape (B=56, P0=48), the binary-QA pass's
     (14 lanes of one study, the whole 427-token history in the prefix, a
-    10-token answer in a 128-slot cache) and the serving ring's (per-lane
-    intervals). Returns the summaries of the static-slot and the interval
-    mode."""
+    10-token answer in a 128-slot cache), the correction pass's (one lane,
+    no prefix, 768 slots) and the serving ring's (per-lane intervals).
+    Returns the summaries of the static-slot and the interval mode."""
     report, current = _k2_case(torch, tfd, flush, BATCH, 384, SHARED, PROMPT - SHARED,
                                (0, 150, NEW - 2, NEW - 1), seed=2, current=(0, 150, NEW - 2))
     qa = _k2_case(torch, tfd, flush, 14, 128, 427, 8, (0, 9), seed=4)
@@ -540,6 +581,15 @@ def phase_k2(torch, tfd, flush):
     for key in ("ms", "plain_ms", "bound_ms", "prefix_device_ms", "lane_device_ms",
                 "read_flush_ms"):
         summary[f"{key}_qa"] = qa[9][key]
+    # the eval phase's batch-1 correction decode: one lane, no prefix, a
+    # 437-token prompt padded to 440 slots in a 768-slot cache, steps 0,
+    # 128 and 255: 12 blocks of 64 slots over the plan's splits of one
+    # cluster (32 heads on 132 SMs)
+    corr = _k2_case(torch, tfd, flush, 1, CORR_S, 0, CORR_T, (0, 128, CORR_NEW - 1), seed=8,
+                    lens=CORR_LEN)
+    summary["max_abs_err"] = max(summary["max_abs_err"], *(c["max_abs_err"] for c in corr.values()))
+    for key in ("ms", "plain_ms", "bound_ms", "lane_device_ms", "plan"):
+        summary[f"{key}_correction"] = corr[128][key]
     ring = _k2_ring_case(torch, tfd, flush)
     summary_c = dict(current[150])
     summary_c["max_abs_err"] = max(_k2c_awkward(torch, tfd, flush),
@@ -651,9 +701,11 @@ def phase_k3(torch, tfa, flush):
     """Square shapes; the serve phase's admission of a 230-token prompt in
     its 256-row bucket (a partial last key tile, query rows past the
     length); and the qa phase's own: the binary-QA prefix (431 tokens) and
-    the batch-1 follow-up (436), both ending in a partial 64-row tile, with
-    q/k/v read as views of one fused (B, T, 3*H*D) projection as
-    models/llama.py hands them over."""
+    the batch-1 follow-up (436), both ending in a partial 64-row tile, and
+    the eval phase's correction prefills (437 of 440 and 445 of 448 rows),
+    with q/k/v read as views of one fused (B, T, 3*H*D) projection:
+    the strided route, stricter than the dense q/k/v the eval run's
+    cache-free prefill hands over (phase eval holds those)."""
     shapes = [(1, 256, 32, 128, "bfloat16", False, False),
               (1, 256, 32, 128, "bfloat16", [230], True),
               (1, 448, 32, 128, "bfloat16", False, False),
@@ -661,6 +713,8 @@ def phase_k3(torch, tfa, flush):
               (12, 448, 32, 128, "bfloat16", True, False),
               (1, 431, 32, 128, "bfloat16", False, True),
               (1, 436, 32, 128, "bfloat16", False, True),
+              (1, CORR_T, 32, 128, "bfloat16", [CORR_LEN], True),
+              (1, CORR_T2, 32, 128, "bfloat16", [CORR_LEN2], True),
               (2, CUTOFF, 32, 128, "bfloat16", [CUTOFF, 413], False),
               (2, 300, 4, 16, "float32", True, False)]
     f = torch.nn.functional
@@ -713,8 +767,12 @@ def phase_k3(torch, tfa, flush):
                        "bound_ms": bound, "bound_by": by}
         if (b, t, dt) == (2, CUTOFF, "bfloat16"):
             train = {"ms_train": ms, "library_ms_train": lib_ms, "bound_ms_train": bound}
+        if (b, t, dt) == (1, CORR_T, "bfloat16"):
+            corr = {"ms_correction": ms, "plain_ms_correction": plain_ms,
+                    "library_ms_correction": lib_ms, "bound_ms_correction": bound}
     summary["max_abs_err"] = worst
     summary.update(train)
+    summary.update(corr)
     return summary
 
 
@@ -1190,11 +1248,118 @@ def phase_small(torch, te, pipeline_mod, tq8, tfd, tfa, tq4):
     try:
         _small_run(torch, te, pipeline_mod, cpu, gpu, k1, k2, k3, k2c)
         _small_serve(torch, pipeline_mod, {8: (cpu, gpu)}, k1, k2, k4)
+        _small_eval(torch, te, pipeline_mod, k1, k2, k4)
     finally:
         tq8.q8_matmul_int32, tfd.flash_decode_int8_kernel = k1.kernel, k2.kernel
         tfa.flash_attention_kernel, tq4.q4_matmul_acc = k3.kernel, k4.kernel
         tfd.flash_decode_int8_current_kernel = k2c.kernel
     _small_train(torch, tfa)
+
+
+@contextlib.contextmanager
+def _eval_pipelines(ev, factory):
+    """apps/evaluate.py's main builds its pipeline through ``factory`` for
+    the block (main's own PipelineConfig is passed through)."""
+    real = ev.RaDialogPipeline
+    ev.RaDialogPipeline = lambda cfg: factory(real, cfg)
+    try:
+        yield
+    finally:
+        ev.RaDialogPipeline = real
+
+
+EVAL_FILES = ("predictions_{}.csv", "predictions_{}_after_corrections.csv", "labels_{}.csv",
+              "results_{}.txt")
+
+
+def _eval_argv(extra, out_dir, studies, new):
+    return [*extra, "--use_embs", "--do_corr", "--do_cp_bin_qa", "--do_cp_all_qa",
+            "--fixture-dir", "tests/fixtures", "--truncate", str(studies), "--batch_size", "12",
+            "--max_new_tokens", str(new), "--output_dir", str(out_dir)]
+
+
+def _eval_outputs(out_dir, results, n):
+    """Whether the four files of an eval run are there, with n reports and
+    labels in {-1, 0, 1, NaN}, and every metric finite."""
+    import math
+    import numpy as np
+    from radialog_tpu_torch.eval.ce_metrics import CHEXBERT_CONDITIONS, read_labels_csv
+    exp = "img_matching_examples_ig2_noexamples_IMG_findings_embs"
+    paths = [out_dir / f.format(exp) for f in EVAL_FILES]
+    if not all(p.is_file() for p in paths):
+        return False, {"missing": [p.name for p in paths if not p.is_file()]}
+    labels = read_labels_csv(paths[2], cols=CHEXBERT_CONDITIONS)
+    vals = set(labels[~np.isnan(labels)].tolist())
+    lines = [p.read_text().splitlines() for p in paths[:2]]
+    ok = (labels.shape == (n, 14) and vals <= {-1.0, 0.0, 1.0}
+          and all(len(x) == n and all(ln.startswith('"') and ln.endswith('"') for ln in x)
+                  for x in lines)
+          and paths[3].read_text().startswith("Prompt: ") and "Avg Bleu 1: " in paths[3].read_text()
+          and all(math.isfinite(v) for v in results.values()))
+    return ok, {"files": [p.name for p in paths], "label_values": sorted(vals),
+                "label_blank": int(np.isnan(labels).sum())}
+
+
+def _small_eval(torch, te, pipeline_mod, k1, k2, k4):
+    """The port's eval command line (apps/evaluate.py main, the root
+    test.py's counterpart) over the mock: at W8A8 on the CPU and on the card
+    from the same weights (built on the CPU, then moved), and at W4A8 on the
+    card (K4 launched). Each run writes its four files; per record, the
+    teacher-forced logits of the report turn and of its correction turn are
+    held at LOGIT_TOL between the two W8A8 pipelines (phase_small says why
+    that bound)."""
+    import tempfile
+    from pathlib import Path
+    from radialog_tpu_torch.apps import evaluate as ev
+    from radialog_tpu_torch.data.datasets import MimicPaths, ReportGenData
+    made, corr_prompts = {}, []
+
+    def same_weights(real, cfg):
+        p = real(dataclasses.replace(cfg, device="cpu"))
+        if cfg.device == "cpu":
+            gen = p.generate_texts
+
+            def recording(prompts, img_embs=None, max_new_tokens=None, **kw):
+                if max_new_tokens == ev.CORRECTION_NEW:
+                    corr_prompts.append(prompts[0])
+                return gen(prompts, img_embs=img_embs, max_new_tokens=max_new_tokens, **kw)
+            p.generate_texts = recording
+        else:
+            p = p.to(cfg.device)
+        made[(cfg.device, cfg.weight_bits)] = p
+        return p
+
+    runs, ok = {}, True
+    studies = 2
+    with tempfile.TemporaryDirectory() as tmp, _eval_pipelines(ev, same_weights):
+        for dev, bits in (("cpu", "--int8"), ("cuda", "--int8"), ("cuda", "--w4")):
+            out = Path(tmp) / f"{dev}{bits}"
+            before = (k1.calls, k2.calls, k4.calls)
+            results = ev.main(_eval_argv(["--mock", bits, "--device", dev], out, studies, 8))
+            good, files = _eval_outputs(out, results, studies)
+            calls = {"k1": k1.calls - before[0], "k2": k2.calls - before[1],
+                     "k4": k4.calls - before[2]}
+            runs[f"{dev}{bits}"] = {"metrics": results, "kernel_calls": calls, **files}
+            ok = ok and good and (dev == "cpu" or (calls["k2"] > 0 and (
+                calls["k4"] > 0 if bits == "--w4" else calls["k1"] > 0 and calls["k4"] == 0)))
+    cpu, gpu = made[("cpu", 8)], made[("cuda", 8)]
+    fx = Path("tests/fixtures")
+    records = ReportGenData(MimicPaths(str(fx / "split.csv"), str(fx / "sectioned.csv"),
+                                       str(fx / "chexpert.csv"), str(fx / "preds.json")),
+                            truncate=studies).records()
+    provider = ev.mock_emb_provider(cpu.llama_cfg.num_img_tokens, cpu.llama_cfg.qformer_dim)
+    cases = {}
+    for i, r in enumerate(records):
+        e = torch.as_tensor(provider([r["dicom"]]))
+        for turn, prompt in (("report", r["text_input"]), ("correction", corr_prompts[i])):
+            cases[f"{r['dicom']}_{turn}"] = _small_case(torch, te, pipeline_mod, cpu, gpu,
+                                                        [prompt], e)
+    ok = ok and len(corr_prompts) == studies and all(
+        c["teacher_forced_logit_mean_abs_err"] < LOGIT_TOL["mean"]
+        and c["teacher_forced_logit_max_abs_err"] < LOGIT_TOL["max"] for c in cases.values())
+    emit("small_eval", runs=runs, records=cases, logit_tol=LOGIT_TOL, ok=ok)
+    if not ok:
+        raise AssertionError("the eval command line on the mock failed a check")
 
 
 def _train_records(n: int, words) -> list:
@@ -1657,6 +1822,211 @@ def phase_qa(torch, tq8, tfd, tfa, sl):
     return launches
 
 
+def _k3_forwards(pipeline_mod, pipe, prompts, embs) -> int:
+    """Cache-free forwards of 256 tokens or more (each runs K3 once a
+    layer) that pipe.generate_texts makes for these prompts, by the
+    pipeline's and the engine's own rules: a shared prefix of
+    SHARED_PREFIX_MIN tokens or more is prefilled alone (prefix_kv), the
+    remainders over it with the cache; otherwise the padded batch is
+    prefilled without a cache below DIRECT_PREFILL_MIN_BATCH lanes."""
+    import numpy as np
+    from radialog_tpu_torch.apps.tokenization import pad_batch_right
+    from radialog_tpu_torch.decode.engine import DIRECT_PREFILL_MIN_BATCH
+    from radialog_tpu_torch.models.llama import _use_flash
+    ids = [pipe.tokenizer(p)["input_ids"] for p in prompts]
+    p0, _ = pipe._shared_prefix_len(ids, embs)
+    if p0 >= pipeline_mod.SHARED_PREFIX_MIN:
+        return int(_use_flash(np.asarray([p0]), p0))
+    tokens, lengths = pad_batch_right(ids, pipe.tokenizer.pad_token_id)
+    direct = not pipe.cfg.use_kv_int8() or len(ids) >= DIRECT_PREFILL_MIN_BATCH
+    return int(not direct and _use_flash(lengths, tokens.shape[1]))
+
+
+class _Kept:
+    """Stand-in for a kernel wrapper during the eval run. Every call goes to
+    the kernel, whose launches count on this object while it stands in; for
+    the calls ``pick(state, index, args)`` selects (``index``: this call's
+    place among the calls made under the current ``state``), the inputs and
+    the kernel's output are copied, so that after the run the output the
+    main path used can be held against the plain version on the very inputs
+    that path gave the kernel."""
+
+    def __init__(self, kernel, plain, state, pick):
+        self.kernel, self.plain, self.state, self.pick = kernel, plain, state, pick
+        self.launches, self.kept, self.index, self.at = 0, [], 0, None
+
+    def __call__(self, *args, **kw):
+        out = self.kernel(*args, **kw)
+        if self.state.get("corr") != self.at:
+            self.at, self.index = self.state.get("corr"), 0
+        if self.pick(self.state, self.index, args):
+            # a copy of a strided view is dense: note which inputs came as views
+            views = [hasattr(a, "is_contiguous") and not a.is_contiguous() for a in args[:3]]
+            self.kept.append((self.state["corr"], self.index, _copy(args), dict(kw), _copy(out),
+                              views))
+        self.index += 1
+        return out
+
+
+def _copy(x):
+    """x with every tensor in it cloned (tuples and lists followed)."""
+    if isinstance(x, (list, tuple)):
+        return type(x)(_copy(y) for y in x)
+    return x.clone() if hasattr(x, "clone") else x
+
+
+def _eval_holds(torch, k1, k2, k3):
+    """Each kept call of the correction pass (prefill and decode) against its
+    plain version on the same inputs: K1 bitwise, K2 within K2_TOL, K3 within
+    K3_TOL. Returns one entry per kept call."""
+    held = []
+    for name, kept in (("q8_matmul", k1), ("flash_decode_int8", k2),
+                       ("flash_attention", k3)):
+        for study, index, args, kw, got, views in kept.kept:
+            ref = kept.plain(*args, **kw)
+            err = float((got.double() - ref.double()).abs().max())
+            ref_max = float(ref.double().abs().max())
+            if name == "q8_matmul":
+                ok, where = err == 0, {"m": args[0].shape[0], "n": args[1].shape[0],
+                                       "k": args[1].shape[1]}
+            elif name == "flash_decode_int8":
+                ok = bool(torch.allclose(got, ref, **K2_TOL))
+                lens, a1, b1 = (int(m[0]) for m in args[6][:3])
+                where = {"step": b1 - a1, "layer": args[7], "s": args[2].shape[2],
+                         "prompt_pad": a1, "length": lens}
+            else:
+                ok = bool(torch.allclose(got.float(), ref.float(), **K3_TOL["bfloat16"]))
+                where = {"layer": index, "t": args[0].shape[1], "length": int(args[3][0]),
+                         "qkv_views": views}
+            held.append({"kernel": name, "study": study, **where, "max_abs_err": err,
+                         "ref_max": ref_max, "ok": ok})
+    return held
+
+
+def phase_eval(torch, pipeline_mod, tq8, tfd, tfa):
+    """The evaluation harness at Vicuna-7B width through the port's eval
+    command line (apps/evaluate.py main, the root test.py's counterpart):
+    synthetic W8A8 weights, int8 KV, image embeddings, the report pass over
+    the first EVAL_STUDIES test studies of tests/fixtures (one batch, 300 new
+    tokens), the batch-1 correction pass (256 new tokens a study), the
+    binary-QA and all-QA passes, CheXbert labels, the four files. Launches of
+    K1, K2 and K3 over the whole run; K3 exactly as models/llama.py
+    _use_flash predicts from the prompts that reached generate_texts.
+
+    The correction pass's shapes come from the reports the run writes, so
+    besides the kernel phases' cases at those shapes, the kernels are held
+    on the run's own inputs there: in the first and the last study, K1's
+    first call of each weight in the prefill and at batch-1 decode
+    (bitwise), K3 at layers 0, 8, 16 and 24 of the cache-free prefill
+    (K3_TOL; each entry says which of q, k, v came as views) and K2 at
+    decode steps 0 (layer
+    0), 128 (layer 16) and 254 (the last of a full turn, layer 31; K2_TOL),
+    each against its plain version after the run."""
+    import shutil
+    from pathlib import Path
+    from radialog_tpu_torch.apps import evaluate as ev
+    out_dir = Path("build/chip_eval")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    made, calls, state = [], [], {"corr": None}
+
+    def timed(real, cfg):
+        p = real(cfg)
+        made.append(p)
+        gen, lab = p.generate_texts, p.label_reports
+
+        def generate_texts(prompts, img_embs=None, max_new_tokens=None, **kw):
+            t0 = time.time()
+            if max_new_tokens == ev.CORRECTION_NEW:
+                state["corr"] = sum(c.get("new") == ev.CORRECTION_NEW for c in calls)
+            try:
+                out = gen(prompts, img_embs=img_embs, max_new_tokens=max_new_tokens, **kw)
+                torch.cuda.synchronize()
+            finally:
+                state["corr"] = None
+            calls.append({"prompts": list(prompts), "embs": img_embs, "new": max_new_tokens,
+                          "s": time.time() - t0, "out": out})
+            return out
+
+        def label_reports(texts, *a, **kw):
+            t0 = time.time()
+            out = lab(texts, *a, **kw)
+            torch.cuda.synchronize()
+            calls.append({"labels": len(texts), "s": time.time() - t0})
+            return out
+        p.generate_texts, p.label_reports = generate_texts, label_reports
+        return p
+
+    held_studies = (0, EVAL_STUDIES - 1)
+    seen_n = set()
+
+    def pick_k1(st, index, args):
+        if st["corr"] not in held_studies:
+            return False
+        key = (st["corr"], args[0].shape[0] > 1, tuple(args[1].shape))
+        if key in seen_n:
+            return False
+        seen_n.add(key)
+        return True
+    k1 = _Kept(tq8.q8_matmul_int32, tq8.q8_matmul_int32_plain, state, pick_k1)
+    def pick_k2(st, index, args):
+        layers = made[0].llama_cfg.num_layers
+        return st["corr"] in held_studies and divmod(index, layers) in (
+            (0, 0), (128, layers // 2), (CORR_NEW - 2, layers - 1))
+    k2 = _Kept(tfd.flash_decode_int8_kernel, tfd.flash_decode_int8_plain, state, pick_k2)
+    k3 = _Kept(tfa.flash_attention_kernel, tfa.flash_attention_plain, state,
+               lambda st, i, a: st["corr"] in held_studies and i % 8 == 0)
+    counted = {"q8_matmul": k1, "flash_decode_int8": k2, "flash_attention": k3}
+    argv = _eval_argv(["--synthetic", "--int8"], out_dir, EVAL_STUDIES, NEW)
+    tq8.q8_matmul_int32, tfd.flash_decode_int8_kernel, tfa.flash_attention_kernel = k1, k2, k3
+    try:
+        with _eval_pipelines(ev, timed):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            results = ev.main(argv)
+            torch.cuda.synchronize()
+            seconds = time.time() - t0
+            launches = {name: fn.launches for name, fn in counted.items()}
+    finally:
+        tq8.q8_matmul_int32, tfd.flash_decode_int8_kernel = k1.kernel, k2.kernel
+        tfa.flash_attention_kernel = k3.kernel
+    pipe = made[0]
+    held = _eval_holds(torch, k1, k2, k3)
+    gens = [c for c in calls if "new" in c]
+    by = {n: [c for c in gens if c["new"] == n] for n in (NEW, ev.CORRECTION_NEW, 10, 30)}
+    k3_want = pipe.llama_cfg.num_layers * sum(_k3_forwards(pipeline_mod, pipe, c["prompts"],
+                                                           c["embs"]) for c in gens)
+    corr_tokens = [len(pipe.tokenizer(c["prompts"][0])["input_ids"]) for c in by[ev.CORRECTION_NEW]]
+    files_ok, files = _eval_outputs(out_dir, results, EVAL_STUDIES)
+    per_pass = {"report": sum(c["s"] for c in by[NEW]),
+                "correction_per_study": [c["s"] for c in by[ev.CORRECTION_NEW]],
+                "binary_qa": sum(c["s"] for c in by[10]), "all_qa": sum(c["s"] for c in by[30]),
+                "labels": sum(c["s"] for c in calls if "labels" in c)}
+    kinds = {(h["kernel"], h["study"]) for h in held}
+    ok = (files_ok and len(gens) == sum(len(x) for x in by.values())
+          and len(by[NEW]) == 1 and len(by[ev.CORRECTION_NEW]) == EVAL_STUDIES
+          and len(by[10]) == EVAL_STUDIES
+          and all(o.startswith(p) for c in gens for o, p in zip(c["out"], c["prompts"]))
+          and launches["q8_matmul"] > 0 and launches["flash_decode_int8"] > 0
+          and launches["flash_attention"] == k3_want > 0
+          and all(h["ok"] for h in held)
+          and kinds == {(k, s) for k in counted for s in held_studies})
+    emit("eval", seconds=seconds, seconds_per_pass=per_pass,
+         seconds_per_study={"report": per_pass["report"] / EVAL_STUDIES,
+                            "correction": sum(per_pass["correction_per_study"]) / EVAL_STUDIES,
+                            "binary_qa": per_pass["binary_qa"] / EVAL_STUDIES,
+                            "all_qa": per_pass["all_qa"] / EVAL_STUDIES},
+         studies=EVAL_STUDIES, argv=argv, launches=launches, k3_predicted=k3_want,
+         report_prompt_tokens=[len(pipe.tokenizer(p)["input_ids"]) for p in by[NEW][0]["prompts"]],
+         correction_prompt_tokens=corr_tokens,
+         correction_prefill_rows=[-(-n // 8) * 8 for n in corr_tokens],
+         held_on_the_run_s_inputs=held, metrics=results, ok=ok, **files)
+    if not ok:
+        raise AssertionError("the full-width eval phase failed a check")
+    made.clear()
+    k1.kept.clear(), k2.kept.clear(), k3.kept.clear()
+    return launches
+
+
 def _serve_requests(pipe, embs, n, seed):
     """n image prompts of 100-250 tokens (BOS included): words, the <IMG>
     run, words; each with one row of the pipeline's own image embeddings."""
@@ -1967,6 +2337,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches, defer_launches, sl = phase_slice(torch, te, pipeline_mod, tq8, tfd)
     qa_launches = phase_qa(torch, tq8, tfd, tfa, sl)
+    eval_launches = phase_eval(torch, pipeline_mod, tq8, tfd, tfa)
+    gc.collect()                            # the eval run's pipeline
+    torch.cuda.empty_cache()
     serve_launches, serve4_launches = phase_serve(torch, tq8, tfd, tfa, tq4, sl)
     del sl                                  # the serving weights make room for the trainer's
     gc.collect()                            # the servers' reference cycles hold their params
@@ -1982,9 +2355,13 @@ def main() -> int:
          "bound_ms_m16": k1["bound_ms_m16"], "ms_prefill": k1["ms_prefill"],
          "library_ms_prefill": k1["library_ms_prefill"],
          "bound_ms_prefill": k1["bound_ms_prefill"],
+         **{k: v for k, v in k1.items() if k.endswith(("_m1", "_correction_prefill"))},
+         "launches_eval": eval_launches["q8_matmul"],
          "work": "one decoder layer's 4 projections at decode, M=56 (report batch); "
                  "ms_m16 and bound_ms_m16: the same at the serve phase's 16 lanes; "
-                 "*_prefill: the same at the report prefill's M=4480"},
+                 "*_prefill: the same at the report prefill's M=4480; *_m1: at batch-1 "
+                 "decode; *_correction_prefill: at the correction prefill's M=440; "
+                 "launches_eval: the eval phase's"},
         {"name": "flash_decode_int8", "route": "cuda",
          "source": "radialog_tpu_torch/csrc/flash_decode.cu",
          "replaces": "radialog_tpu/ops/flash_decode.py:128",
@@ -1994,10 +2371,14 @@ def main() -> int:
          **{k: v for k, v in k2.items() if k.endswith(("_qa", "device_ms", "read_flush_ms"))
             or k == "plan"},
          "launches_qa": qa_launches["flash_decode_int8"],
+         **{k: v for k, v in k2.items() if k.endswith("_correction")},
+         "launches_eval": eval_launches["flash_decode_int8"],
          "work": "one layer at decode step 150, B=56, S=384, P0=48; prefix_device_ms and "
                  "lane_device_ms: the card's own time of the two kernels; read_flush_ms: the "
                  "L2 flushed by a read; *_qa: the binary-QA pass's shape, B=14, 427 of 448 "
-                 "prefix rows, S=128, step 9, and the qa phase's launches"},
+                 "prefix rows, S=128, step 9, and the qa phase's launches; *_correction: the "
+                 "correction decode's, B=1, no prefix, S=768, step 128; launches_eval: the "
+                 "eval phase's"},
         {"name": "flash_decode_int8_intervals", "route": "cuda",
          "source": "radialog_tpu_torch/csrc/flash_decode.cu",
          "replaces": "radialog_tpu/ops/flash_decode.py:521",
@@ -2017,9 +2398,13 @@ def main() -> int:
          "bound_by": k3["bound_by"], "library_ms": k3["library_ms"],
          "ms_train": k3["ms_train"],
          "library_ms_train": k3["library_ms_train"], "bound_ms_train": k3["bound_ms_train"],
+         **{k: v for k, v in k3.items() if k.endswith("_correction")},
+         "launches_eval": eval_launches["flash_attention"],
          "work": "one layer's binary-QA prefix attention, B=1, T=S=431, H=32, D=128, bf16, "
                  "causal, q/k/v views of the fused projection; launches of the qa phase; "
-                 "*_train: the train phase's shape, B=2, T=S=600, lengths 600 and 413",
+                 "*_train: the train phase's shape, B=2, T=S=600, lengths 600 and 413; "
+                 "*_correction: the correction prefill's, B=1, T=S=440, length 437; "
+                 "launches_eval: the eval phase's",
          "launches_train": train_launches["flash_attention"]},
         {"name": "q4_matmul", "route": "cuda", "source": "radialog_tpu_torch/csrc/q4_matmul.cu",
          "replaces": "radialog_tpu/ops/q4_matmul.py:177",

@@ -1,14 +1,20 @@
-"""Clinical-efficacy (CE) scores of CheXbert labels, numpy only (port of
-radialog_tpu/eval/ce_metrics.py: ``ce_metrics``, ``_prf``,
-``map_labels_for_scoring`` and the two column orders, copied).
+"""Clinical-efficacy (CE) scores of CheXbert labels and the evaluation's
+CSV writers, numpy only (port of radialog_tpu/eval/ce_metrics.py, copied).
 
-Scoring maps NaN -> 0 and -1 -> 0 on both sides, then takes macro
-F1/precision/recall, samples-F1 and the mean per-class accuracy
-(sklearn's definitions, zero_division=0).
+  * predictions CSV: one double-quoted report per line, inner quotes
+    dropped;
+  * labels CSV: ``findings`` and the 14 CheXbert condition columns, the
+    labeler's 4 classes mapped 0 -> blank (NaN), 1 -> 1, 2 -> 0, 3 -> -1,
+    written as ``f"{v:.1f}"``;
+  * scoring maps NaN -> 0 and -1 -> 0 on both sides, then takes macro
+    F1/precision/recall, samples-F1 and the mean per-class accuracy
+    (sklearn's definitions, zero_division=0).
 """
 from __future__ import annotations
 
-from typing import Dict
+import csv
+from pathlib import Path
+from typing import Dict, List, Sequence, Union
 
 import numpy as np
 
@@ -27,6 +33,54 @@ CHEXPERT_COLS = [
     "Atelectasis", "Pneumothorax", "Pleural Effusion", "Pleural Other",
     "Fracture", "Support Devices",
 ]
+
+
+def write_predictions_csv(reports: Sequence[str], path: Union[str, Path]) -> None:
+    """'"' + report without its double quotes + '"' per line."""
+    with open(path, "w") as f:
+        for r in reports:
+            f.write('"' + r.replace('"', "") + '"\n')
+
+
+def class_ids_to_label_matrix(class_ids: np.ndarray) -> np.ndarray:
+    """CheXbert's 4-class output (N, 14) in {0: blank, 1: pos, 2: neg,
+    3: uncertain} -> floats in {NaN, 1, 0, -1}."""
+    out = np.full(class_ids.shape, np.nan, np.float64)
+    out[class_ids == 1] = 1.0
+    out[class_ids == 2] = 0.0
+    out[class_ids == 3] = -1.0
+    return out
+
+
+def write_labels_csv_from_raw(mat: np.ndarray, findings: Sequence[str],
+                              path: Union[str, Path]) -> None:
+    """Labels (N, 14) in {NaN, 1, 0, -1}, CHEXBERT_CONDITIONS order, as a
+    labels CSV: columns [findings] + CHEXBERT_CONDITIONS, each value as
+    f"{v:.1f}", a blank for NaN."""
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["findings"] + CHEXBERT_CONDITIONS)
+        for text, row in zip(findings, mat):
+            w.writerow([text] + ["" if np.isnan(v) else f"{v:.1f}" for v in row])
+
+
+def write_labels_csv(class_ids: np.ndarray, findings: Sequence[str],
+                     path: Union[str, Path]) -> None:
+    """The labeler's class ids as a labels CSV."""
+    write_labels_csv_from_raw(class_ids_to_label_matrix(np.asarray(class_ids)), findings, path)
+
+
+def read_labels_csv(path: Union[str, Path], cols: List[str] = CHEXPERT_COLS) -> np.ndarray:
+    """A labels CSV back into (N, 14) floats in ``cols`` order, blanks NaN."""
+    with open(path, newline="") as f:
+        rows = list(csv.DictReader(f))
+    out = np.full((len(rows), len(cols)), np.nan, np.float64)
+    for i, r in enumerate(rows):
+        for j, c in enumerate(cols):
+            v = r.get(c, "")
+            if v not in ("", None):
+                out[i, j] = float(v)
+    return out
 
 
 def map_labels_for_scoring(labels: np.ndarray) -> np.ndarray:

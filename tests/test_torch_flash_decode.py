@@ -123,12 +123,14 @@ def test_long_shared_prefix_matches_pallas_interpret():
 # slots). The model below repeats that order in PyTorch; it agrees with the
 # plain version to f32 rounding. Shapes: the report's decode (B=56, P0=48,
 # S=384), the binary-QA pass (B=14, 427 of 448 prefix rows, S=128), the
-# serving ring (B=16, S=384, per-lane intervals), the mock model (H=4,
+# serving ring (B=16, S=384, per-lane intervals), the correction decode
+# (B=1, no prefix, S=768: 12 blocks over 6 splits), the mock model (H=4,
 # D=16). The data keep the heads few; the plans are the full widths' own.
 ORDER_TOL = dict(atol=1e-5, rtol=1e-5)
 
 PLAN_SHAPES = {"report": (56, 32, 128, 384, 64), "qa": (14, 32, 128, 128, 64),
                "ring": (16, 32, 128, 384, 64), "follow_up": (1, 32, 128, 448, 64),
+               "correction": (1, 32, 128, 768, 64),
                "mock": (6, 4, 16, 128, 64), "odd_d": (3, 4, 12, 96, 32)}
 
 
@@ -271,7 +273,8 @@ def _ring_masks(b, p, ring):
     return (lens,) + tuple(x.to(torch.int32) for x in (a1, b1, a2, b2))
 
 
-@pytest.mark.parametrize("case", ["report", "report_current", "qa", "ring", "mock"])
+@pytest.mark.parametrize("case", ["report", "report_current", "qa", "ring", "correction",
+                                  "mock"])
 def test_split_merge_model_matches_plain(case):
     heads = 2                     # data heads; the plans below are the full widths'
     if case.startswith("report"):
@@ -283,6 +286,10 @@ def test_split_merge_model_matches_plain(case):
     elif case == "ring":
         b, d, s, p0, p0p = 16, 128, 384, 0, 0
         plan = tfd._plan(b, 32, d, s, 64)
+    elif case == "correction":    # one lane, no prefix, 12 blocks over 6 splits
+        b, d, s, p0, p0p, t1, step = 1, 128, 768, 0, 0, 440, 255
+        plan = tfd._plan(b, 32, d, s, 64)
+        assert plan.splits == 6 and plan.per == 2
     else:
         b, d, s, p0, p0p, t1, step, heads = 6, 16, 128, 48, 48, 40, 30, 4
         plan = tfd._plan(b, heads, d, s, 64)
@@ -292,7 +299,7 @@ def test_split_merge_model_matches_plain(case):
     else:
         lens = torch.full((b,), t1, dtype=torch.int32)
         lens[::3] = t1 - 7
-        lens[1] = 0
+        lens[1:2] = 0
         masks = tfd.slot_masks(lens, t1, step)
     current = None
     if case == "report_current":

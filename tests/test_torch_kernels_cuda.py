@@ -52,7 +52,11 @@ VICUNA_KN = [(4096, 12288), (4096, 4096), (4096, 22016), (11008, 4096), (4096, 3
                                    (16, 4096, 32001), (256, 11008, 4096)]
                          + [(4480, k, n) for k, n in VICUNA_KN]
                          + [(m, 4096, 4096) for m in (1, 16, 64, 65, 128)]
-                         + [(m, 11008, 4096) for m in (1, 16, 64, 65, 128)])
+                         + [(m, 11008, 4096) for m in (1, 16, 64, 65, 128)]
+                         # the eval's batch-1 decode and its correction prefills
+                         # (440 and 448 rows: a partial last 64-row tile)
+                         + [(1, k, n) for k, n in VICUNA_KN[2:]]
+                         + [(m, k, n) for m in (440, 448) for k, n in VICUNA_KN])
 def test_q8_kernel_matches_plain(card, m, k, n):
     g = torch.Generator(device=card).manual_seed(m + n)
     x8 = torch.randint(-127, 128, (m, k), generator=g, device=card, dtype=torch.int8)
@@ -125,6 +129,25 @@ def _k2_twice(fn):
     torch.cuda.synchronize()
     assert torch.equal(first, again)
     return first
+
+
+@pytest.mark.parametrize("step", [0, 128, 255])
+def test_flash_decode_kernel_correction_decode(card, step):
+    """The eval's batch-1 correction decode at full width: one lane, no
+    prefix, a 437-token prompt padded to 440 slots in a 768-slot cache, so
+    32 heads on 132 SMs split each (head, lane) over 6 blocks of 2 blocks of
+    64 slots in one cluster."""
+    g = torch.Generator(device=card).manual_seed(step)
+    k8, ks, v8, vs = _int8_cache(g, card, 2, 1, 768, 32, 128)
+    assert tfd._plan(1, 32, 128, 768, tfd.default_bs(768)).splits == 6
+    q8, qs = tfd.quantize_q(torch.randn((1, 32, 128), generator=g, device=card) * 2)
+    lens = torch.full((1,), 437, dtype=torch.int32, device=card)
+    args = (q8, qs, k8, ks, v8, vs, tfd.slot_masks(lens, 440, step), 1, 128 ** -0.5,
+            tfd.default_bs(768))
+    got = _k2_twice(lambda: tfd.flash_decode_int8_kernel(*args))
+    ref = tfd.flash_decode_int8_plain(*args)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, ref, atol=2e-3, rtol=2e-3)
 
 
 # (lanes, heads, head dim, slots, shared prefix rows): split plans at small
@@ -219,6 +242,9 @@ K3_TOL = {torch.bfloat16: dict(atol=1e-2, rtol=1e-2), torch.float32: dict(atol=1
     (1, 431, 32, 128, torch.bfloat16, True, False),
     (1, 433, 32, 128, torch.bfloat16, True, False),
     (1, 436, 32, 128, torch.bfloat16, True, False),
+    (1, 440, 32, 128, torch.bfloat16, True, [437]),           # the eval's correction prefills
+    (1, 448, 32, 128, torch.bfloat16, True, [442]),
+    (1, 448, 32, 128, torch.bfloat16, True, [445]),
     (12, 448, 32, 128, torch.bfloat16, True, True),
     (2, 300, 4, 16, torch.float32, True, True),
     (2, 300, 4, 128, torch.float32, False, True),

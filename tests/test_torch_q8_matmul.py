@@ -82,7 +82,9 @@ def test_q8_matmul_matches_pallas_interpret_bitwise(m, k, n):
 # the Vicuna-7B projections (K, N) and the rows of the main paths: serve
 # decode lanes, report decode, all-QA lanes, a full admission, report prefill
 VICUNA = [(4096, 12288), (4096, 4096), (4096, 22016), (11008, 4096), (4096, 32001)]
-ROWS = [1, 16, 48, 56, 64, 65, 128, 256, 4480]
+# 440, 448: the correction prefills at full width (437-445 tokens padded to
+# a multiple of 8); 456, 472: partial last 64-row tiles beyond them
+ROWS = [1, 16, 48, 56, 64, 65, 128, 256, 440, 448, 456, 472, 4480]
 
 
 def test_split_rule_fills_the_card_at_decode():

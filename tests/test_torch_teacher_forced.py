@@ -15,6 +15,12 @@ max_position 512, W8A8, int8 KV, FP32, weights through the bridge:
   binary_qa  three lanes of 4-6 tokens after a 268-token shared prefix that
              holds the image: prefix prefill (plain K3 in the port), the
              remainder prefill over it, then decode over the int8 prefix
+  correction one 160-token prompt with the image and no shared prefix, as
+             the evaluation's batch-1 correction turn has it at the mock's
+             size (below 256 tokens: the prefill without K3), decoded for
+             48 steps so the cache fills well past the prompt (the whole
+             256-step turns, on the prompts run_eval builds, at weight
+             seeds 0-23: test_torch_eval_corrections.py)
 
 The JAX decode takes its flash-decode kernel in Pallas interpret mode.
 
@@ -42,6 +48,7 @@ import test_torch_llama as tll
 
 CJ, CT = tll.CFG512_J, tll.CFG512_T
 NEW = 6
+CORRECTION_NEW = 48
 BOUND = {"max": 0.25, "mean": 0.025}
 
 
@@ -60,8 +67,9 @@ def _jax_prefix(qp, lora, prefix, embs, p0):
 
 def _case(mode, seed):
     rng = np.random.default_rng(100 + seed)
-    if mode == "follow_up":
-        b, p0, t = 1, 0, 272
+    new = CORRECTION_NEW if mode == "correction" else NEW
+    if mode in ("follow_up", "correction"):
+        b, p0, t = 1, 0, 272 if mode == "follow_up" else 160
         tokens, lengths, embs = tll._prompt(1, t, 100 + seed)
     else:
         b, p0, t = 3, 268, 6
@@ -69,8 +77,8 @@ def _case(mode, seed):
         prefix = prefix[0]
         tokens = rng.integers(3, 240, (b, t)).astype(np.int32)
         lengths = np.asarray([6, 5, 4], np.int32)
-    forced = rng.integers(3, 240, (b, NEW)).astype(np.int32)
-    cache_len = -(-(t + NEW) // 8) * 8 + 8
+    forced = rng.integers(3, 240, (b, new)).astype(np.int32)
+    cache_len = -(-(t + new) // 8) * 8 + 8
     return b, p0, t, tokens, lengths, embs, (prefix if p0 else None), forced, cache_len
 
 
@@ -98,7 +106,7 @@ def _jax_logits(qp, lora, b, p0, t, tokens, lengths, embs, prefix, forced, cache
             shared_kv=shared_c, shared_p0=p0 if p0 else None)
 
     out = [np.asarray(first)]
-    for step in range(NEW - 1):
+    for step in range(forced.shape[1] - 1):
         lg, cache = step_fn(cache, jnp.asarray(forced[:, step]), jnp.asarray(step))
         out.append(np.asarray(lg[:, 0]))
     return np.stack(out, 1)
@@ -118,20 +126,20 @@ def _port_logits(tp, tlora, b, p0, t, tokens, lengths, embs, prefix, forced, cac
         first = first[:, 0]
         kw = dict(shared_kv=te.quantize_prefix(shared), pos_offset=p0, shared_p0=p0)
     out = [first.numpy()]
-    for step in range(NEW - 1):
+    for step in range(forced.shape[1] - 1):
         out.append(te.decode_step(tp, CT, cache, torch.from_numpy(forced[:, step]), lens, t,
                                   step, lora=tlora, **kw).numpy())
     return np.stack(out, 1)
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2, 3])
-@pytest.mark.parametrize("mode", ["follow_up", "binary_qa"])
+@pytest.mark.parametrize("mode", ["follow_up", "binary_qa", "correction"])
 def test_teacher_forced_logits_match_jax_at_any_seed(monkeypatch, mode, seed):
     monkeypatch.setenv("RADIALOG_FLASH_DECODE_FORCE", "interpret")
     qp, lora, tp, tlora, _ = tll.models(seed)
     case = _case(mode, seed)
     ref = _jax_logits(qp, lora, *case)
     got = _port_logits(tp, tlora, *case)
-    assert got.shape == ref.shape == (case[0], NEW, CT.vocab_size)
+    assert got.shape == ref.shape == (case[0], case[-2].shape[1], CT.vocab_size)
     err = np.abs(got - ref)
     assert err.max() < BOUND["max"] and err.mean() < BOUND["mean"], (err.max(), err.mean())
