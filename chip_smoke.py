@@ -54,7 +54,9 @@ each; any failing phase exits non-zero:
           with T=S=448 and lengths 300-448, and the qa phase's B=1 shapes
           T=S in {431, 436} and the eval phase's correction prefills (437
           of 440 and 445 of 448 rows) with q/k/v as views of one fused
-          projection,
+          projection, the float phase's binary-QA batch (B=14, T=S=440,
+          lengths 431-440) and correction prefill (437 of 440) with q/k/v
+          contiguous,
           the train phase's shape (B=2, T=S=600, lengths 600 and 413); and
           H=4, D=16, f32, B=2, T=300; each line names the kernel that ran
           (TMA + wgmma for bf16 at D 64 and 128); times, with
@@ -105,7 +107,11 @@ each; any failing phase exits non-zero:
           (apps/evaluate.py main) over the mock at W8A8 on the CPU and on the
           card from the same weights, and at W4A8 on the card (K4 launched):
           its four files, finite metrics, and per record the teacher-forced
-          logits of the report turn and of its correction turn at LOGIT_TOL
+          logits of the report turn and of its correction turn at LOGIT_TOL;
+          then the float mock (quantize=False: the stacked f32 tree over the
+          bf16 cache) on the card vs the CPU: embeddings, prefill and
+          teacher-forced logits of the report batch and of 2 prompts of
+          300+ tokens (K3) at FLOAT_LOGIT_TOL, no launch of K1, K2 or K4
   slice   the full-width pipeline (Vicuna-7B W8A8, 32 layers, int8 KV,
           BioViL-T at 448, BERT-base Q-Former, CheXpert classifier at 488)
           with random weights from a seeded generator: 56 uint8 X-rays,
@@ -144,6 +150,25 @@ each; any failing phase exits non-zero:
           is checked; aggregate tokens/s, seconds to the first token, peak
           memory. Then 16 sessions x 32 tokens with W4A8 layers (K4 128
           times and K1 once per forward)
+  float   the float path at full width (PipelineConfig(quantize=False), the
+          JAX package's default): Vicuna-7B bf16 in the stacked layout over
+          the bf16 cache, random from a seed, with the slice's vision models.
+          The report pass (56 images, 128-token prompts, 300 tokens, EOS
+          disabled, after a warm-up; reports/s, peak memory); the server on
+          its weights (the bf16 ring, 16 lanes, prompt region 256, ring 128,
+          8 steps a chunk, 16 sessions x 32 tokens of 100-250-token image
+          prompts from 4 client threads; tokens/s, first-token seconds);
+          ContinuousBatcher (4 lanes, 8 staggered sessions x 32 tokens, each
+          session's logits against the same session alone at batch 1,
+          teacher-forced with its tokens, within CB_TOL); then the eval
+          command line without --int8 (--synthetic --use_embs --do_corr
+          --do_cp_bin_qa --do_cp_all_qa over the first test study of
+          tests/fixtures, files under build/chip_eval_float/): seconds per
+          pass, the four files, finite metrics, K3 exactly as _use_flash
+          predicts (every cache-free prefill of 256+ tokens: the correction,
+          the 14-lane binary-QA batch, all-QA) and held against its plain
+          version on the run's own inputs in the correction prefill and the
+          binary-QA batch. No part launches K1, K2 or K4
   train   LoRA finetuning at full width through apps/finetune_lora.train:
           Vicuna-7B (32 layers), int8 frozen base, bf16 compute, LoRA rank 8
           on wq/wv plus img_proj, per-layer recomputation, micro-batch 2 x
@@ -207,7 +232,24 @@ QA_STUDIES, ALL_QA_STUDIES, LABELED, FOLLOW_UP_NEW = 2, 5, 16, 32
 # against its plain version on the inputs the run itself gave it there
 CORR_T, CORR_T2, CORR_LEN, CORR_LEN2, CORR_NEW, CORR_S = 440, 448, 437, 445, 256, 768
 EVAL_STUDIES = 3
+# the float path's binary-QA prefill: the 14 questions about one study as
+# 14 prompts of ~431-440 tokens (the float path shares no prefix), q, k and
+# v contiguous from the separate wq/wk/wv projections of the stacked layout
+FLOAT_QA_B, FLOAT_QA_T = 14, 440
+FLOAT_QA_LENS = list(range(431, 441)) + [433, 435, 437, 439]
 LOGIT_TOL = {"mean": 3e-2, "max": 0.3}   # why: phase_small's docstring
+FLOAT_LOGIT_TOL = {"mean": 2e-4, "max": 2e-3}   # why: _small_float's docstring
+# the float phase: eval studies; server sessions and new tokens (16 lanes,
+# prompt region 256, ring 128, 8 steps a chunk, as the serve phase);
+# ContinuousBatcher lanes, sessions, new tokens, cache slots a lane, and the
+# bound of a session's logits against the same session alone at batch 1:
+# bf16 GEMMs of 4 rows and of 1 round differently, which moved the logits
+# (std 1.0) by up to 0.090, 0.0147 on average, and put the batcher's token
+# up to 0.0625 below the lone run's largest logit (an H100 80GB HBM3 at
+# 700 W); the bound is ~3x that
+FLOAT_STUDIES, FLOAT_SESSIONS, FLOAT_NEW = 1, 16, 32
+CB_LANES, CB_SESSIONS, CB_NEW, CB_CACHE = 4, 8, 32, 320
+CB_TOL = {"max": 0.3, "mean": 0.05, "margin": 0.2}
 # the serve phase: lanes, prompt region, cache length (ring 128), steps per chunk
 LANES, PROMPT_REGION, CACHE_LEN, CHUNK = 16, 256, 384, 8
 SESSIONS, SESSION_NEW, CLIENTS = 32, 64, 4
@@ -705,7 +747,9 @@ def phase_k3(torch, tfa, flush):
     the eval phase's correction prefills (437 of 440 and 445 of 448 rows),
     with q/k/v read as views of one fused (B, T, 3*H*D) projection:
     the strided route, stricter than the dense q/k/v the eval run's
-    cache-free prefill hands over (phase eval holds those)."""
+    cache-free prefill hands over (phase eval holds those); and the float
+    path's own, q/k/v contiguous: its binary-QA batch (14 prompts of
+    431-440 tokens in 440 rows) and its correction prefill (437 of 440)."""
     shapes = [(1, 256, 32, 128, "bfloat16", False, False),
               (1, 256, 32, 128, "bfloat16", [230], True),
               (1, 448, 32, 128, "bfloat16", False, False),
@@ -715,10 +759,12 @@ def phase_k3(torch, tfa, flush):
               (1, 436, 32, 128, "bfloat16", False, True),
               (1, CORR_T, 32, 128, "bfloat16", [CORR_LEN], True),
               (1, CORR_T2, 32, 128, "bfloat16", [CORR_LEN2], True),
+              (FLOAT_QA_B, FLOAT_QA_T, 32, 128, "bfloat16", FLOAT_QA_LENS, False),
+              (1, CORR_T, 32, 128, "bfloat16", [CORR_LEN], False),
               (2, CUTOFF, 32, 128, "bfloat16", [CUTOFF, 413], False),
               (2, 300, 4, 16, "float32", True, False)]
     f = torch.nn.functional
-    summary, train, worst = None, None, 0.0
+    summary, train, worst, extra = None, None, 0.0, {}
     for i, (b, t, h, d, dt, ragged, fused) in enumerate(shapes):
         dtype = getattr(torch, dt)
         g = torch.Generator(device="cuda").manual_seed(30 + i)
@@ -767,12 +813,16 @@ def phase_k3(torch, tfa, flush):
                        "bound_ms": bound, "bound_by": by}
         if (b, t, dt) == (2, CUTOFF, "bfloat16"):
             train = {"ms_train": ms, "library_ms_train": lib_ms, "bound_ms_train": bound}
-        if (b, t, dt) == (1, CORR_T, "bfloat16"):
-            corr = {"ms_correction": ms, "plain_ms_correction": plain_ms,
-                    "library_ms_correction": lib_ms, "bound_ms_correction": bound}
+        for key, where in (("correction", (1, CORR_T, True)),
+                           ("float_qa", (FLOAT_QA_B, FLOAT_QA_T, False)),
+                           ("float_correction", (1, CORR_T, False))):
+            if (b, t, fused) == where and dt == "bfloat16":
+                extra[key] = {f"ms_{key}": ms, f"plain_ms_{key}": plain_ms,
+                              f"library_ms_{key}": lib_ms, f"bound_ms_{key}": bound}
     summary["max_abs_err"] = worst
     summary.update(train)
-    summary.update(corr)
+    for numbers in extra.values():
+        summary.update(numbers)
     return summary
 
 
@@ -1247,6 +1297,7 @@ def phase_small(torch, te, pipeline_mod, tq8, tfd, tfa, tq4):
     tq4.q4_matmul_acc, tfd.flash_decode_int8_current_kernel = k4, k2c
     try:
         _small_run(torch, te, pipeline_mod, cpu, gpu, k1, k2, k3, k2c)
+        _small_float(torch, te, pipeline_mod, k1, k2, k3, k4)
         _small_serve(torch, pipeline_mod, {8: (cpu, gpu)}, k1, k2, k4)
         _small_eval(torch, te, pipeline_mod, k1, k2, k4)
     finally:
@@ -1564,6 +1615,51 @@ def _small_run(torch, te, pipeline_mod, cpu, gpu, k1, k2, k3, k2c):
         raise AssertionError("card and CPU disagree on the mock pipeline")
 
 
+def _small_float(torch, te, pipeline_mod, k1, k2, k3, k4):
+    """The float mock (PipelineConfig(quantize=False): the stacked f32 tree
+    over the bf16 cache) on the card vs the same weights on the CPU, TF32
+    off: query embeddings, and prefill and teacher-forced decode logits of
+    the report batch and of 2 prompts of 300+ tokens (K3 in f32 at the
+    mock's shape, held on each card call). Nothing rounds to int8 on this
+    path, so the logits are held far tighter than the W8A8 mock's, at max
+    |err| < 2e-3 and mean |err| < 2e-4: the card sums f32 in another order
+    (~1e-6), and a K/V value on a bf16 rounding edge installs one bf16 step
+    apart, which moves logits by ~2e-5 a value (tests/test_torch_float_llama.py;
+    measured on an H100 80GB HBM3 at 700 W: max 2.3e-4, mean 5.9e-6); a
+    decode mask that leaves out the newest row moves them by up to 0.62,
+    0.061 on average (the report batch on the CPU)."""
+    from radialog_tpu_torch.ops.image import expand_cxr_u8
+    cfg = pipeline_mod.PipelineConfig(mock=True, quantize=False, device="cpu", seed=5)
+    cpu = pipeline_mod.RaDialogPipeline(cfg)
+    gpu = pipeline_mod.RaDialogPipeline(cfg).to("cuda")
+    u8 = torch.randint(0, 256, (4, 64, 64), generator=torch.Generator().manual_seed(0),
+                       dtype=torch.uint8)
+    e_cpu = cpu.embed_images(expand_cxr_u8(u8))
+    emb_err = float((gpu.embed_images(expand_cxr_u8(u8.cuda())).cpu() - e_cpu).abs().max())
+    before = [k.calls for k in (k1, k2, k3, k4)]
+    img = "<IMG> " * 32
+    cases = {"report": _small_case(torch, te, pipeline_mod, cpu, gpu,
+                                   _prompts(cpu.tokenizer, 4, 32), e_cpu),
+             "long": _small_case(torch, te, pipeline_mod, cpu, gpu,
+                                 [f"p{j} {img}" + " ".join(f"p{j}w{i}" for i in range(268))
+                                  for j in range(2)], e_cpu[:2])}
+    calls = dict(zip(("k1", "k2", "k3", "k4"),
+                     (k.calls - b for k, b in zip((k1, k2, k3, k4), before))))
+    emit("small_float", embed_max_abs_err=emb_err, logit_tol=FLOAT_LOGIT_TOL, cases=cases,
+         kernel_calls=calls, k3_max_abs_err=k3.err)
+    k3_tol = K3_TOL["float32"]
+    ok = (emb_err < 1e-3 and calls["k3"] == 2 * cpu.llama_cfg.num_layers
+          and k3.err <= k3_tol["atol"] + k3_tol["rtol"] * k3.ref_max
+          and calls["k1"] == calls["k2"] == calls["k4"] == 0
+          and isinstance(gpu.llama["layers"], dict)
+          and all(c["shared_prefix"] == 0
+                  and c["teacher_forced_logit_mean_abs_err"] < FLOAT_LOGIT_TOL["mean"]
+                  and c["teacher_forced_logit_max_abs_err"] < FLOAT_LOGIT_TOL["max"]
+                  for c in cases.values()))
+    if not ok:
+        raise AssertionError("card and CPU disagree on the float mock pipeline")
+
+
 def _ring_run(torch, p, requests, new, chunk):
     """The requests through RaDialogServer on pipeline p's device: int8
     ring of 32 slots behind a 64-slot prompt region, 2 lanes; two submits,
@@ -1675,12 +1771,12 @@ def _small_serve(torch, pipeline_mod, pipes, k1, k2, k4):
         raise AssertionError("card and CPU disagree on the mock pipeline's ring serving")
 
 
-def phase_slice(torch, te, pipeline_mod, tq8, tfd):
+def _report_batch(torch, pipe):
+    """The report batch of a full-width pipeline: BATCH seeded uint8 X-rays
+    and PROMPT-token prompts. Returns (prompts, ids, report_step), where
+    report_step(n) classifies the findings, embeds the images and decodes n
+    greedy tokens with EOS disabled."""
     from radialog_tpu_torch.ops.image import expand_cxr_u8
-    t0 = time.time()
-    pipe = pipeline_mod.RaDialogPipeline(pipeline_mod.PipelineConfig(synthetic=True, seed=0))
-    torch.cuda.synchronize()
-    build_s = time.time() - t0
     g = torch.Generator(device="cuda").manual_seed(3)
     xray448 = torch.randint(0, 256, (BATCH, 448, 448), generator=g, device="cuda",
                             dtype=torch.uint8)
@@ -1695,7 +1791,15 @@ def phase_slice(torch, te, pipeline_mod, tq8, tfd):
         embs = pipe.embed_images(expand_cxr_u8(xray448))
         dp = pipe.decode_params(max_new_tokens=new_tokens, eos_token_id=-1)
         return findings, embs, pipe.generate_ids(ids, embs, dp)
+    return prompts, ids, report_step
 
+
+def phase_slice(torch, te, pipeline_mod, tq8, tfd):
+    t0 = time.time()
+    pipe = pipeline_mod.RaDialogPipeline(pipeline_mod.PipelineConfig(synthetic=True, seed=0))
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    prompts, ids, report_step = _report_batch(torch, pipe)
     report_step(8)                      # warm-up: cuDNN plans, allocator
     counted = {"q8_matmul": tq8.q8_matmul_int32, "flash_decode_int8": tfd.flash_decode_int8_kernel,
                "flash_decode_int8_current": tfd.flash_decode_int8_current_kernel}
@@ -1826,19 +1930,20 @@ def _k3_forwards(pipeline_mod, pipe, prompts, embs) -> int:
     """Cache-free forwards of 256 tokens or more (each runs K3 once a
     layer) that pipe.generate_texts makes for these prompts, by the
     pipeline's and the engine's own rules: a shared prefix of
-    SHARED_PREFIX_MIN tokens or more is prefilled alone (prefix_kv), the
-    remainders over it with the cache; otherwise the padded batch is
-    prefilled without a cache below DIRECT_PREFILL_MIN_BATCH lanes."""
+    SHARED_PREFIX_MIN tokens or more (never on the float path) is
+    prefilled alone (prefix_kv), the remainders over it with the cache;
+    otherwise the padded batch is prefilled without a cache unless the
+    engine prefills it directly (decode/engine.py prefills_directly)."""
     import numpy as np
     from radialog_tpu_torch.apps.tokenization import pad_batch_right
-    from radialog_tpu_torch.decode.engine import DIRECT_PREFILL_MIN_BATCH
+    from radialog_tpu_torch.decode.engine import prefills_directly
     from radialog_tpu_torch.models.llama import _use_flash
     ids = [pipe.tokenizer(p)["input_ids"] for p in prompts]
     p0, _ = pipe._shared_prefix_len(ids, embs)
     if p0 >= pipeline_mod.SHARED_PREFIX_MIN:
         return int(_use_flash(np.asarray([p0]), p0))
     tokens, lengths = pad_batch_right(ids, pipe.tokenizer.pad_token_id)
-    direct = not pipe.cfg.use_kv_int8() or len(ids) >= DIRECT_PREFILL_MIN_BATCH
+    direct = prefills_directly(pipe.llama, len(ids), pipe.cfg.use_kv_int8())
     return int(not direct and _use_flash(lengths, tokens.shape[1]))
 
 
@@ -1875,13 +1980,12 @@ def _copy(x):
     return x.clone() if hasattr(x, "clone") else x
 
 
-def _eval_holds(torch, k1, k2, k3):
-    """Each kept call of the correction pass (prefill and decode) against its
-    plain version on the same inputs: K1 bitwise, K2 within K2_TOL, K3 within
-    K3_TOL. Returns one entry per kept call."""
+def _eval_holds(torch, kept_by_name):
+    """Each kept call of an eval run (a {kernel name: _Kept} dict) against
+    its plain version on the same inputs: K1 bitwise, K2 within K2_TOL, K3
+    within K3_TOL. Returns one entry per kept call."""
     held = []
-    for name, kept in (("q8_matmul", k1), ("flash_decode_int8", k2),
-                       ("flash_attention", k3)):
+    for name, kept in kept_by_name.items():
         for study, index, args, kw, got, views in kept.kept:
             ref = kept.plain(*args, **kw)
             err = float((got.double() - ref.double()).abs().max())
@@ -1896,11 +2000,46 @@ def _eval_holds(torch, k1, k2, k3):
                          "prompt_pad": a1, "length": lens}
             else:
                 ok = bool(torch.allclose(got.float(), ref.float(), **K3_TOL["bfloat16"]))
-                where = {"layer": index, "t": args[0].shape[1], "length": int(args[3][0]),
-                         "qkv_views": views}
+                where = {"layer": index, "b": args[0].shape[0], "t": args[0].shape[1],
+                         "lengths": [int(x) for x in args[3]], "qkv_views": views}
             held.append({"kernel": name, "study": study, **where, "max_abs_err": err,
                          "ref_max": ref_max, "ok": ok})
     return held
+
+
+def _timed_pipelines(torch, made, calls, state, label):
+    """A factory for ``_eval_pipelines``: the pipeline main builds, kept in
+    ``made``, whose generate_texts and label_reports calls are timed and
+    recorded in ``calls``. During a generate_texts call ``state["corr"]``
+    holds ``label(max_new_tokens, n)`` (n: the calls made before it with
+    the same max_new_tokens), by which ``_Kept`` picks the calls it keeps."""
+    def factory(real, cfg):
+        p = real(cfg)
+        made.append(p)
+        gen, lab = p.generate_texts, p.label_reports
+
+        def generate_texts(prompts, img_embs=None, max_new_tokens=None, **kw):
+            t0 = time.time()
+            state["corr"] = label(max_new_tokens,
+                                  sum(c.get("new") == max_new_tokens for c in calls))
+            try:
+                out = gen(prompts, img_embs=img_embs, max_new_tokens=max_new_tokens, **kw)
+                torch.cuda.synchronize()
+            finally:
+                state["corr"] = None
+            calls.append({"prompts": list(prompts), "embs": img_embs, "new": max_new_tokens,
+                          "s": time.time() - t0, "out": out})
+            return out
+
+        def label_reports(texts, *a, **kw):
+            t0 = time.time()
+            out = lab(texts, *a, **kw)
+            torch.cuda.synchronize()
+            calls.append({"labels": len(texts), "s": time.time() - t0})
+            return out
+        p.generate_texts, p.label_reports = generate_texts, label_reports
+        return p
+    return factory
 
 
 def phase_eval(torch, pipeline_mod, tq8, tfd, tfa):
@@ -1928,33 +2067,9 @@ def phase_eval(torch, pipeline_mod, tq8, tfd, tfa):
     out_dir = Path("build/chip_eval")
     shutil.rmtree(out_dir, ignore_errors=True)
     made, calls, state = [], [], {"corr": None}
-
-    def timed(real, cfg):
-        p = real(cfg)
-        made.append(p)
-        gen, lab = p.generate_texts, p.label_reports
-
-        def generate_texts(prompts, img_embs=None, max_new_tokens=None, **kw):
-            t0 = time.time()
-            if max_new_tokens == ev.CORRECTION_NEW:
-                state["corr"] = sum(c.get("new") == ev.CORRECTION_NEW for c in calls)
-            try:
-                out = gen(prompts, img_embs=img_embs, max_new_tokens=max_new_tokens, **kw)
-                torch.cuda.synchronize()
-            finally:
-                state["corr"] = None
-            calls.append({"prompts": list(prompts), "embs": img_embs, "new": max_new_tokens,
-                          "s": time.time() - t0, "out": out})
-            return out
-
-        def label_reports(texts, *a, **kw):
-            t0 = time.time()
-            out = lab(texts, *a, **kw)
-            torch.cuda.synchronize()
-            calls.append({"labels": len(texts), "s": time.time() - t0})
-            return out
-        p.generate_texts, p.label_reports = generate_texts, label_reports
-        return p
+    timed = _timed_pipelines(
+        torch, made, calls, state,
+        lambda new, n: n if new == ev.CORRECTION_NEW else None)
 
     held_studies = (0, EVAL_STUDIES - 1)
     seen_n = set()
@@ -1990,7 +2105,7 @@ def phase_eval(torch, pipeline_mod, tq8, tfd, tfa):
         tq8.q8_matmul_int32, tfd.flash_decode_int8_kernel = k1.kernel, k2.kernel
         tfa.flash_attention_kernel = k3.kernel
     pipe = made[0]
-    held = _eval_holds(torch, k1, k2, k3)
+    held = _eval_holds(torch, counted)
     gens = [c for c in calls if "new" in c]
     by = {n: [c for c in gens if c["new"] == n] for n in (NEW, ev.CORRECTION_NEW, 10, 30)}
     k3_want = pipe.llama_cfg.num_layers * sum(_k3_forwards(pipeline_mod, pipe, c["prompts"],
@@ -2045,8 +2160,9 @@ def _serve_requests(pipe, embs, n, seed):
     return out
 
 
-def _serve_run(torch, counted, params, pipe, requests, new, clients, bad=None):
-    """One server over ``params``: warm-up, then ``clients`` threads submit
+def _serve_run(torch, counted, params, pipe, requests, new, clients, bad=None, kv_int8=True):
+    """One server over ``params`` and the int8 ring (or, without
+    ``kv_int8``, the bf16 one): warm-up, then ``clients`` threads submit
     the requests (each streams its deltas) and, with ``bad``, one oversized
     prompt. Returns the numbers and whether every check held."""
     import threading
@@ -2057,7 +2173,7 @@ def _serve_run(torch, counted, params, pipe, requests, new, clients, bad=None):
     srv = RaDialogServer(params, cfg, lanes=LANES, cache_len=CACHE_LEN,
                          prompt_len=PROMPT_REGION,
                          dp=DecodeParams(max_new_tokens=new, eos_token_id=-1), lora=pipe.lora,
-                         policy=pipe.policy, steps_per_call=CHUNK, kv_int8=True,
+                         policy=pipe.policy, steps_per_call=CHUNK, kv_int8=kv_int8,
                          device=pipe.device)
     rb = srv._rb
     results, streamed, first_s, errors = {}, {}, {}, []
@@ -2116,7 +2232,7 @@ def _serve_run(torch, counted, params, pipe, requests, new, clients, bad=None):
                   and streamed[j][-1][1] for j in results)
           and all(0 <= x < cfg.vocab_size for r in results.values() for x in r)
           and (bad is None or (bad_error is not None and "prompt region" in bad_error))
-          and launches["flash_decode_int8"] == cfg.num_layers * steps
+          and launches["flash_decode_int8"] == (cfg.num_layers * steps if kv_int8 else 0)
           and launches["flash_attention"] == cfg.num_layers * k3_prefills
           and len(firsts) == len(requests) and rb.active_lanes == 0 and not rb.finished)
     numbers = {"sessions": len(requests), "new_tokens": new, "clients": clients,
@@ -2164,6 +2280,253 @@ def phase_serve(torch, tq8, tfd, tfa, tq4, sl):
     if not ok4:
         raise AssertionError("the full-width serve phase (W4A8) failed a check")
     return w8["launches"], w4["launches"]
+
+
+def _tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_tree_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+def _float_report(torch, pipe, counted):
+    """The float report pass: BATCH images, PROMPT-token prompts, NEW greedy
+    tokens with EOS disabled, after a warm-up. Returns (numbers, ok, embs)."""
+    from radialog_tpu_torch.decode.engine import default_cache_len
+    cfg = pipe.llama_cfg
+    _, ids, report_step = _report_batch(torch, pipe)
+    report_step(8)                      # warm-up: cuDNN plans, allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero(counted)
+    t0 = time.time()
+    findings, embs, res = report_step(NEW)
+    tokens = res.tokens.cpu()
+    dt = time.time() - t0
+    launches = _read(counted)
+    cache_len = default_cache_len(PROMPT, pipe.decode_params(max_new_tokens=NEW))
+    ok = (tokens.shape == (BATCH, NEW) and int(tokens.min()) >= 0
+          and int(tokens.max()) < cfg.vocab_size and all(res.lengths.cpu() == NEW)
+          and bool(torch.isfinite(embs).all()) and embs.shape == (BATCH, 32, 768)
+          and len(findings) == BATCH and all(v == 0 for v in launches.values())
+          and isinstance(pipe.llama["layers"], dict)
+          and pipe.llama["layers"]["wq"]["w"].dtype == torch.bfloat16
+          and pipe._shared_prefix_len(ids, embs) == (0, False))
+    cache_bytes = 2 * cfg.num_layers * BATCH * cache_len * cfg.hidden_size * 2
+    # a decode step reads every weight but the embedding table, and the
+    # whole cache, once
+    step_bytes = _tree_bytes({k: v for k, v in pipe.llama.items() if k != "embed"}) + cache_bytes
+    numbers = {"reports_per_s": BATCH / dt, "seconds": dt, "batch": BATCH, "prompt": PROMPT,
+               "new_tokens": NEW, "cache_len": cache_len, "launches": launches,
+               "ms_per_token_all_stages": dt / NEW * 1e3, "cache_gb": cache_bytes / 1e9,
+               "decode_step_bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "distinct_tokens": int(tokens.unique().numel())}
+    return numbers, ok, embs
+
+
+def _float_continuous(torch, te, pipe, embs, counted):
+    """ContinuousBatcher over the float weights: CB_SESSIONS staggered
+    image sessions through CB_LANES lanes, each session's logits (its
+    admission's and those of every step it took part in) held against the
+    same session's prefill and decode steps run alone at batch 1 and
+    teacher-forced with its tokens, and its tokens against its solo
+    ``generate``."""
+    from radialog_tpu_torch.decode import continuous as dc
+    cfg, dev = pipe.llama_cfg, pipe.device
+    requests = _serve_requests(pipe, embs, CB_SESSIONS, seed=13)
+    dp = te.DecodeParams(max_new_tokens=CB_NEW, eos_token_id=-1)
+    cb = dc.ContinuousBatcher(pipe.llama, cfg, lanes=CB_LANES, cache_len=CB_CACHE, dp=dp,
+                              lora=pipe.lora, policy=pipe.policy, device=dev)
+    seen = []           # per forward: ("admit" or "step", logits rows, lane -> sid)
+    real = dc.llama_apply
+
+    def recording(*args, **kw):
+        logits, out = real(*args, **kw)
+        if kw.get("cache") is None:
+            seen.append(("admit", logits[0, 0].float().cpu(), None))
+        else:
+            seen.append(("step", logits[:, 0].float().cpu(),
+                         [s.sid if s is not None else None for s in cb.lane_session]))
+        return logits, out
+
+    dc.llama_apply = recording
+    try:
+        _zero(counted)
+        batches, sids, it = [2, 3, 3], [], iter(requests)
+        for n, steps in zip(batches, (3, 5, 0)):
+            sids += [cb.submit(ids, img_embs=e) for ids, e in (next(it) for _ in range(n))]
+            for _ in range(steps):
+                cb.step()
+        finished = cb.run()
+        torch.cuda.synchronize()
+        launches = _read(counted)
+    finally:
+        dc.llama_apply = real
+    per = {sid: [] for sid in sids}
+    admitted = iter(sids)        # admission is first in, first out
+    for kind, rows, lanes in seen:
+        if kind == "admit":
+            per[next(admitted)].append(rows)
+        else:
+            for lane, sid in enumerate(lanes):
+                if sid is not None:
+                    per[sid].append(rows[lane])
+    worst, mean, margin, same, std = 0.0, [], 0.0, [], []
+    with torch.no_grad():
+        for sid, (ids, e) in zip(sids, requests):
+            toks = finished[sid].tokens
+            tok = torch.tensor([ids], dtype=torch.int32, device=dev)
+            lens = torch.tensor([len(ids)], dtype=torch.int32, device=dev)
+            cache, logits = te.prefill(pipe.llama, cfg, tok, lens,
+                                       te.default_cache_len(len(ids), dp), img_embs=e,
+                                       lora=pipe.lora, policy=pipe.policy, kv_int8=False)
+            solo = [logits[0]]
+            for step, t in enumerate(toks[:-1]):
+                solo.append(te.decode_step(pipe.llama, cfg, cache,
+                                           torch.tensor([t], dtype=torch.int32, device=dev),
+                                           lens, len(ids), step, lora=pipe.lora,
+                                           policy=pipe.policy)[0])
+            solo = torch.stack(solo).float().cpu()
+            got = torch.stack(per[sid])
+            diff = (got - solo).abs()
+            worst, std = max(worst, float(diff.max())), std + [float(solo.std())]
+            mean.append(float(diff.mean()))
+            picked = solo[torch.arange(len(toks)), torch.tensor(toks)]
+            margin = max(margin, float((solo.max(dim=-1).values - picked).max()))
+            alone = te.generate(pipe.llama, cfg, tok, lens, dp, img_embs=e, lora=pipe.lora,
+                                policy=pipe.policy, kv_int8=False).tokens[0].tolist()
+            same.append(sum(a == b for a, b in zip(alone, toks)) / len(toks))
+    k3_admissions = sum(dc._bucket32(len(ids)) >= 256 for ids, _ in requests)
+    numbers = {"sessions": len(sids), "lanes": CB_LANES, "cache_len": CB_CACHE,
+               "new_tokens": CB_NEW, "prompt_tokens": [len(ids) for ids, _ in requests],
+               "k3_admissions": k3_admissions, "launches": launches, "tol": CB_TOL,
+               "logit_max_abs_err": worst, "logit_mean_abs_err": max(mean),
+               "logit_std": statistics.mean(std), "largest_margin_of_its_token": margin,
+               "token_share_equal_to_solo_generate": statistics.mean(same)}
+    ok = (sorted(finished) == sorted(sids) and all(len(finished[s].tokens) == CB_NEW for s in sids)
+          and all(len(per[s]) == CB_NEW for s in sids)
+          and launches["flash_attention"] == cfg.num_layers * k3_admissions
+          and all(v == 0 for k, v in launches.items() if k != "flash_attention")
+          and worst < CB_TOL["max"] and max(mean) < CB_TOL["mean"]
+          and margin < CB_TOL["margin"])
+    return numbers, ok
+
+
+def _float_eval(torch, pipeline_mod, tfa, counted):
+    """The eval command line without --int8 (the root test.py's default: the
+    float pipeline) at full width over FLOAT_STUDIES fixture studies, every
+    pass, files under build/chip_eval_float/. K3 is held against its plain
+    version on the inputs the run gave it in the correction prefill and in
+    the binary-QA batch (every 8th layer)."""
+    import shutil
+    from pathlib import Path
+    from radialog_tpu_torch.apps import evaluate as ev
+    out_dir = Path("build/chip_eval_float")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    made, calls, state = [], [], {"corr": None}
+    passes = {ev.CORRECTION_NEW: "correction", 10: "binary_qa"}
+    timed = _timed_pipelines(torch, made, calls, state,
+                             lambda new, n: (passes[new], n) if new in passes else None)
+    k3 = _Kept(tfa.flash_attention_kernel, tfa.flash_attention_plain, state,
+               lambda st, i, a: st["corr"] is not None and i % 8 == 0)
+    argv = _eval_argv(["--synthetic"], out_dir, FLOAT_STUDIES, NEW)
+    tfa.flash_attention_kernel = k3
+    try:
+        with _eval_pipelines(ev, timed):
+            _zero(counted)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            results = ev.main(argv)
+            torch.cuda.synchronize()
+            seconds = time.time() - t0
+            launches = {**_read(counted), "flash_attention": k3.launches}
+    finally:
+        tfa.flash_attention_kernel = k3.kernel
+    pipe = made[0]
+    held = _eval_holds(torch, {"flash_attention": k3})
+    gens = [c for c in calls if "new" in c]
+    by = {n: [c for c in gens if c["new"] == n] for n in (NEW, ev.CORRECTION_NEW, 10, 30)}
+    k3_want = pipe.llama_cfg.num_layers * sum(_k3_forwards(pipeline_mod, pipe, c["prompts"],
+                                                           c["embs"]) for c in gens)
+    files_ok, files = _eval_outputs(out_dir, results, FLOAT_STUDIES)
+    per_pass = {"report": sum(c["s"] for c in by[NEW]),
+                "correction": sum(c["s"] for c in by[ev.CORRECTION_NEW]),
+                "binary_qa": sum(c["s"] for c in by[10]), "all_qa": sum(c["s"] for c in by[30]),
+                "labels": sum(c["s"] for c in calls if "labels" in c)}
+    tok = pipe.tokenizer
+    numbers = {"seconds": seconds, "seconds_per_pass": per_pass, "studies": FLOAT_STUDIES,
+               "argv": argv, "launches": launches, "k3_predicted": k3_want,
+               "prompt_tokens": {n: [len(tok(p)["input_ids"]) for c in by[n] for p in c["prompts"]]
+                                 for n in by},
+               "held_on_the_run_s_inputs": held, "metrics": results, **files}
+    ok = (files_ok and not pipe.cfg.quantize and isinstance(pipe.llama["layers"], dict)
+          and len(gens) == sum(len(x) for x in by.values()) and len(by[NEW]) == 1
+          and len(by[ev.CORRECTION_NEW]) == FLOAT_STUDIES and len(by[10]) == FLOAT_STUDIES
+          and all(o.startswith(p) for c in gens for o, p in zip(c["out"], c["prompts"]))
+          and launches["flash_attention"] == k3_want > 0
+          and all(v == 0 for k, v in launches.items() if k != "flash_attention")
+          and held and all(h["ok"] for h in held)
+          and {h["study"][0] for h in held} == set(passes.values()))
+    made.clear()
+    k3.kept.clear()
+    return numbers, ok
+
+
+def _zero(counted):
+    for fn in counted.values():
+        fn.launches = 0
+
+
+def _read(counted):
+    return {name: fn.launches for name, fn in counted.items()}
+
+
+def phase_float(torch, te, pipeline_mod, tq8, tfd, tfa, tq4):
+    """The float path at Vicuna-7B width: bf16 weights in the stacked
+    layout over the bf16 cache (PipelineConfig(quantize=False), the JAX
+    package's default), random from a seed. The report pass, the server and
+    ContinuousBatcher on its weights, then the eval command line without
+    --int8 (its own pipeline). No part launches K1, K2 or K4; K3 runs in
+    every cache-free prefill of 256 tokens or more, as _use_flash predicts.
+    Returns the K3 launches of the phase's runs."""
+    counted = {"q8_matmul": tq8.q8_matmul_int32, "flash_decode_int8": tfd.flash_decode_int8_kernel,
+               "flash_decode_int8_current": tfd.flash_decode_int8_current_kernel,
+               "flash_attention": tfa.flash_attention_kernel, "q4_matmul": tq4.q4_matmul_acc}
+    t0 = time.time()
+    pipe = pipeline_mod.RaDialogPipeline(pipeline_mod.PipelineConfig(synthetic=True,
+                                                                     quantize=False, seed=0))
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    report, ok, embs = _float_report(torch, pipe, counted)
+    emit("float", part="report", build_s=build_s, weights_gb=_tree_bytes(pipe.llama) / 1e9,
+         ok=ok, **report)
+    if not ok:
+        raise AssertionError("the full-width float report pass failed a check")
+    requests = _serve_requests(pipe, embs, FLOAT_SESSIONS, seed=11)
+    serve, ok, _ = _serve_run(torch, counted, pipe.llama, pipe, requests, FLOAT_NEW, CLIENTS,
+                              kv_int8=False)
+    ok = (ok and serve["k3_prefills"] > 0
+          and all(v == 0 for k, v in serve["launches"].items() if k != "flash_attention"))
+    emit("float", part="serve", weights="bf16, stacked", ok=ok, **serve)
+    if not ok:
+        raise AssertionError("the full-width float server failed a check")
+    cont, ok = _float_continuous(torch, te, pipe, embs, counted)
+    emit("float", part="continuous_batcher", ok=ok, **cont)
+    if not ok:
+        raise AssertionError("the full-width ContinuousBatcher failed a check")
+    del pipe, embs, requests
+    gc.collect()
+    torch.cuda.empty_cache()
+    evl, ok = _float_eval(torch, pipeline_mod, tfa, counted)
+    emit("float", part="eval", ok=ok, **evl)
+    if not ok:
+        raise AssertionError("the full-width float eval run failed a check")
+    return {"report": report["launches"]["flash_attention"],
+            "serve": serve["launches"]["flash_attention"],
+            "continuous_batcher": cont["launches"]["flash_attention"],
+            "eval": evl["launches"]["flash_attention"]}
 
 
 def _checksum(torch, base):
@@ -2341,8 +2704,11 @@ def main() -> int:
     gc.collect()                            # the eval run's pipeline
     torch.cuda.empty_cache()
     serve_launches, serve4_launches = phase_serve(torch, tq8, tfd, tfa, tq4, sl)
-    del sl                                  # the serving weights make room for the trainer's
+    del sl                                  # the W8A8 weights make room for the float ones
     gc.collect()                            # the servers' reference cycles hold their params
+    torch.cuda.empty_cache()
+    float_launches = phase_float(torch, te, pipeline_mod, tq8, tfd, tfa, tq4)
+    gc.collect()                            # the float pipelines make room for the trainer
     torch.cuda.empty_cache()
     train_launches = phase_train(torch, tfa)
 
@@ -2398,13 +2764,19 @@ def main() -> int:
          "bound_by": k3["bound_by"], "library_ms": k3["library_ms"],
          "ms_train": k3["ms_train"],
          "library_ms_train": k3["library_ms_train"], "bound_ms_train": k3["bound_ms_train"],
-         **{k: v for k, v in k3.items() if k.endswith("_correction")},
+         **{k: v for k, v in k3.items() if k.endswith(("_correction", "_float_qa"))},
          "launches_eval": eval_launches["flash_attention"],
+         "launches_float": sum(float_launches.values()),
+         "launches_float_by_part": float_launches,
          "work": "one layer's binary-QA prefix attention, B=1, T=S=431, H=32, D=128, bf16, "
                  "causal, q/k/v views of the fused projection; launches of the qa phase; "
                  "*_train: the train phase's shape, B=2, T=S=600, lengths 600 and 413; "
                  "*_correction: the correction prefill's, B=1, T=S=440, length 437; "
-                 "launches_eval: the eval phase's",
+                 "launches_eval: the eval phase's; *_float_qa: the float path's binary-QA "
+                 "batch, B=14, T=S=440, lengths 431-440, q/k/v contiguous; "
+                 "*_float_correction: its correction prefill, B=1, T=S=440, length 437, "
+                 "contiguous; launches_float: the float phase's (report pass, server, "
+                 "ContinuousBatcher, eval command line)",
          "launches_train": train_launches["flash_attention"]},
         {"name": "q4_matmul", "route": "cuda", "source": "radialog_tpu_torch/csrc/q4_matmul.cu",
          "replaces": "radialog_tpu/ops/q4_matmul.py:177",

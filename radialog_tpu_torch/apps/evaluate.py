@@ -15,10 +15,13 @@ Not ported yet: beams (``num_beams > 1``, ROADMAP.md queue 1 item 4) and
 the batched speculative correction pass (``corr_spec > 0``, item 5); both
 raise.
 
-Run: ``python -m radialog_tpu_torch.apps.evaluate --mock --int8 --device cpu
+Run: ``python -m radialog_tpu_torch.apps.evaluate --mock --device cpu
 --fixture-dir tests/fixtures --truncate 2 --max_new_tokens 6 --do_corr``
-(tiny seeded models on the CPU), or ``--synthetic --int8`` for Vicuna-7B
-widths with random weights on the card (the default ``--device cuda``).
+(tiny seeded models on the CPU), or ``--synthetic`` for Vicuna-7B widths
+with random weights on the card (the default ``--device cuda``). As with
+the root test.py, the weights are float (the stacked layout over the bf16
+cache) unless ``--int8`` (W8A8) or ``--w4`` (W4A8) asks for the quantized
+serving params.
 """
 from __future__ import annotations
 
@@ -279,10 +282,6 @@ def _check_args(args: argparse.Namespace) -> None:
     if not (args.mock or args.synthetic):
         raise NotImplementedError("loading real checkpoints is not ported yet (ROADMAP.md "
                                   "queue 1 item 3): pass --mock or --synthetic")
-    if not (args.int8 or args.w4):
-        raise NotImplementedError("the float pipeline (bf16 weights, the stacked layout "
-                                  "with a bf16 cache) is not ported yet (ROADMAP.md queue 1 "
-                                  "item 2): pass --int8 or --w4")
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass --device cpu to run on the CPU")
 
@@ -326,7 +325,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
     print(f"eval records: {len(records)}")
 
     pipe = RaDialogPipeline(PipelineConfig(
-        mock=args.mock, synthetic=args.synthetic, weight_bits=4 if args.w4 else 8,
+        mock=args.mock, synthetic=args.synthetic, quantize=args.int8 or args.w4,
+        weight_bits=4 if args.w4 else 8,
         kv_int8=False if args.kv_bf16 else None, max_new_tokens=args.max_new_tokens,
         device=args.device))
     emb_provider = None

@@ -5,8 +5,12 @@ Covered: mock construction (tiny seeded models, real interface contract:
 32 <IMG> slots, 32 queries) and synthetic full-width construction (Vicuna-7B,
 BioViL-T, BERT-base Q-Former, the CheXpert classifier and the BERT-base
 CheXbert labeler with random weights from a seeded ``torch.Generator``),
-both with W8A8 weights (or, with ``weight_bits=4``, W4A8 layers) and the
-int8 KV cache (or, with ``kv_int8=False``, the bf16 one); ``embed_images``,
+both quantized (``quantize=True``, the port's default: W8A8 weights or,
+with ``weight_bits=4``, W4A8 layers, and the int8 KV cache or, with
+``kv_int8=False``, the bf16 one) or float (``quantize=False``, the JAX
+package's default: ``llama_init``'s stacked tree in the policy's dtype, f32
+for the mock and bf16 at full width, over the bf16 cache, with no prefix
+sharing); ``embed_images``,
 ``classify_findings``, ``label_reports``, the shared-prefix rule,
 ``generate_texts``, greedy or sampled (the engine's ``prefill`` picks the
 direct or the cache-free prefill by batch size) and ``generate_texts_ring``
@@ -46,7 +50,11 @@ class PipelineConfig:
     mock: bool = False              # tiny seeded models
     synthetic: bool = False         # full widths, random weights
     bf16: bool = True
-    kv_int8: Optional[bool] = None  # None: the serving default, int8
+    # W8A8 serving weights. True here, the reverse of the JAX package's
+    # default: chip_smoke.py, the tools and most tests build the quantized
+    # pipeline without naming it. False: the float path
+    quantize: bool = True
+    kv_int8: Optional[bool] = None  # None: int8 with quantize, else bf16
     weight_bits: int = 8            # 4: W4A8 nibble-packed layers (ops/q4_matmul.py), opt-in
     shared_prefix: bool = True
     max_new_tokens: int = 300
@@ -55,18 +63,37 @@ class PipelineConfig:
     device: str = "cuda"
 
     def use_kv_int8(self) -> bool:
-        """The pipeline's weights are always the quantized serving layout,
-        so the int8 cache is the default; an explicit False keeps bf16."""
-        return self.kv_int8 is None or bool(self.kv_int8)
+        """The int8 cache by default on the quantized path; an explicit
+        False keeps bf16. The float path's stacked layout has no int8 cache."""
+        if self.kv_int8:
+            if not self.quantize:
+                raise ValueError("kv_int8=True requires quantize=True: the int8 KV cache "
+                                 "runs on the unrolled quantize_llama_host serving params")
+            return True
+        return self.quantize if self.kv_int8 is None else False
 
     def __post_init__(self):
         if self.weight_bits not in (4, 8):
             raise ValueError(f"weight_bits must be 4 or 8, got {self.weight_bits}")
+        if self.weight_bits != 8 and not self.quantize:
+            raise ValueError("weight_bits=4 requires quantize=True (the W4A8 path runs on "
+                             "the unrolled quantize_llama_host serving params)")
+
+
+def move_tree(tree, device, dtype=None):
+    """Every leaf of a tree of dicts, lists and tuples moved to ``device``
+    (tensors, PackedQ8 and PackedQ4), tensors also cast to ``dtype``."""
+    if isinstance(tree, dict):
+        return {k: move_tree(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(move_tree(v, device, dtype) for v in tree)
+    return tree.to(device) if dtype is None else tree.to(device, dtype)
 
 
 class RaDialogPipeline:
-    """Vision encoder, Q-Former, findings classifier and W8A8 Vicuna with
-    the int8-KV decode engine, on ``cfg.device``."""
+    """Vision encoder, Q-Former, findings classifier and Vicuna (W8A8 or
+    W4A8 serving params, or the stacked float tree) with the decode engine,
+    on ``cfg.device``."""
 
     def __init__(self, cfg: PipelineConfig):
         if cfg.mock == cfg.synthetic:
@@ -79,25 +106,31 @@ class RaDialogPipeline:
         self.policy: DTypePolicy = BF16 if cfg.bf16 and not cfg.mock else FP32
         gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
         dev = self.device
+        dtype = torch.bfloat16 if self.policy is BF16 else torch.float32
         if cfg.mock:
             self.llama_cfg = dataclasses.replace(
                 TINY_LLAMA, num_img_tokens=32, max_position=512,
                 qformer_dim=TINY_QFORMER.bert.hidden_size)
+            # the same float weights on both paths, drawn on the host
             host_gen = torch.Generator().manual_seed(cfg.seed)
-            self.llama = quantize_llama_host(llama_init(host_gen, self.llama_cfg, device="cpu"),
-                                             device=dev, bits=cfg.weight_bits)
+            base = llama_init(host_gen, self.llama_cfg, device="cpu")
+            self.llama = (quantize_llama_host(base, device=dev, bits=cfg.weight_bits)
+                          if cfg.quantize else move_tree(base, dev, dtype))
             self.qformer_cfg = dataclasses.replace(TINY_QFORMER, num_query_tokens=32)
-            lora_dtype = torch.float32
         else:
             self.llama_cfg = VICUNA_7B
-            self.llama = random_serving_params(self.llama_cfg, gen, device=dev,
-                                               bits=cfg.weight_bits)
+            if cfg.quantize:
+                self.llama = random_serving_params(self.llama_cfg, gen, device=dev,
+                                                   bits=cfg.weight_bits)
+            else:
+                # drawn on the device: llama_init's f32 transient of one
+                # stacked leaf is at most 32 x 4096 x 11008 x 4 B = 5.8 GB
+                self.llama = llama_init(gen, self.llama_cfg, device=dev, dtype=dtype)
             self.qformer_cfg = QFormerConfig()
-            lora_dtype = torch.bfloat16
         self.tokenizer = WhitespaceTokenizer(vocab_size=self.llama_cfg.vocab_size,
                                              num_img_tokens=self.llama_cfg.num_img_tokens,
                                              img_token_id=self.llama_cfg.img_token_id)
-        self.lora = lora_init(gen, self.llama_cfg, device=dev, dtype=lora_dtype)
+        self.lora = lora_init(gen, self.llama_cfg, device=dev, dtype=dtype)
         self.blip2 = {"qformer": qformer_init(gen, self.qformer_cfg, dev),
                       "ln_vision": layernorm_init(self.qformer_cfg.encoder_width, dev)}
         self.visual, self.visual_state = biovil_t_init(
@@ -110,18 +143,12 @@ class RaDialogPipeline:
     def to(self, device) -> "RaDialogPipeline":
         """Move every parameter to ``device`` (the same weights on another
         device, e.g. a CPU-built reference moved to the card)."""
-        def move(tree):
-            if isinstance(tree, dict):
-                return {k: move(v) for k, v in tree.items()}
-            if isinstance(tree, (list, tuple)):
-                return type(tree)(move(v) for v in tree)
-            return tree.to(device)   # tensors, PackedQ8 and PackedQ4
         self.device = torch.device(device)
         if self.device.type == "cuda":
             set_precision()
         for name in ("llama", "lora", "blip2", "visual", "visual_state",
                      "classifier", "classifier_state", "chexbert"):
-            setattr(self, name, move(getattr(self, name)))
+            setattr(self, name, move_tree(getattr(self, name), device))
         return self
 
     # ------------------------------------------------------------ vision
@@ -169,9 +196,10 @@ class RaDialogPipeline:
                            img_embs: Optional[torch.Tensor]) -> Tuple[int, bool]:
         """Longest common token prefix usable for prefix sharing: capped at
         min_len - 1 and before the first <IMG> unless every lane carries the
-        same image embeddings (then the whole <IMG> run may join it).
-        Returns (p0, img_in_prefix)."""
-        if not self.cfg.shared_prefix or len(ids) < 2:
+        same image embeddings (then the whole <IMG> run may join it); 0 on
+        the float path, whose stacked layout shares no prefix, as in the JAX
+        package. Returns (p0, img_in_prefix)."""
+        if not self.cfg.shared_prefix or not self.cfg.quantize or len(ids) < 2:
             return 0, False
         first = ids[0]
         p0 = min(len(s) for s in ids)
@@ -221,7 +249,7 @@ class RaDialogPipeline:
                       eos_token_id: Optional[int] = None, do_sample: bool = False,
                       temperature: float = 1.0) -> DecodeParams:
         unroll = self.cfg.decode_unroll if self.cfg.decode_unroll is not None \
-            else (3 if not self.cfg.mock else 1)
+            else (3 if self.cfg.quantize and not self.cfg.mock else 1)
         if unroll < 1:
             raise ValueError(f"decode_unroll must be >= 1, got {unroll}")
         return DecodeParams(max_new_tokens=max_new_tokens or self.cfg.max_new_tokens,
@@ -257,7 +285,8 @@ class RaDialogPipeline:
         of very different prompt lengths stream through shared lanes. Same
         greedy numerics; outputs in the order of ``prompts``. img_embs:
         (len(prompts), n_img, qformer_dim), spliced at each prompt's <IMG>
-        run at admission. The cache dtype follows ``cfg.kv_int8``."""
+        run at admission. The cache dtype follows ``cfg.use_kv_int8``; the
+        float path runs the bf16 ring on its stacked params."""
         if spec_k is not None:
             raise NotImplementedError("batched speculation (decode/spec_ring.py) is not "
                                       "ported yet")

@@ -16,6 +16,9 @@ per-request futures as sessions finish.
     server dead (a later ``submit`` raises).
   * The stepper waits on a condition variable when there is no work: an
     idle server launches nothing.
+  * It serves both weight layouts: the unrolled W8A8 / W4A8 serving params
+    over the int8 or the bf16 ring, and the stacked float params (bf16
+    Vicuna-7B, the float path) over the bf16 ring.
 """
 from __future__ import annotations
 

@@ -140,3 +140,19 @@ def chexpert(params: Dict, state: Dict, device="cuda") -> Tuple[Dict, Dict]:
 def chexbert(params: Dict, device="cuda") -> Dict:
     """chexbert_init's tree: {"bert": embeddings + encoder layers, "heads"}."""
     return to_torch(params, device)
+
+
+def pipeline_weights(pipe, trees: Dict, device="cpu"):
+    """A JAX pipeline's weights, as numpy trees under its attribute names
+    ("llama", "lora", "blip2", "visual", "visual_state", "classifier",
+    "classifier_state", "chexbert"; any subset), set on the port's pipeline
+    ``pipe``. The float pipeline's stacked llama tree is kept as it is; a
+    serving tree (a list of layers, packed leaves as dicts) goes through
+    ``llama_serving``. Returns ``pipe``."""
+    for name, tree in trees.items():
+        if name == "llama" and isinstance(tree["layers"], (list, tuple)):
+            value = llama_serving(tree, pipe.llama_cfg, device)
+        else:
+            value = to_torch(tree, device)
+        setattr(pipe, name, value)
+    return pipe

@@ -1,27 +1,38 @@
-"""Continuous batching over a shared generation ring: many interactive
-sessions share one decode loop (port of radialog_tpu/decode/continuous.py
+"""Continuous batching: many interactive sessions share one decode loop
+(port of radialog_tpu/decode/continuous.py ``ContinuousBatcher`` and
 ``RingBatcher``).
 
-Sessions are admitted and evicted at chunk granularity into fixed lanes of
-one pre-allocated cache. Slots [0, P) of a lane are its PROMPT region,
-filled at admission by a batch-1 prefill in 32-token buckets; slots [P, S)
-are a GENERATION RING shared by position: every lane writes step t's K/V at
-the same slot P + (t mod ring_len) of its own rows. Slots no longer encode
-token positions: RoPE is applied from the lane's true position, and
-validity is carried explicitly. With the bf16 cache it is a (lanes, S)
-bitmask that becomes the attention bias; with the int8 cache the
-flash-decode kernel (ops/flash_decode.py) takes it as per-lane closed slot
-intervals: a lane's generated slots are the last ``writes`` ring positions
-ending at the current one, one contiguous ring window, so at most two slot
-intervals. Ring reuse is safe because a session writes one slot per step and
-its span is checked against the ring at admission.
+``ContinuousBatcher`` serves the stacked float params (the float path) over
+one (L, lanes, S, H, D) bf16 cache. A lane's slot is the token's position:
+admission is a batch-1 prefill without a cache, its prompt bucketed to a
+multiple of 32 and installed into the lane's rows [0, T) (the bucket's tail
+is never unmasked); one greedy step for all lanes writes each lane's K/V
+at its own length (a (B,) ``write_pos``: one indexed write) under
+``decode_bias(cur_lens + 1)``. Idle and finished lanes compute garbage the
+host ignores; their writes land at their frozen length, which stays masked
+until the lane's next admission overwrites it.
 
-PyTorch idiom: the cache and the bitmask are mutated in place; a chunk is a
-Python loop of ``steps_per_call`` decode steps that keeps the last tokens,
-positions, write counts and sampled tokens on the device and reads them
-back once, at its end (the JAX package scans the steps inside one jit
-call). ``ContinuousBatcher`` of the JAX module needs the stacked scan layout
-with per-lane write positions and is not ported yet.
+``RingBatcher`` serves either weight layout. Sessions are admitted and
+evicted at chunk granularity into fixed lanes of one pre-allocated cache.
+Slots [0, P) of a lane are its PROMPT region, filled at admission by a
+batch-1 prefill in 32-token buckets; slots [P, S) are a GENERATION RING
+shared by position: every lane writes step t's K/V at the same slot
+P + (t mod ring_len) of its own rows. Slots no longer encode token
+positions: RoPE is applied from the lane's true position, and validity is
+carried explicitly. With the bf16 cache it is a (lanes, S) bitmask that
+becomes the attention bias; with the int8 cache (the unrolled serving
+params only) the flash-decode kernel (ops/flash_decode.py) takes it as
+per-lane closed slot intervals: a lane's generated slots are the last
+``writes`` ring positions ending at the current one, one contiguous ring
+window, so at most two slot intervals. Ring reuse is safe because a session
+writes one slot per step and its span is checked against the ring at
+admission.
+
+PyTorch idiom: the cache and the bitmask are mutated in place (the JAX
+package donates them to each jitted call), and each call reads back once:
+a ``ContinuousBatcher`` step its tokens, a ring chunk (a Python loop of
+``steps_per_call`` decode steps; the JAX package scans them inside one jit
+call) its last tokens, positions and sampled tokens.
 """
 from __future__ import annotations
 
@@ -33,8 +44,8 @@ from typing import Deque, Dict, List, Optional
 import numpy as np
 import torch
 
-from ..models.llama import (LlamaConfig, find_img_start, init_cache, llama_apply,
-                            prefill_bias)
+from ..models.llama import (LlamaConfig, decode_bias, find_img_start, init_cache,
+                            llama_apply, prefill_bias)
 from ..ops.layers import DTypePolicy, FP32
 from .engine import DecodeParams
 from .kvcache import install_prefill
@@ -70,10 +81,132 @@ class Session:
     done: bool = False
 
 
+class ContinuousBatcher:
+    """Admit and evict interactive sessions into a shared greedy decode
+    step over the stacked float params, one step at a time. Not
+    thread-safe: one thread owns it."""
+
+    def __init__(self, params: Dict, cfg: LlamaConfig, lanes: int = 4,
+                 cache_len: int = 512, dp: DecodeParams = DecodeParams(),
+                 lora: Optional[Dict] = None, policy: DTypePolicy = FP32, device="cuda"):
+        if isinstance(params["layers"], (list, tuple)):
+            raise ValueError(
+                "ContinuousBatcher requires the stacked param layout with a bf16 cache; "
+                "the unrolled serving layout uses RingBatcher (shared-slot decoding)")
+        self.params, self.cfg, self.lora, self.policy = params, cfg, lora, policy
+        self.lanes, self.cache_len, self.dp = lanes, cache_len, dp
+        self.device = torch.device(device)
+        self.cache = init_cache(cfg, lanes, cache_len, device=self.device, quantized=False)
+        self.cur_lens = np.zeros(lanes, np.int32)   # KV rows written per lane
+        self.last_tok = np.zeros(lanes, np.int32)   # the token whose KV is pending
+        self.steps = np.zeros(lanes, np.int32)      # tokens generated so far
+        self.lane_session: List[Optional[Session]] = [None] * lanes
+        self.queue: Deque[Session] = deque()
+        self.finished: Dict[int, Session] = {}
+        self._ids = itertools.count()
+
+    # ------------------------------------------------------------- interface
+    def submit(self, prompt_ids: List[int], img_embs: Optional[torch.Tensor] = None,
+               max_new_tokens: Optional[int] = None) -> int:
+        """Queue a request; returns its session id."""
+        sid = next(self._ids)
+        self.queue.append(Session(sid, list(prompt_ids), img_embs,
+                                  max_new_tokens or self.dp.max_new_tokens))
+        return sid
+
+    @property
+    def active_lanes(self) -> int:
+        return sum(s is not None for s in self.lane_session)
+
+    def run(self, max_steps: int = 10_000) -> Dict[int, Session]:
+        """Drive until queue and lanes drain. Returns finished sessions."""
+        for _ in range(max_steps):
+            if not self.queue and self.active_lanes == 0:
+                break
+            self.step()
+        return self.finished
+
+    def step(self) -> List[int]:
+        """Admit queued requests into free lanes, run one decode step for
+        every lane, evict finished sessions. Returns the sids finished by
+        this step."""
+        self._admit()
+        newly_finished: List[int] = []
+        if self.active_lanes == 0:
+            return newly_finished
+        with torch.no_grad():
+            cur = torch.from_numpy(self.cur_lens).to(self.device)
+            last = torch.from_numpy(self.last_tok).to(self.device)
+            logits, _ = llama_apply(self.params, self.cfg, last[:, None], cur[:, None],
+                                    decode_bias(cur + 1, self.cache_len), cache=self.cache,
+                                    write_pos=cur, lora=self.lora, policy=self.policy)
+            nxt = torch.argmax(logits[:, 0], dim=-1).cpu().numpy()   # the step's read-back
+        for lane, sess in enumerate(self.lane_session):
+            if sess is None:
+                continue
+            # the step wrote last_tok's KV at cur_len and produced the next token
+            self.cur_lens[lane] += 1
+            tok = int(nxt[lane])
+            sess.tokens.append(tok)
+            self.steps[lane] += 1
+            self.last_tok[lane] = tok
+            if tok == self.dp.eos_token_id or self.steps[lane] >= sess.max_new_tokens:
+                self._finish(lane, sess)
+                newly_finished.append(sess.sid)
+        return newly_finished
+
+    # -------------------------------------------------------------- internals
+    def _finish(self, lane: int, sess: Session) -> None:
+        sess.done = True
+        self.finished[sess.sid] = sess
+        self.lane_session[lane] = None      # evict: the lane is free next step
+
+    @torch.no_grad()
+    def _prefill_lane(self, tokens, length: int, lane: int, img_embs):
+        """Batch-1 prefill of a bucketed prompt (1, t) without a cache,
+        installed into ``lane`` of the cache; returns the first token (0-d,
+        on the device)."""
+        t = tokens.shape[1]
+        dev = tokens.device
+        lens = torch.full((1,), length, dtype=torch.int32, device=dev)
+        img_start = (find_img_start(tokens, self.cfg.img_token_id)
+                     if img_embs is not None else None)
+        logits, fresh = llama_apply(
+            self.params, self.cfg, tokens, torch.arange(t, device=dev)[None],
+            prefill_bias(lens, t), cache=None, img_embs=img_embs, img_start=img_start,
+            lora=self.lora, policy=self.policy, lengths=lens, last_pos=lens - 1)
+        install_prefill(self.cache, fresh, lane=lane)
+        return torch.argmax(logits[0, 0], dim=-1)
+
+    def _admit(self) -> None:
+        while self.queue and self.active_lanes < self.lanes:
+            sess = self.queue.popleft()
+            lane = self.lane_session.index(None)
+            t = len(sess.prompt_ids)
+            tpad = _bucket32(t)
+            # guard on the bucketed prompt: the prefill writes tpad rows
+            if tpad > self.cache_len or t + sess.max_new_tokens > self.cache_len:
+                raise ValueError(
+                    f"request needs max(bucketed prompt {tpad}, {t}+{sess.max_new_tokens}) "
+                    f"slots > cache_len {self.cache_len}")
+            padded = sess.prompt_ids + [self.cfg.pad_token_id] * (tpad - t)
+            tokens = torch.tensor([padded], dtype=torch.int32, device=self.device)
+            first = int(self._prefill_lane(tokens, t, lane, sess.img_embs))
+            self.lane_session[lane] = sess
+            self.cur_lens[lane] = t
+            self.steps[lane] = 1
+            self.last_tok[lane] = first
+            sess.tokens.append(first)
+            # the prefill's token counts as step 1: a one-token budget ends here
+            if first == self.dp.eos_token_id or self.steps[lane] >= sess.max_new_tokens:
+                self._finish(lane, sess)
+
+
 class RingBatcher:
     """Admit and evict interactive sessions into a shared greedy decode
-    step over the unrolled serving params, with the bf16 or (``kv_int8``)
-    the int8 ring cache. ``steps_per_call`` decode steps run between two
+    step over the unrolled serving params or the stacked float params, with
+    the bf16 ring cache or (``kv_int8``, unrolled params only) the int8 one.
+    ``steps_per_call`` decode steps run between two
     admission rounds; a lane whose session finishes mid-chunk goes on
     decoding until the chunk ends (its writes land in its own rows only, its
     tokens are trimmed). Not thread-safe: one thread owns it."""
@@ -165,46 +298,22 @@ class RingBatcher:
 
         @torch.no_grad()
         def prefill_fn(tokens, length: int, lane: int, img_embs):
-            """Batch-1 prefill of a bucketed prompt (1, t) without a cache,
-            installed into ``lane``; returns the first token (0-d, device)."""
-            t = tokens.shape[1]
-            dev = tokens.device
-            lens = torch.full((1,), length, dtype=torch.int32, device=dev)
-            img_start = (find_img_start(tokens, cfg.img_token_id)
-                         if img_embs is not None else None)
-            logits, fresh = llama_apply(
-                self.params, cfg, tokens, torch.arange(t, device=dev)[None],
-                prefill_bias(lens, t), cache=None, img_embs=img_embs, img_start=img_start,
-                lora=self.lora, policy=self.policy, lengths=lens, last_pos=lens - 1)
-            install_prefill(self.cache, fresh, lane=lane)
-            # reset the lane's validity row: prompt slots [0, length) live,
-            # the rest (a former session's rows, the ring) dead
-            self.valid[lane] = torch.arange(self.cache_len, device=dev) < length
-            return torch.argmax(logits[0, 0], dim=-1)
+            """``_prefill_lane``, then the lane's validity row reset: prompt
+            slots [0, length) live, the rest (a former session's rows, the
+            ring) dead. Returns the first token (0-d, on the device)."""
+            first = self._prefill_lane(tokens, length, lane, img_embs)
+            self.valid[lane] = torch.arange(self.cache_len, device=tokens.device) < length
+            return first
 
         self._step_fn = step_fn
         self._prefill_fn = prefill_fn
 
     # ------------------------------------------------------------- interface
-    def submit(self, prompt_ids: List[int], img_embs: Optional[torch.Tensor] = None,
-               max_new_tokens: Optional[int] = None) -> int:
-        """Queue a request; returns its session id."""
-        sid = next(self._ids)
-        self.queue.append(Session(sid, list(prompt_ids), img_embs,
-                                  max_new_tokens or self.dp.max_new_tokens))
-        return sid
-
-    @property
-    def active_lanes(self) -> int:
-        return sum(s is not None for s in self.lane_session)
-
-    def run(self, max_steps: int = 10_000) -> Dict[int, Session]:
-        """Drive until queue and lanes drain. Returns finished sessions."""
-        for _ in range(max_steps):
-            if not self.queue and self.active_lanes == 0:
-                break
-            self.step()
-        return self.finished
+    submit = ContinuousBatcher.submit
+    active_lanes = ContinuousBatcher.active_lanes
+    run = ContinuousBatcher.run
+    _finish = ContinuousBatcher._finish
+    _prefill_lane = ContinuousBatcher._prefill_lane
 
     def step(self) -> List[int]:
         """Admit queued requests into free lanes, run one chunk of
@@ -236,9 +345,7 @@ class RingBatcher:
                 self.steps[lane] += 1
                 if tok == self.dp.eos_token_id or self.steps[lane] >= sess.max_new_tokens:
                     # what the chunk produced past this point is trimmed
-                    sess.done = True
-                    self.finished[sess.sid] = sess
-                    self.lane_session[lane] = None
+                    self._finish(lane, sess)
                     newly_finished.append(sess.sid)
                     break
         return newly_finished
@@ -281,6 +388,4 @@ class RingBatcher:
             sess.tokens.append(first)
             # the prefill's token counts as step 1: a one-token budget ends here
             if first == self.dp.eos_token_id or self.steps[lane] >= sess.max_new_tokens:
-                sess.done = True
-                self.finished[sess.sid] = sess
-                self.lane_session[lane] = None
+                self._finish(lane, sess)

@@ -10,7 +10,11 @@ of that exit condition (each check waits for the card).
 
 ``kv_int8`` defaults to True here, the reverse of the JAX engine's default
 (as ``init_cache``'s): the port's serving default is the int8 cache, and the
-pipeline passes its own setting (``PipelineConfig.kv_int8``) explicitly.
+pipeline passes its own setting (``PipelineConfig.use_kv_int8``) explicitly.
+The stacked float params (the float path) take ``kv_int8=False``: their
+prefill runs without a cache and installs it, and each decode step writes
+its row and attends the whole bf16 cache under the static-slot bias; with
+the int8 cache their first decode step raises, as in the JAX engine.
 
 Sampling draws its noise from one ``torch.Generator`` per ``decode_loop``,
 seeded from ``DecodeParams.seed`` on the logits' device, through
@@ -93,6 +97,15 @@ def _select_token(logits: torch.Tensor, dp: DecodeParams,
     return torch.argmax(logits + noise, dim=-1).to(torch.int32)
 
 
+def prefills_directly(params: Dict, batch: int, kv_int8: bool) -> bool:
+    """Whether ``prefill`` writes a batch's prompt straight into the cache
+    (the unrolled serving layout: always with the bf16 cache, from
+    DIRECT_PREFILL_MIN_BATCH lanes with the int8 one) rather than prefill
+    without a cache and install (the stacked layout, always)."""
+    return (isinstance(params["layers"], (list, tuple))
+            and (not kv_int8 or batch >= DIRECT_PREFILL_MIN_BATCH))
+
+
 def prefill(params: Dict, cfg: LlamaConfig, tokens: torch.Tensor, lengths: torch.Tensor,
             cache_len: int, img_embs: Optional[torch.Tensor] = None,
             lora: Optional[Dict] = None, policy: DTypePolicy = FP32, kv_int8: bool = True):
@@ -105,7 +118,10 @@ def prefill(params: Dict, cfg: LlamaConfig, tokens: torch.Tensor, lengths: torch
     ``install_prefill`` quantizes the fresh K/V into the cache afterwards, as
     the JAX engine does. Below 256 tokens both paths leave the same cache
     bytes and logits. The bf16 cache is always prefilled directly on the
-    unrolled serving layout, as in the JAX engine."""
+    unrolled serving layout, as in the JAX engine. The stacked layout (the
+    float path) always prefills without a cache and installs: its prefill
+    attends the compute-dtype K/V, rounded to the cache's dtype only at the
+    install."""
     b, t = tokens.shape
     dev = tokens.device
     if img_embs is not None and img_embs.shape[1] != cfg.num_img_tokens:
@@ -114,8 +130,7 @@ def prefill(params: Dict, cfg: LlamaConfig, tokens: torch.Tensor, lengths: torch
     positions = torch.arange(t, device=dev)[None].repeat(b, 1)
     img_start = find_img_start(tokens, cfg.img_token_id) if img_embs is not None else None
     cache = init_cache(cfg, b, cache_len, device=dev, quantized=kv_int8)
-    direct = (isinstance(params["layers"], (list, tuple))
-              and (not kv_int8 or b >= DIRECT_PREFILL_MIN_BATCH))
+    direct = prefills_directly(params, b, kv_int8)
     logits, out = llama_apply(params, cfg, tokens, positions, prefill_bias(lengths, t),
                               cache=cache if direct else None, write_pos=0,
                               img_embs=img_embs, img_start=img_start, lora=lora,
@@ -184,7 +199,11 @@ def generate_shared_prefix(params: Dict, cfg: LlamaConfig, prefix_tokens: torch.
     right-padded remainders with lengths (B,) >= 1. The remainder prefill
     attends the compute-dtype prefix; the decode loop reads a copy of it in
     the cache's dtype, once per step for all lanes: int8 through K2's
-    shared-prefix block, bf16 merged with the lane's rows in one softmax."""
+    shared-prefix block, bf16 merged with the lane's rows in one softmax.
+    Unrolled serving layout only, as in the JAX engine."""
+    if not isinstance(params["layers"], (list, tuple)):
+        raise ValueError("prefix sharing is a serving feature of the unrolled weight "
+                         "layout (ops/quant.quantize_llama_host)")
     b, t1 = tokens.shape
     p0 = prefix_tokens.shape[0]
     dev = tokens.device

@@ -16,15 +16,22 @@ decode as ``mha`` over the layer's cache rows with the caller's bias,
 merged with a shared prefix in one softmax where the engine shares one).
 Layer projections are W8A8 (K1) or W4A8 (K4) leaves.
 
-The stacked training layout (``llama_init``'s tree, float or with the
+The stacked layout (``llama_init``'s tree, float or with the
 ``{"w_q", "scale"}`` leaves of ops/quant.quantize_llama): ``params["layers"]``
 is a dict of leaves with a leading layer axis and separate wq/wk/wv/gate/up;
 a layer's weights are the views ``leaf[i]`` (no copy and no scan), LoRA
-deltas go through ``_proj``, there is no cache, and ``remat`` recomputes
-each layer in the backward pass (``torch.utils.checkpoint``). With ``flash``
-its attention at 256 tokens or more is differentiable through K3 forward and
-K5a/K5b backward. The stacked layout with a cache (the scan decode),
-speculative ``verify`` and tensor parallelism are not ported yet.
+deltas go through ``_proj``, and ``remat`` recomputes each layer in the
+backward pass (``torch.utils.checkpoint``). Without a cache it is the
+training forward and the float path's prefill: with ``flash`` its attention
+at 256 tokens or more is K3 forward and, under autograd, K5a/K5b backward.
+With the bf16 cache it is the JAX package's scan decode of the float
+serving path: each layer writes its K/V rows into ``cache.k[i]`` /
+``cache.v[i]`` at ``write_pos`` (a scalar, one slot range for every lane,
+or a (B,) vector, rows ``write_pos[b] + arange(t)`` of each lane in one
+indexed write), then attends the whole layer cache, cast to the compute
+dtype, under the caller's bias, for any t (``mha``; no kernel). The int8
+cache and a shared prefix need the unrolled serving params and raise.
+Speculative ``verify`` and tensor parallelism are not ported yet.
 
 The KV cache is updated IN PLACE (a PyTorch tensor is mutable; the JAX
 package returns a new cache from dynamic_update_slice): ``llama_apply``
@@ -35,7 +42,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -154,9 +161,9 @@ def llama_init(gen: torch.Generator, cfg: LlamaConfig, device="cuda",
     h, inter, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
     kvh = cfg.num_kv_heads * cfg.head_dim
 
-    def dense(shape):
+    def dense(shape):   # one f32 transient a leaf, scaled in place
         x = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
-        return (x * shape[-2] ** -0.5).to(dtype)
+        return x.mul_(shape[-2] ** -0.5).to(dtype)
 
     layers = {"wq": {"w": dense((L, h, h))}, "wk": {"w": dense((L, h, kvh))},
               "wv": {"w": dense((L, h, kvh))}, "wo": {"w": dense((L, h, h))},
@@ -256,10 +263,28 @@ def _gqa(x, nh: int, axis: int):
     return x if rep == 1 else x.repeat_interleave(rep, dim=axis)
 
 
+def _write_rows(cache: KVCache, layer_idx: int, write_pos, k, v) -> None:
+    """Store (B,T,H,D) K/V into layer ``layer_idx`` of the bf16 cache: at
+    slots [write_pos, write_pos + T) of every lane for a scalar, or at rows
+    write_pos[b] + arange(T) of lane b for a (B,) tensor, in one indexed
+    write with no read of the positions on the host."""
+    ck, cv = cache.k[layer_idx], cache.v[layer_idx]
+    if torch.is_tensor(write_pos) and write_pos.ndim == 1:
+        b, t = k.shape[:2]
+        bi = torch.arange(b, device=ck.device)[:, None]
+        ti = write_pos.to(ck.device).long()[:, None] + torch.arange(t, device=ck.device)[None]
+        ck[bi, ti] = k.to(ck.dtype)
+        cv[bi, ti] = v.to(cv.dtype)
+    else:
+        rows = slice(int(write_pos), int(write_pos) + k.shape[1])
+        ck[:, rows] = k.to(ck.dtype)
+        cv[:, rows] = v.to(cv.dtype)
+
+
 def _attention_block(lp: Dict, lora_layer, lora_scale, cfg: LlamaConfig, x, positions,
                      rope, bias, cache: Optional[KVCache], layer_idx: int, write_pos,
                      policy: DTypePolicy, lengths=None, slot_info=None, shared_layer=None,
-                     flash: bool = True, defer: bool = False):
+                     flash: bool = True, defer: bool = False, stacked: bool = False):
     b, t, _ = x.shape
     nh, hd = cfg.num_heads, cfg.head_dim
     q, k, v = qkv_proj(lp, lora_layer, lora_scale, cfg, x, policy)
@@ -274,6 +299,15 @@ def _attention_block(lp: Dict, lora_layer, lora_scale, cfg: LlamaConfig, x, posi
         else:
             o = mha(q, k_all, v_all, bias=bias)
         return _proj(lp, lora_layer, "wo", o.reshape(b, t, nh * hd), lora_scale, policy), (k, v)
+
+    if stacked:
+        # the scan decode: the whole layer cache after the write, the fresh
+        # rows read back rounded to the cache's dtype, for any t
+        _write_rows(cache, layer_idx, write_pos, k, v)
+        k_all = _gqa(cache.k[layer_idx].to(x.dtype), nh, 2)
+        v_all = _gqa(cache.v[layer_idx].to(x.dtype), nh, 2)
+        o = mha(q, k_all, v_all, bias=bias)
+        return _proj(lp, lora_layer, "wo", o.reshape(b, t, nh * hd), lora_scale, policy), cache
 
     rows = slice(write_pos, write_pos + t)
     if not cache.quantized:
@@ -350,7 +384,7 @@ def _layer_view(layers: Dict, i: int) -> Dict:
 
 def llama_apply(params: Dict, cfg: LlamaConfig, tokens: torch.Tensor,
                 positions: torch.Tensor, bias: Optional[torch.Tensor],
-                cache: Optional[KVCache] = None, write_pos: int = 0,
+                cache: Optional[KVCache] = None, write_pos: Union[int, torch.Tensor] = 0,
                 img_embs: Optional[torch.Tensor] = None,
                 img_start: Optional[torch.Tensor] = None,
                 lora: Optional[Dict] = None, policy: DTypePolicy = FP32,
@@ -360,8 +394,8 @@ def llama_apply(params: Dict, cfg: LlamaConfig, tokens: torch.Tensor,
                 remat: bool = False, flash: bool = True,
                 defer_kv: Optional[bool] = None):
     """The forward, over the unrolled serving layout (``params["layers"]`` a
-    list) or the stacked training layout (a dict of leaves with a leading
-    layer axis; no cache). Returns (logits, cache): logits (B,T,V) or,
+    list) or the stacked layout (a dict of leaves with a leading layer axis;
+    no cache, or the bf16 cache). Returns (logits, cache): logits (B,T,V) or,
     with ``last_pos`` (B,), (B,1,V) f32. With ``cache`` the updated cache
     (the same object, written in place); without, a PrefixKV of the fresh
     per-layer K/V (L,B,T,H,D).
@@ -372,9 +406,10 @@ def llama_apply(params: Dict, cfg: LlamaConfig, tokens: torch.Tensor,
     returns None in place of the fresh K/V (a training step reads only the
     logits, and keeping them would hold every layer's K and V alive).
 
-    tokens/positions (B,T); bias (B|1,1,T,T) for a prefill, (B,1,1,S) for
-    single-token decode over the bf16 cache; ``write_pos`` the first cache
-    slot written (the ring slot for the ring batcher); slot_info =
+    tokens/positions (B,T); bias (B|1,1,T,T) for a prefill, (B|1,1,T,S)
+    for a forward over the bf16 cache; ``write_pos`` the first cache slot
+    written (the ring slot for the ring batcher), on the stacked layout also
+    a (B,) tensor of each lane's first slot; slot_info =
     (prompt_pad, step) for single-token decode over the int8 cache, or the
     ring batcher's per-lane closed slot intervals (a1, b1, a2, b2), each (B,)
     int32 with an empty interval marked b = -1; shared_kv: a PrefixKV for
@@ -390,10 +425,12 @@ def llama_apply(params: Dict, cfg: LlamaConfig, tokens: torch.Tensor,
     there, the write slot comes from slot_info, so ``write_pos`` must equal
     prompt_pad + step; anything else raises. Other calls ignore it."""
     stacked = not isinstance(params["layers"], (list, tuple))
-    if stacked and (cache is not None or shared_kv is not None):
-        raise NotImplementedError(
-            "the stacked layout runs without a cache and without a shared prefix; caches "
-            "need the unrolled serving params (ops/quant.quantize_llama_host)")
+    if stacked and shared_kv is not None:
+        raise ValueError("shared_kv (prefix sharing) is a serving feature of the unrolled "
+                         "weight layout; the stacked layout has no per-layer merge point")
+    if stacked and cache is not None and cache.quantized:
+        raise ValueError("int8 KV caches require the unrolled serving params "
+                         "(ops/quant.quantize_llama_host layout with a list of layers)")
     num_layers = cfg.num_layers if stacked else len(params["layers"])
     if defer_kv is None:
         defer_kv = os.environ.get("RADIALOG_DEFER_KV", "0") == "1"
@@ -431,7 +468,7 @@ def llama_apply(params: Dict, cfg: LlamaConfig, tokens: torch.Tensor,
         attn_out, out = _attention_block(lp, ll, lora_scale, cfg, h, positions, rope, bias,
                                          cache, i, write_pos, policy, lengths=lengths,
                                          slot_info=slot_info, shared_layer=shared_layer,
-                                         flash=flash, defer=defer_kv)
+                                         flash=flash, defer=defer_kv, stacked=stacked)
         if keep_kv:
             fresh_k.append(out[0])
             fresh_v.append(out[1])

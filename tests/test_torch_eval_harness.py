@@ -272,12 +272,24 @@ def test_cli_refuses_to_run_without_mock_or_synthetic(tmp_path):
         tev.main(["--int8", "--device", "cpu", "--output_dir", str(tmp_path)])
 
 
-def test_cli_refuses_the_float_pipeline(tmp_path):
-    """test.py runs bf16 weights without --int8 or --w4; the port has no
-    float pipeline and says so rather than run W8A8 in its place."""
-    with pytest.raises(NotImplementedError, match="item 2"):
-        tev.main(["--mock", "--device", "cpu", "--fixture-dir", str(FIXTURES),
-                  "--output_dir", str(tmp_path)])
+def test_cli_refuses_the_float_pipeline(tmp_path, monkeypatch):
+    """test.py runs float weights without --int8 or --w4, and so does the
+    port now (it refused before the float pipeline existed): the stacked
+    float tree over the bf16 cache, not W8A8 in its place. The run against
+    the root test.py is tests/test_torch_float_pipeline.py's."""
+    made = []
+    real = tev.RaDialogPipeline
+    monkeypatch.setattr(tev, "RaDialogPipeline", lambda cfg: made.append(real(cfg)) or made[-1])
+    results = tev.main(["--mock", "--device", "cpu", "--fixture-dir", str(FIXTURES),
+                        "--truncate", "1", "--max_new_tokens", "4",
+                        "--output_dir", str(tmp_path)])
+    (pipe,) = made
+    assert not pipe.cfg.quantize and not pipe.cfg.use_kv_int8()
+    assert isinstance(pipe.llama["layers"], dict)
+    assert results and all(np.isfinite(v) for v in results.values())
+    exp = "img_matching_examples_ig2_noexamples_IMG_findings_noembs"
+    assert all((tmp_path / name.format(exp)).is_file() == ("after" not in name)
+               for name in FILES)      # no correction pass asked for
 
 
 @pytest.mark.parametrize("argv", [["--num_beams", "2"], ["--corr_spec", "3"]])

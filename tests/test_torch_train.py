@@ -292,8 +292,10 @@ def test_flash_false_keeps_mha_and_stacked_layout_refuses_a_cache():
     finally:
         tfa.flash_attention_plain = orig
     assert abs(a - b) < 1e-5
+    # the stacked layout takes the bf16 cache (the float path) but, as in the
+    # JAX package, refuses the int8 one, init_cache's default in the port
     tokens = torch.from_numpy(batch["tokens"])
-    with pytest.raises(NotImplementedError, match="without a cache"):
+    with pytest.raises(ValueError, match="int8 KV caches require the unrolled serving params"):
         tl.llama_apply(tbase, tcfg, tokens, tokens, None,
                        cache=tl.init_cache(tcfg, 1, 256, device="cpu"))
 

@@ -42,6 +42,13 @@ run does; with it after every micro-step, as the smoke's ``on_step`` does to
 stamp each step. Without ``--flash`` attention is mha under autograd, with
 it K3 and K5a/K5b.
 
+``--float`` profiles the float path's report step instead (chip_smoke.py's
+float phase: Vicuna-7B bf16 in the stacked layout over the bf16 cache,
+``PipelineConfig(quantize=False)``, the same batch without prefix sharing):
+stages classifier, image embedding, the prefill without a cache with its
+install into the cache, and the mean decode step (every layer writes its
+row and attends its whole cache through ``mha``); then the profile.
+
 ``--table FILE`` also writes the profiler's full table of operators to FILE.
 It needs one CUDA card and exits non-zero without one.
 """
@@ -212,6 +219,61 @@ def train(torch, card, flash: bool, sync: bool, table) -> int:
     return 0 if ok else 1
 
 
+def float_report(torch, card, table) -> int:
+    """The float path's report step: stages, then PROFILE_STEPS decode
+    steps profiled from step PROFILE_AT."""
+    from radialog_tpu_torch.apps.pipeline import PipelineConfig, RaDialogPipeline
+    from radialog_tpu_torch.apps.tokenization import pad_batch_right
+    from radialog_tpu_torch.decode import engine as te
+    from radialog_tpu_torch.ops.image import expand_cxr_u8
+    pipe = RaDialogPipeline(PipelineConfig(synthetic=True, quantize=False, seed=0))
+    cfg = pipe.llama_cfg
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x448 = torch.randint(0, 256, (BATCH, 448, 448), generator=g, device="cuda",
+                         dtype=torch.uint8)
+    x488 = torch.randint(0, 256, (BATCH, 488, 488), generator=g, device="cuda",
+                         dtype=torch.uint8)
+    ids = [pipe.tokenizer(p)["input_ids"] for p in prompts(BATCH, cfg.num_img_tokens)]
+    dp = pipe.decode_params(max_new_tokens=300, eos_token_id=-1)
+    tok, lens = (torch.as_tensor(x, device="cuda")
+                 for x in pad_batch_right(ids, pipe.tokenizer.pad_token_id))
+    t = tok.shape[1]
+    cache_len = te.default_cache_len(t, dp)
+
+    def stages():
+        times = {}
+        _, times["classify_ms"] = clock(torch, lambda: pipe.classify_findings(
+            expand_cxr_u8(x488)))
+        embs, times["embed_ms"] = clock(torch, lambda: pipe.embed_images(expand_cxr_u8(x448)))
+        with torch.no_grad():
+            (cache, logits), times["prefill_and_install_ms"] = clock(torch, lambda: te.prefill(
+                pipe.llama, cfg, tok, lens, cache_len, img_embs=embs, lora=pipe.lora,
+                policy=pipe.policy, kv_int8=False))
+        first = torch.argmax(logits, -1).to(torch.int32)
+
+        @torch.no_grad()
+        def step(s):
+            return te.decode_step(pipe.llama, cfg, cache, first, lens, t, s, lora=pipe.lora,
+                                  policy=pipe.policy)
+
+        _, total = clock(torch, lambda: [step(s) for s in range(DECODE_STEPS)])
+        times["decode_step_ms"] = total / DECODE_STEPS
+        return times, step
+
+    stages()                                       # warm-up
+    times, step = stages()
+    emit("stages", card=card, mode="float", batch=BATCH, prompt=PROMPT, cache_len=cache_len,
+         decode_steps=DECODE_STEPS, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+         **times)
+    for s in range(PROFILE_AT - 2, PROFILE_AT):
+        step(s)
+    ok = profiled(torch, card,
+                  lambda: [step(s) for s in range(PROFILE_AT, PROFILE_AT + PROFILE_STEPS)],
+                  PROFILE_STEPS, times["decode_step_ms"], table, mode="float",
+                  from_step=PROFILE_AT)
+    return 0 if ok else 1
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--train", action="store_true",
@@ -227,6 +289,8 @@ def main() -> int:
                     help="profile the ring batcher's decode step, not the report step")
     ap.add_argument("--bits", type=int, default=8, choices=(4, 8),
                     help="weight bits of the layers in --ring mode")
+    ap.add_argument("--float", dest="float_path", action="store_true",
+                    help="profile the float path's report step (bf16, stacked, bf16 cache)")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -248,6 +312,8 @@ def main() -> int:
         return train(torch, card, args.flash, args.sync, args.table)
     if args.ring:
         return ring(torch, card, args.bits, args.table)
+    if args.float_path:
+        return float_report(torch, card, args.table)
     pipe = RaDialogPipeline(PipelineConfig(synthetic=True, seed=0))
     cfg = pipe.llama_cfg
     g = torch.Generator(device="cuda").manual_seed(3)
