@@ -180,6 +180,27 @@ each; any failing phase exits non-zero:
           not counted, over the whole timed span), the mean and the median
           ms/step and peak memory of both
 
+  ckpt    checkpoints on disk at full size, loaded back through the port's
+          loaders (ROADMAP queue 1 item 3) with both tokenizer loaders
+          replaced by the WhitespaceTokenizer at the Vicuna layout: Vicuna-7B
+          v1.3's HF layout in fp16 (32 layers, 32,000 embedding rows, two
+          pytorch_model-*.bin shards and their index, ~13.5 GB, random from
+          per-tensor seeds), a PEFT adapter (r 8, alpha 16, q/v, img_proj),
+          a LAVIS BLIP-2 .pth with BioViL-T, a Lightning classifier .ckpt, a
+          CheXbert .pth (module. prefix) and an emb_cache npz, in a fresh
+          directory under build/ (16 GiB free asked first, removed at the
+          end). The W8A8 pipeline from the files: load seconds by stage,
+          peak host RSS, device memory; layers 0 and 31, lm_head, embed, the
+          LoRA and every BLIP-2, BioViL-T, classifier and CheXbert leaf
+          bitwise against the same tensors converted and packed on the host;
+          the report batch (56 x 300; logits finite with the image, NaN
+          without it, as JAX's jnp.take gives them) and a 4-beam run (2
+          prompts x 64 tokens: K1, never K2); the bf16 pipeline (layers 0
+          and 31 bitwise); apps/evaluate.py main with every checkpoint flag,
+          --num_beams 4, --do_corr, --do_cp_bin_qa over 1 fixture study (K3);
+          the trainer from the files (int8 base, the adapter, flash, 2
+          micro-steps: K3, K5a, K5b); pack_q4's seconds for one layer
+
 The line before the last is a JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}. A kernel's time is the
 median over launches timed with CUDA events, the 50 MB L2 flushed before
@@ -324,6 +345,7 @@ def phase_k1(torch, tq8, flush):
               "down": (inter, h), "lm_head": (h, v)}
     prefill = BATCH * (PROMPT - SHARED)
     g = torch.Generator(device="cuda").manual_seed(1)
+    refused = {}
     sums = {m: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
                 "bytes_bound": 0} for m in (BATCH, LANES, prefill, 1, CORR_T)}
     for name, (k, n) in shapes.items():
@@ -339,16 +361,20 @@ def phase_k1(torch, tq8, flush):
             plan = tq8._plan(m, n, k)
             ms = timed_ms(lambda: tq8.q8_matmul_int32(x8, w8), 20, flush)
             plain_ms = timed_ms(lambda: tq8.q8_matmul_int32_plain(x8, w8), 3, flush)
-            lib_ms = None
-            if m > 16 and k % 8 == 0 and n % 8 == 0:   # torch._int_mm's shape rules
+            lib_ms = lib_refused = None
+            try:        # torch._int_mm's shape rules (M > 16 in the releases we know)
+                torch._int_mm(x8, w8.t())
                 lib_ms = timed_ms(lambda: torch._int_mm(x8, w8.t()), 20, flush)
+            except RuntimeError as e:
+                lib_refused = str(e).splitlines()[0][:200]
+                refused[m] = lib_refused
             nbytes = m * k + n * k + 4 * m * n
             b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             b_ops = 2 * m * n * k / INT8_OPS_PER_S * 1e3
             emit("k1", weight=name, m=m, k=k, n=n, bitwise=True, route=plan.route,
                  tile=list(plan.tile), wn=plan.wn, stages=plan.stages, splits=plan.splits,
                  kernel_ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                 bound_ms=max(b_bytes, b_ops),
+                 library_refused=lib_refused, bound_ms=max(b_bytes, b_ops),
                  bound_by="bytes" if b_bytes >= b_ops else "operations",
                  roofline_share=max(b_bytes, b_ops) / ms)
             if m in sums and name != "lm_head":
@@ -369,6 +395,9 @@ def phase_k1(torch, tq8, flush):
     summary = sums[BATCH]
     summary["max_abs_err"] = 0
     summary["ms_m16"], summary["bound_ms_m16"] = sums[LANES]["ms"], sums[LANES]["bound_ms"]
+    summary["library_ms_m16"] = sums[LANES]["library_ms"]
+    summary["library_refused_m16"] = refused.get(LANES)
+    summary["library_refused_m1"] = refused.get(1)
     summary["ms_prefill"] = sums[prefill]["ms"]
     summary["library_ms_prefill"] = sums[prefill]["library_ms"]
     summary["bound_ms_prefill"] = sums[prefill]["bound_ms"]
@@ -2645,6 +2674,571 @@ def phase_train(torch, tfa):
     return out[True]["launches"]
 
 
+# the ckpt phase: Vicuna-7B v1.3's published shapes (32,000 embedding rows, one
+# short of the port's vocab 32,001 with <IMG> = 32,000), the adapter's rank
+# and alpha, the beam run, the trainer's steps; bytes of free disk it needs
+CKPT_VOCAB, CKPT_LORA_R, CKPT_LORA_ALPHA = 32000, 8, 16
+CKPT_BEAMS, CKPT_BEAM_PROMPTS, CKPT_BEAM_NEW, CKPT_TRAIN_STEPS = 4, 2, 64, 2
+CKPT_FREE_BYTES = 16 * 1024 ** 3
+
+
+def _spec_lin(name, o, i, bias=True):
+    return [(f"{name}.weight", (o, i), "w")] + ([(f"{name}.bias", (o,), "bias")] if bias else [])
+
+
+def _spec_ln(name, c):
+    return [(f"{name}.weight", (c,), "norm"), (f"{name}.bias", (c,), "bias")]
+
+
+def _spec_bn(name, c):
+    return _spec_ln(name, c) + [(f"{name}.running_mean", (c,), "mean"),
+                                (f"{name}.running_var", (c,), "var"),
+                                (f"{name}.num_batches_tracked", (), "count")]
+
+
+def _spec_conv(name, o, i, k, bias=False):
+    return [(f"{name}.weight", (o, i, k, k), "conv")] + ([(f"{name}.bias", (o,), "bias")]
+                                                         if bias else [])
+
+
+def _spec_biovil(p, j):
+    """BioViL-T ImageModel keys (ResNet-50 trunk, 3-block ViT pooler of width
+    256, projector to ``j``) under prefix ``p``."""
+    s = _spec_conv(p + "encoder.encoder.conv1", 64, 3, 7) + _spec_bn(p + "encoder.encoder.bn1", 64)
+    cin = 64
+    for stage, (w, blocks) in enumerate([(64, 3), (128, 4), (256, 6), (512, 3)], start=1):
+        for b in range(blocks):
+            q = f"{p}encoder.encoder.layer{stage}.{b}"
+            c = cin if b == 0 else 4 * w
+            s += (_spec_conv(q + ".conv1", w, c, 1) + _spec_bn(q + ".bn1", w)
+                  + _spec_conv(q + ".conv2", w, w, 3) + _spec_bn(q + ".bn2", w)
+                  + _spec_conv(q + ".conv3", 4 * w, w, 1) + _spec_bn(q + ".bn3", 4 * w))
+            if b == 0:
+                s += _spec_conv(q + ".downsample.0", 4 * w, c, 1) + _spec_bn(q + ".downsample.1", 4 * w)
+        cin = 4 * w
+    s += _spec_conv(p + "encoder.backbone_to_vit", 256, 2048, 1)
+    s += [(p + "encoder.missing_previous_emb", (1, 256, 1, 1), "emb")]
+    for i in range(3):
+        q = f"{p}encoder.vit_pooler.blocks.{i}"
+        s += _spec_ln(q + ".norm1", 256) + _spec_ln(q + ".norm2", 256)
+        for n in ("proj_q", "proj_k", "proj_v"):
+            s += _spec_lin(f"{q}.attn.{n}", 256, 256, bias=False)
+        s += (_spec_lin(q + ".attn.proj", 256, 256) + _spec_lin(q + ".mlp.fc1", 256, 256)
+              + _spec_lin(q + ".mlp.fc2", 256, 256))
+    s += _spec_ln(p + "encoder.vit_pooler.norm_post", 256)
+    s += [(p + "encoder.vit_pooler.type_embed", (2, 1, 256), "emb")]
+    return (s + _spec_conv(p + "projector.model.0", j, 512, 1) + _spec_bn(p + "projector.model.1", j)
+            + _spec_conv(p + "projector.model.3", j, j, 1, bias=True))
+
+
+def _spec_bert_layer(q, h, inter):
+    s = []
+    for n in ("query", "key", "value"):
+        s += _spec_lin(f"{q}.attention.self.{n}", h, h)
+    return (s + _spec_lin(q + ".attention.output.dense", h, h)
+            + _spec_ln(q + ".attention.output.LayerNorm", h)
+            + _spec_lin(q + ".intermediate.dense", inter, h) + _spec_lin(q + ".output.dense", h, inter)
+            + _spec_ln(q + ".output.LayerNorm", h))
+
+
+def _spec_blip2(qcfg):
+    """The LAVIS Blip2Qformer stage-1 ``model`` keys at the Q-Former's
+    widths (BERT-base, cross-attention every second layer onto
+    ``encoder_width``), with BioViL-T under ``visual_encoder.``."""
+    b, h, enc = qcfg.bert, qcfg.bert.hidden_size, qcfg.encoder_width
+    p = "Qformer.bert."
+    s = [("query_tokens", (1, qcfg.num_query_tokens, h), "emb"),
+         (p + "embeddings.word_embeddings.weight", (b.vocab_size, h), "emb"),
+         (p + "embeddings.position_embeddings.weight", (b.max_position, h), "emb")]
+    s += _spec_ln(p + "embeddings.LayerNorm", h)
+    for i in range(b.num_layers):
+        q = f"{p}encoder.layer.{i}"
+        s += _spec_bert_layer(q, h, b.intermediate_size)
+        s += (_spec_lin(q + ".intermediate_query.dense", b.intermediate_size, h)
+              + _spec_lin(q + ".output_query.dense", h, b.intermediate_size)
+              + _spec_ln(q + ".output_query.LayerNorm", h))
+        if i % qcfg.cross_attention_freq == 0:
+            s += (_spec_lin(q + ".crossattention.self.query", h, h)
+                  + _spec_lin(q + ".crossattention.self.key", h, enc)
+                  + _spec_lin(q + ".crossattention.self.value", h, enc)
+                  + _spec_lin(q + ".crossattention.output.dense", h, h)
+                  + _spec_ln(q + ".crossattention.output.LayerNorm", h))
+    s += (_spec_lin("Qformer.cls.predictions.transform.dense", h, h)
+          + _spec_ln("Qformer.cls.predictions.transform.LayerNorm", h)
+          + [("Qformer.cls.predictions.bias", (b.vocab_size,), "bias")])
+    s += (_spec_ln("ln_vision", enc) + _spec_lin("vision_proj", 256, h)
+          + _spec_lin("text_proj", 256, h) + _spec_lin("itm_head", 2, h) + [("temp", (), "temp")])
+    return s + _spec_biovil("visual_encoder.", enc)
+
+
+def _spec_chexbert(bcfg):
+    """CheXbert's bert_labeler keys under DataParallel's ``module.``."""
+    h, p = bcfg.hidden_size, "module.bert."
+    s = [(p + "embeddings.word_embeddings.weight", (bcfg.vocab_size, h), "emb"),
+         (p + "embeddings.position_embeddings.weight", (bcfg.max_position, h), "emb"),
+         (p + "embeddings.token_type_embeddings.weight", (bcfg.type_vocab_size, h), "emb")]
+    s += _spec_ln(p + "embeddings.LayerNorm", h)
+    for i in range(bcfg.num_layers):
+        s += _spec_bert_layer(f"{p}encoder.layer.{i}", h, bcfg.intermediate_size)
+    s += _spec_lin(p + "pooler.dense", h, h)
+    for i in range(14):
+        s += _spec_lin(f"module.linear_heads.{i}", 2 if i == 13 else 4, h)
+    return s
+
+
+def _spec_classifier():
+    return (_spec_biovil("model.biovil_encoder.", 128) + _spec_lin("model.fc1", 512, 2048)
+            + _spec_lin("model.fc2", 14, 512))
+
+
+def _spec_vicuna_layer(i, h=4096, inter=11008):
+    p = f"model.layers.{i}."
+    s = [(p + f"self_attn.{n}_proj.weight", (h, h), "w") for n in ("q", "k", "v", "o")]
+    return s + [(p + "mlp.gate_proj.weight", (inter, h), "w"),
+                (p + "mlp.up_proj.weight", (inter, h), "w"),
+                (p + "mlp.down_proj.weight", (h, inter), "w"),
+                (p + "input_layernorm.weight", (h,), "norm"),
+                (p + "post_attention_layernorm.weight", (h,), "norm")]
+
+
+def _spec_vicuna_shards(layers=32, h=4096):
+    """The two shards of HF's Vicuna-7B v1.3 layout: the embedding and the
+    first half of the layers, then the rest, the final norm and lm_head."""
+    half = layers // 2
+    first = [("model.embed_tokens.weight", (CKPT_VOCAB, h), "emb")]
+    for i in range(half):
+        first += _spec_vicuna_layer(i)
+    second = []
+    for i in range(half, layers):
+        second += _spec_vicuna_layer(i)
+    second += [("model.norm.weight", (h,), "norm"), ("lm_head.weight", (CKPT_VOCAB, h), "w")]
+    return [first, second]
+
+
+def _spec_adapter(layers=32, h=4096, qformer_dim=768):
+    s = []
+    for i in range(layers):
+        for t in ("q", "v"):
+            q = f"base_model.model.model.layers.{i}.self_attn.{t}_proj"
+            s += [(q + ".lora_A.weight", (CKPT_LORA_R, h), "w"), (q + ".lora_B.weight", (h, CKPT_LORA_R), "emb")]
+    return s + _spec_lin("base_model.model.model.img_proj_layer", h, qformer_dim)
+
+
+def _draw(torch, key, shape, kind, dtype):
+    """One checkpoint tensor, from a generator seeded by its key on the card
+    (the same tensor every time it is drawn): linear weights with std
+    fan_in ** -0.5 (as llama_init), convolutions sqrt(2 / fan_in), norms and
+    batch-norm scales 1 + N(0, 0.05), embeddings N(0, 0.02), biases and
+    running means N(0, 0.02), running variances 1 + |N(0, 0.05)|."""
+    import zlib
+    if kind == "count":
+        return torch.tensor(0)
+    if kind == "temp":
+        return torch.tensor(0.07, dtype=dtype)
+    g = torch.Generator(device="cuda").manual_seed(zlib.crc32(key.encode()))
+    x = torch.randn(shape, generator=g, device="cuda", dtype=torch.float32)
+    fan_in = 1
+    for d in shape[1:]:
+        fan_in *= d
+    x = {"w": lambda: x * fan_in ** -0.5, "conv": lambda: x * (2.0 / fan_in) ** 0.5,
+         "norm": lambda: 1 + 0.05 * x, "emb": lambda: 0.02 * x, "bias": lambda: 0.02 * x,
+         "mean": lambda: 0.02 * x, "var": lambda: 1 + 0.05 * x.abs()}[kind]()
+    return x.to(dtype).cpu()
+
+
+def _fill(torch, spec, dtype):
+    return {k: _draw(torch, k, shape, kind, dtype) for k, shape, kind in spec}
+
+
+def _rss_reset():
+    """Reset the peak resident set size (Linux: 5 into clear_refs)."""
+    try:
+        with open("/proc/self/clear_refs", "w") as f:
+            f.write("5")
+    except OSError:
+        pass
+
+
+def _rss_peak_gb() -> float:
+    """The peak resident set size since the last reset, else of the process."""
+    try:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmHWM:"):
+                    return int(line.split()[1]) * 1024 / 1e9
+    except OSError:
+        pass
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
+
+
+def _write_ckpt(torch, root):
+    """Every checkpoint of the phase under ``root``, in the formats the
+    reference reads. Returns ({name: path}, {name: bytes}, seconds, the
+    small state dicts kept for the checks)."""
+    import csv
+    import numpy as np
+    from pathlib import Path
+    from radialog_tpu_torch.models.bert import BertConfig
+    from radialog_tpu_torch.models.qformer import QFormerConfig
+    t0 = time.time()
+    vic = Path(root) / "vicuna"
+    vic.mkdir()
+    shards = _spec_vicuna_shards()
+    weight_map, total = {}, 0
+    for j, spec in enumerate(shards):
+        name = f"pytorch_model-{j + 1:05d}-of-{len(shards):05d}.bin"
+        sd = _fill(torch, spec, torch.float16)
+        total += sum(t.numel() * t.element_size() for t in sd.values())
+        torch.save(sd, vic / name)
+        weight_map.update(dict.fromkeys(sd, name))
+        del sd
+    (vic / "pytorch_model.bin.index.json").write_text(json.dumps(
+        {"metadata": {"total_size": total}, "weight_map": weight_map}))
+    ad = Path(root) / "adapter"
+    ad.mkdir()
+    adapter = _fill(torch, _spec_adapter(), torch.float32)
+    torch.save(adapter, ad / "adapter_model.bin")
+    (ad / "adapter_config.json").write_text(json.dumps(
+        {"r": CKPT_LORA_R, "lora_alpha": CKPT_LORA_ALPHA, "lora_dropout": 0.05,
+         "target_modules": ["q_proj", "v_proj"], "task_type": "CAUSAL_LM"}))
+    small = {"blip2": _fill(torch, _spec_blip2(QFormerConfig()), torch.float32),
+             "classifier": _fill(torch, _spec_classifier(), torch.float32),
+             "chexbert": _fill(torch, _spec_chexbert(BertConfig()), torch.float32)}
+    paths = {"vicuna": vic, "adapter": ad / "adapter_model.bin",
+             "blip2": Path(root) / "blip2_stage1.pth", "classifier": Path(root) / "classifier.ckpt",
+             "chexbert": Path(root) / "chexbert.pth", "emb_cache": Path(root) / "emb_cache.npz"}
+    # a LAVIS .pth and a Lightning .ckpt hold entries that are no tensors
+    torch.save({"model": small["blip2"], "config": {"arch": "blip2_qformer"}, "epoch": 9},
+               paths["blip2"])
+    torch.save({"state_dict": small["classifier"], "hyper_parameters": {"lr": 1e-4},
+                "epoch": 20, "pytorch-lightning_version": "1.9.0"}, paths["classifier"])
+    torch.save({"model_state_dict": small["chexbert"], "epoch": 7}, paths["chexbert"])
+    with open("tests/fixtures/split.csv") as f:
+        dicoms = [r["dicom_id"] for r in csv.DictReader(f) if r["split"] == "test"]
+    rng = np.random.default_rng(11)
+    np.savez(paths["emb_cache"], **{d: rng.normal(size=(32, 768)).astype(np.float32)
+                                    for d in dicoms})
+    sizes = {k: sum(f.stat().st_size for f in (p.iterdir() if p.is_dir() else [p]))
+             for k, p in paths.items()}
+    small["adapter"] = adapter
+    return paths, sizes, time.time() - t0, small
+
+
+def _vicuna_layer(torch, i):
+    """Layer i's nine tensors of the written checkpoint, drawn again."""
+    return {k.split(f"layers.{i}.")[1]: _draw(torch, k, shape, kind, torch.float16)
+            for k, shape, kind in _spec_vicuna_layer(i)}
+
+
+def _leaves_equal(torch, got, want) -> bool:
+    """Whether two trees have the same structure and every leaf is bitwise
+    equal (``got`` on any device, ``want`` on the CPU)."""
+    if isinstance(want, dict):
+        return (isinstance(got, dict) and got.keys() == want.keys()
+                and all(_leaves_equal(torch, got[k], want[k]) for k in want))
+    if isinstance(want, (list, tuple)):
+        return (len(got) == len(want)
+                and all(_leaves_equal(torch, a, b) for a, b in zip(got, want)))
+    return got.dtype == want.dtype and torch.equal(got.cpu(), want)
+
+
+def _ckpt_w8a8(torch, pipeline_mod, paths, small, counted):
+    """The W8A8 pipeline from the files, its leaves against the same state
+    dicts converted and packed in memory, the report batch and a beam run."""
+    import numpy as np
+    from radialog_tpu_torch.ops.q8_matmul import pack_q8
+    from radialog_tpu_torch.utils import hf_weights as hfw
+    from radialog_tpu_torch.apps.pipeline import move_tree
+    from radialog_tpu_torch.decode import engine as te
+    gc.collect()
+    _rss_reset()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.time()
+    cfg = pipeline_mod.PipelineConfig(
+        vicuna_path=str(paths["vicuna"]), lora_path=str(paths["adapter"]),
+        blip2_checkpoint=str(paths["blip2"]), classifier_checkpoint=str(paths["classifier"]),
+        chexbert_checkpoint=str(paths["chexbert"]), emb_cache=str(paths["emb_cache"]),
+        quantize=True, seed=0)
+    pipe = pipeline_mod.RaDialogPipeline(cfg)
+    torch.cuda.synchronize()
+    load = {"seconds": time.time() - t0, "llama_stages": dict(pipe.load_seconds),
+            "peak_host_rss_gb": _rss_peak_gb(),
+            "device_gb": (torch.cuda.memory_allocated() - mem0) / 1e9}
+
+    def packed_eq(got, w):
+        want = pack_q8(w)
+        return torch.equal(got.w.cpu(), want.w) and torch.equal(got.scale.cpu(), want.scale)
+    held = {}
+    for i in (0, 31):
+        sd = _vicuna_layer(torch, i)
+        t = {k: v.float().T.numpy() for k, v in sd.items() if v.ndim == 2}
+        lp = pipe.llama["layers"][i]
+        held[f"layer{i}"] = (
+            packed_eq(lp["wqkv"], np.concatenate([t["self_attn.q_proj.weight"],
+                                                  t["self_attn.k_proj.weight"],
+                                                  t["self_attn.v_proj.weight"]], -1))
+            and packed_eq(lp["gateup"], np.concatenate([t["mlp.gate_proj.weight"],
+                                                        t["mlp.up_proj.weight"]], -1))
+            and packed_eq(lp["wo"], t["self_attn.o_proj.weight"])
+            and packed_eq(lp["down"], t["mlp.down_proj.weight"])
+            and torch.equal(lp["input_ln"].cpu(), sd["input_layernorm.weight"].float())
+            and torch.equal(lp["post_ln"].cpu(), sd["post_attention_layernorm.weight"].float()))
+    spec = {k: (shape, kind) for k, shape, kind in _spec_vicuna_shards()[1]}
+    head = _draw(torch, "lm_head.weight", *spec["lm_head.weight"], torch.float16)
+    held["lm_head"] = packed_eq(pipe.llama["lm_head"], head.float().T.numpy())
+    emb = _draw(torch, "model.embed_tokens.weight", (CKPT_VOCAB, 4096), "emb", torch.float16)
+    held["embed"] = torch.equal(pipe.llama["embed"].cpu(), emb.to(torch.bfloat16))
+    held["embed_rows"] = pipe.llama["embed"].shape[0] == CKPT_VOCAB < pipe.llama_cfg.vocab_size
+    want_lora = move_tree(hfw.convert_peft_lora(small["adapter"], 32, adapter_config={
+        "r": CKPT_LORA_R, "lora_alpha": CKPT_LORA_ALPHA}), "cpu", torch.bfloat16)
+    held["lora_and_img_proj"] = _leaves_equal(torch, pipe.lora, want_lora)
+    bp, bs = hfw.convert_blip2(small["blip2"])
+    held["blip2"] = _leaves_equal(torch, pipe.blip2, move_tree(bp, "cpu", torch.float32))
+    held["biovil_t"] = (_leaves_equal(torch, pipe.visual, move_tree(bp["visual"], "cpu", torch.float32))
+                        and _leaves_equal(torch, pipe.visual_state,
+                                          move_tree(bs["visual"], "cpu", torch.float32)))
+    cp, cs = hfw.convert_chexpert_classifier(small["classifier"])
+    held["classifier"] = (_leaves_equal(torch, pipe.classifier, move_tree(cp, "cpu", torch.float32))
+                          and _leaves_equal(torch, pipe.classifier_state,
+                                            move_tree(cs, "cpu", torch.float32)))
+    held["chexbert"] = _leaves_equal(torch, pipe.chexbert, move_tree(
+        hfw.convert_chexbert(small["chexbert"]), "cpu", torch.float32))
+    del head, emb
+    # the report batch of the slice phase, on the loaded weights
+    prompts, ids, report_step = _report_batch(torch, pipe)
+    _zero(counted)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    findings, embs, res = report_step(NEW)
+    tokens = res.tokens.cpu()
+    dt = time.time() - t0
+    report_launches = _read(counted)
+    two = [ids[0], ids[1]]
+    toks, lens = pipeline_mod.pad_batch_right(two, 0)
+    with torch.no_grad():
+        _, first = te.prefill(pipe.llama, pipe.llama_cfg, torch.as_tensor(toks, device="cuda"),
+                              torch.as_tensor(lens, device="cuda"), toks.shape[1] + 8,
+                              img_embs=embs[:2], lora=pipe.lora, policy=pipe.policy)
+        _, no_img = te.prefill(pipe.llama, pipe.llama_cfg, torch.as_tensor(toks, device="cuda"),
+                               torch.as_tensor(lens, device="cuda"), toks.shape[1] + 8,
+                               lora=pipe.lora, policy=pipe.policy)
+    report = {"reports_per_s": BATCH / dt, "seconds": dt, "launches": report_launches,
+              "logits_finite": bool(torch.isfinite(first).all()),
+              # JAX's jnp.take fills the <IMG> row past the 32,000-row table with NaN
+              "logits_without_image_nan": bool(torch.isnan(no_img).all()),
+              "embs_finite": bool(torch.isfinite(embs).all()),
+              "distinct_tokens": int(tokens.unique().numel())}
+    ok_report = (tokens.shape == (BATCH, NEW) and int(tokens.max()) < CKPT_VOCAB
+                 and report["logits_finite"] and report["embs_finite"]
+                 and report["logits_without_image_nan"] and len(findings) == BATCH
+                 and report_launches["q8_matmul"] > 0 and report_launches["flash_decode_int8"] > 0)
+    # beam search on the bf16 cache: K1 in every step, never K2
+    _zero(counted)
+    t0 = time.time()
+    beams = pipe.generate_texts(prompts[:CKPT_BEAM_PROMPTS], img_embs=embs[:CKPT_BEAM_PROMPTS],
+                                max_new_tokens=CKPT_BEAM_NEW, num_beams=CKPT_BEAMS)
+    torch.cuda.synchronize()
+    beam = {"seconds": time.time() - t0, "launches": _read(counted), "beams": CKPT_BEAMS,
+            "prompts": CKPT_BEAM_PROMPTS, "new_tokens": CKPT_BEAM_NEW,
+            "generated_words": [len(b.split()) - len(p.split()) for b, p in zip(beams, prompts)]}
+    ok_beam = (len(beams) == CKPT_BEAM_PROMPTS and all(b.startswith(p) for b, p in zip(beams, prompts))
+               and beam["launches"]["q8_matmul"] > 0 and beam["launches"]["flash_decode_int8"] == 0)
+    launches = {k: report_launches[k] + beam["launches"][k] for k in report_launches}
+    ok = all(held.values()) and ok_report and ok_beam
+    emit("ckpt", part="w8a8", load=load, held_bitwise=held, report=report, beam=beam, ok=ok)
+    return pipe, launches, load, ok
+
+
+def _ckpt_bf16(torch, pipeline_mod, paths):
+    """The float pipeline (quantize=False) from the same files: its load and
+    layers 0 and 31 against the checkpoint's fp16 tensors cast to bf16."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    _rss_reset()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.time()
+    pipe = pipeline_mod.RaDialogPipeline(pipeline_mod.PipelineConfig(
+        vicuna_path=str(paths["vicuna"]), lora_path=str(paths["adapter"]), quantize=False,
+        seed=0))
+    torch.cuda.synchronize()
+    load = {"seconds": time.time() - t0, "llama_stages": dict(pipe.load_seconds),
+            "peak_host_rss_gb": _rss_peak_gb(),
+            "device_gb": (torch.cuda.memory_allocated() - mem0) / 1e9}
+    names = {"wq": "self_attn.q_proj.weight", "wk": "self_attn.k_proj.weight",
+             "wv": "self_attn.v_proj.weight", "wo": "self_attn.o_proj.weight",
+             "gate": "mlp.gate_proj.weight", "up": "mlp.up_proj.weight",
+             "down": "mlp.down_proj.weight"}
+    held = {}
+    for i in (0, 31):
+        sd = _vicuna_layer(torch, i)
+        lp = pipe.llama["layers"]
+        held[f"layer{i}"] = (
+            all(torch.equal(lp[n]["w"][i].cpu(), sd[k].T.to(torch.bfloat16)) for n, k in names.items())
+            and torch.equal(lp["input_ln"][i].cpu(), sd["input_layernorm.weight"].to(torch.bfloat16))
+            and torch.equal(lp["post_ln"][i].cpu(),
+                            sd["post_attention_layernorm.weight"].to(torch.bfloat16)))
+    ok = all(held.values()) and isinstance(pipe.llama["layers"], dict)
+    emit("ckpt", part="bf16", load=load, held_bitwise=held, ok=ok)
+    del pipe
+    return load, ok
+
+
+def _ckpt_eval(torch, paths, counted):
+    """apps/evaluate.py main with the checkpoint flags, beams, the correction
+    and binary-QA passes over one fixture study (the float pipeline)."""
+    import shutil
+    from pathlib import Path
+    from radialog_tpu_torch.apps import evaluate as ev
+    gc.collect()
+    torch.cuda.empty_cache()
+    out_dir = Path("build/chip_eval_ckpt")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    argv = ["--vicuna_path", str(paths["vicuna"]), "--lora_model", str(paths["adapter"]),
+            "--blip2_checkpoint", str(paths["blip2"]), "--chexbert_checkpoint", str(paths["chexbert"]),
+            "--emb_cache", str(paths["emb_cache"]), "--use_embs", "--num_beams", str(CKPT_BEAMS),
+            "--do_corr", "--do_cp_bin_qa", "--fixture-dir", "tests/fixtures", "--truncate", "1",
+            "--output_dir", str(out_dir)]
+    made, calls, state = [], [], {"corr": None}
+    _zero(counted)
+    t0 = time.time()
+    with _eval_pipelines(ev, _timed_pipelines(torch, made, calls, state, lambda new, n: None)):
+        results = ev.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    launches = _read(counted)
+    pipe = made[0]
+    files_ok, files = _eval_outputs(out_dir, results, 1)
+    gens = [c for c in calls if "new" in c]
+    per_pass = {"report_beams": sum(c["s"] for c in gens if c["new"] == NEW),
+                "correction": sum(c["s"] for c in gens if c["new"] == ev.CORRECTION_NEW),
+                "binary_qa": sum(c["s"] for c in gens if c["new"] == 10),
+                "labels": sum(c["s"] for c in calls if "labels" in c)}
+    rows = [torch.from_numpy(v) for v in pipe.emb_cache.values()]
+    cache_hit = bool(rows) and all(
+        c["embs"] is not None and any(torch.equal(c["embs"][0].cpu(), r) for r in rows)
+        for c in gens)
+    ok = (files_ok and not pipe.cfg.quantize and launches["flash_attention"] > 0
+          and launches["q8_matmul"] == 0 and launches["flash_decode_int8"] == 0 and cache_hit
+          and len(gens) == 3)
+    emit("ckpt", part="eval", argv=argv, seconds=seconds, load_seconds=dict(pipe.load_seconds),
+         seconds_per_pass=per_pass, launches=launches, emb_cache_rows=len(pipe.emb_cache),
+         metrics=results, ok=ok, **files)
+    made.clear()
+    calls.clear()
+    return launches, ok
+
+
+def _ckpt_train(torch, tfa, root, paths):
+    """apps/finetune_lora.train from the Vicuna files and the adapter: the
+    int8 base quantized on the card, flash attention, two micro-steps."""
+    from pathlib import Path
+    from radialog_tpu_torch.apps import finetune_lora as ft
+    gc.collect()
+    torch.cuda.empty_cache()
+    counted = {"flash_attention": tfa.flash_attention_kernel,
+               "flash_attention_dq": tfa.flash_attention_dq_kernel,
+               "flash_attention_dkv": tfa.flash_attention_dkv_kernel}
+    data = Path(root) / "instruct.json"
+    data.write_text(json.dumps(_train_records(8, lambda j: 360 + 30 * j)))
+    losses, t_steps = [], []
+    cfg = ft.FinetuneConfig(base_model=str(paths["vicuna"]), lora_weights=str(paths["adapter"]),
+                            quantize_base=True, flash=True, micro_batch_size=MICRO,
+                            batch_size=MICRO * ACCUM, cutoff_len=CUTOFF,
+                            max_steps=CKPT_TRAIN_STEPS, data_path=str(data), val_set_size=2,
+                            use_embs=True, output_dir=str(Path(root) / "lora-out"))
+    _zero(counted)
+    _rss_reset()
+    t0 = time.time()
+
+    def on_step(step, metrics):
+        torch.cuda.synchronize()
+        t_steps.append(time.time())
+        losses.append(float(metrics["loss"]))
+
+    state = ft.train(cfg, log_fn=lambda m: None, on_step=on_step)
+    torch.cuda.synchronize()
+    launches = _read(counted)
+    load_s = t_steps[0] - t0 if t_steps else None
+    ok = (len(losses) == CKPT_TRAIN_STEPS and all(x == x and abs(x) != float("inf") for x in losses)
+          and all(v > 0 for v in launches.values()) and state.step == CKPT_TRAIN_STEPS)
+    emit("ckpt", part="train", seconds=time.time() - t0,
+         load_and_first_step_seconds=load_s, peak_host_rss_gb=_rss_peak_gb(),
+         losses=losses, launches=launches, ok=ok)
+    return launches, ok
+
+
+def _ckpt_w4_pack(torch):
+    """Seconds of pack_q4 (the host packer of --w4) for one full-width layer
+    of the written checkpoint, by projection; the 32-layer cost is 32 x."""
+    import numpy as np
+    from radialog_tpu_torch.ops.q4_matmul import pack_q4
+    sd = _vicuna_layer(torch, 0)
+    t = {k: v.float().T.numpy() for k, v in sd.items() if v.ndim == 2}
+    parts = {"wqkv": np.concatenate([t["self_attn.q_proj.weight"], t["self_attn.k_proj.weight"],
+                                     t["self_attn.v_proj.weight"]], -1),
+             "gateup": np.concatenate([t["mlp.gate_proj.weight"], t["mlp.up_proj.weight"]], -1),
+             "wo": t["self_attn.o_proj.weight"], "down": t["mlp.down_proj.weight"]}
+    seconds = {}
+    for name, w in parts.items():
+        t0 = time.time()
+        pack_q4(w)
+        seconds[name] = time.time() - t0
+    layer = sum(seconds.values())
+    emit("ckpt", part="w4_pack", seconds_per_projection=seconds, seconds_per_layer=layer,
+         seconds_32_layers_estimated=32 * layer, ok=True)
+    return layer
+
+
+def phase_ckpt(torch, pipeline_mod, tq8, tfd, tfa):
+    """Vicuna-7B-sized checkpoints written to disk and loaded back through
+    the port's loaders, with both tokenizer loaders replaced by the
+    WhitespaceTokenizer at the Vicuna layout (no tokenizer files in the
+    repository, and the card's machine may lack transformers). The
+    directory is removed at the end, whatever happened; a failure still
+    fails the run."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+    from radialog_tpu_torch.apps import tokenization as tk
+    from radialog_tpu_torch.models.bert import BertConfig
+    Path("build").mkdir(exist_ok=True)
+    free = shutil.disk_usage("build").free
+    if free < CKPT_FREE_BYTES:
+        raise AssertionError(f"the ckpt phase needs {CKPT_FREE_BYTES} bytes free under build/; "
+                             f"{free} are")
+    counted = {"q8_matmul": tq8.q8_matmul_int32, "flash_decode_int8": tfd.flash_decode_int8_kernel,
+               "flash_attention": tfa.flash_attention_kernel}
+    loaders = tk.load_vicuna_tokenizer, tk.load_bert_tokenizer
+    tk.load_vicuna_tokenizer = lambda path, num_img_tokens=32: tk.WhitespaceTokenizer(
+        vocab_size=32001, num_img_tokens=num_img_tokens, img_token_id=32000)
+    tk.load_bert_tokenizer = lambda path=None: tk.WhitespaceTokenizer(
+        vocab_size=BertConfig().vocab_size)
+    root = Path(tempfile.mkdtemp(prefix="ckpt-", dir="build"))
+    try:
+        paths, sizes, write_s, small = _write_ckpt(torch, root)
+        emit("ckpt", part="write", bytes=sizes, seconds=write_s, disk_free_before=free,
+             tokenizers="load_vicuna_tokenizer and load_bert_tokenizer replaced by "
+                        "WhitespaceTokenizer at the Vicuna layout (vocab 32001, <IMG> 32000)")
+        pipe, launches, w8_load, ok8 = _ckpt_w8a8(torch, pipeline_mod, paths, small, counted)
+        del pipe
+        bf_load, okb = _ckpt_bf16(torch, pipeline_mod, paths)
+        eval_launches, oke = _ckpt_eval(torch, paths, counted)
+        train_launches, okt = _ckpt_train(torch, tfa, root, paths)
+        w4_s = _ckpt_w4_pack(torch)
+    finally:
+        tk.load_vicuna_tokenizer, tk.load_bert_tokenizer = loaders
+        shutil.rmtree(root, ignore_errors=True)
+    if not (ok8 and okb and oke and okt):
+        raise AssertionError("the ckpt phase failed a check")
+    return {"q8_matmul": launches["q8_matmul"],
+            "flash_decode_int8": launches["flash_decode_int8"],
+            "flash_attention": eval_launches["flash_attention"], "train": train_launches,
+            "load_seconds": {"w8a8": w8_load["seconds"], "bf16": bf_load["seconds"]},
+            "w4_pack_seconds_per_layer": w4_s}
+
+
 def main() -> int:
     try:
         import torch
@@ -2711,6 +3305,9 @@ def main() -> int:
     gc.collect()                            # the float pipelines make room for the trainer
     torch.cuda.empty_cache()
     train_launches = phase_train(torch, tfa)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ckpt = phase_ckpt(torch, pipeline_mod, tq8, tfd, tfa)
 
     kernels = [
         {"name": "q8_matmul", "route": "cuda", "source": "radialog_tpu_torch/csrc/q8_matmul.cu",
@@ -2718,16 +3315,19 @@ def main() -> int:
          "max_abs_err": k1["max_abs_err"], "ms": k1["ms"], "plain_ms": k1["plain_ms"],
          "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
          "library_ms": k1["library_ms"], "ms_m16": k1["ms_m16"],
-         "bound_ms_m16": k1["bound_ms_m16"], "ms_prefill": k1["ms_prefill"],
+         "bound_ms_m16": k1["bound_ms_m16"], "library_ms_m16": k1["library_ms_m16"],
+         "library_refused_m16": k1["library_refused_m16"], "ms_prefill": k1["ms_prefill"],
          "library_ms_prefill": k1["library_ms_prefill"],
          "bound_ms_prefill": k1["bound_ms_prefill"],
          **{k: v for k, v in k1.items() if k.endswith(("_m1", "_correction_prefill"))},
-         "launches_eval": eval_launches["q8_matmul"],
+         "launches_eval": eval_launches["q8_matmul"], "launches_ckpt": ckpt["q8_matmul"],
          "work": "one decoder layer's 4 projections at decode, M=56 (report batch); "
-                 "ms_m16 and bound_ms_m16: the same at the serve phase's 16 lanes; "
+                 "*_m16: the same at the serve phase's 16 lanes; library_refused_*: "
+                 "torch._int_mm's refusal at those rows; "
                  "*_prefill: the same at the report prefill's M=4480; *_m1: at batch-1 "
                  "decode; *_correction_prefill: at the correction prefill's M=440; "
-                 "launches_eval: the eval phase's"},
+                 "launches_eval: the eval phase's; launches_ckpt: the ckpt phase's report "
+                 "batch and beam run on the W8A8 weights loaded from files"},
         {"name": "flash_decode_int8", "route": "cuda",
          "source": "radialog_tpu_torch/csrc/flash_decode.cu",
          "replaces": "radialog_tpu/ops/flash_decode.py:128",
@@ -2739,12 +3339,13 @@ def main() -> int:
          "launches_qa": qa_launches["flash_decode_int8"],
          **{k: v for k, v in k2.items() if k.endswith("_correction")},
          "launches_eval": eval_launches["flash_decode_int8"],
+         "launches_ckpt": ckpt["flash_decode_int8"],
          "work": "one layer at decode step 150, B=56, S=384, P0=48; prefix_device_ms and "
                  "lane_device_ms: the card's own time of the two kernels; read_flush_ms: the "
                  "L2 flushed by a read; *_qa: the binary-QA pass's shape, B=14, 427 of 448 "
                  "prefix rows, S=128, step 9, and the qa phase's launches; *_correction: the "
                  "correction decode's, B=1, no prefix, S=768, step 128; launches_eval: the "
-                 "eval phase's"},
+                 "eval phase's; launches_ckpt: the ckpt phase's report batch"},
         {"name": "flash_decode_int8_intervals", "route": "cuda",
          "source": "radialog_tpu_torch/csrc/flash_decode.cu",
          "replaces": "radialog_tpu/ops/flash_decode.py:521",
@@ -2772,12 +3373,16 @@ def main() -> int:
                  "causal, q/k/v views of the fused projection; launches of the qa phase; "
                  "*_train: the train phase's shape, B=2, T=S=600, lengths 600 and 413; "
                  "*_correction: the correction prefill's, B=1, T=S=440, length 437; "
-                 "launches_eval: the eval phase's; *_float_qa: the float path's binary-QA "
+                 "launches_eval: the eval phase's; launches_ckpt: the ckpt phase's eval "
+                 "command line from files; launches_ckpt_train: its trainer from files; "
+                 "*_float_qa: the float path's binary-QA "
                  "batch, B=14, T=S=440, lengths 431-440, q/k/v contiguous; "
                  "*_float_correction: its correction prefill, B=1, T=S=440, length 437, "
                  "contiguous; launches_float: the float phase's (report pass, server, "
                  "ContinuousBatcher, eval command line)",
-         "launches_train": train_launches["flash_attention"]},
+         "launches_train": train_launches["flash_attention"],
+         "launches_ckpt": ckpt["flash_attention"],
+         "launches_ckpt_train": ckpt["train"]["flash_attention"]},
         {"name": "q4_matmul", "route": "cuda", "source": "radialog_tpu_torch/csrc/q4_matmul.cu",
          "replaces": "radialog_tpu/ops/q4_matmul.py:177",
          "launches": serve4_launches["q4_matmul"], "max_abs_err": k4["max_abs_err"],
@@ -2792,14 +3397,17 @@ def main() -> int:
          "source": "radialog_tpu_torch/csrc/flash_attention_bwd.cu",
          "replaces": "radialog_tpu/ops/flash_attention.py:124",
          "launches": train_launches["flash_attention_dq"], **k5["dq"],
+         "launches_ckpt_train": ckpt["train"]["flash_attention_dq"],
          "work": "one layer's dq at the train phase's shape, B=2, T=S=600, lengths 600 and "
                  "413, H=32, D=128, bf16, causal, q/k/v contiguous; "
                  "library_ms: the whole backward of scaled_dot_product_attention (dq, dk "
-                 "and dv); launches of the train phase with flash"},
+                 "and dv); launches of the train phase with flash; launches_ckpt_train: the "
+                 "ckpt phase's trainer from files"},
         {"name": "flash_attention_dkv", "route": "cuda",
          "source": "radialog_tpu_torch/csrc/flash_attention_bwd.cu",
          "replaces": "radialog_tpu/ops/flash_attention.py:159",
          "launches": train_launches["flash_attention_dkv"], **k5["dkv"],
+         "launches_ckpt_train": ckpt["train"]["flash_attention_dkv"],
          "work": "one layer's dk and dv at the same shape; library_ms as for dq"},
         {"name": "flash_decode_int8_current", "route": "cuda",
          "source": "radialog_tpu_torch/csrc/flash_decode.cu",

@@ -11,17 +11,19 @@ one batch, 10 new tokens; the whole history and the image join the shared
 prefix) and the all-QA pass (one question a study in batches of 5, 30 new
 tokens).
 
-Not ported yet: beams (``num_beams > 1``, ROADMAP.md queue 1 item 4) and
-the batched speculative correction pass (``corr_spec > 0``, item 5); both
-raise.
+With ``num_beams > 1`` the report pass runs beam search (decode/beam.py).
+Not ported yet: the batched speculative correction pass (``corr_spec > 0``,
+ROADMAP.md queue 1 item 5), which raises.
 
 Run: ``python -m radialog_tpu_torch.apps.evaluate --mock --device cpu
 --fixture-dir tests/fixtures --truncate 2 --max_new_tokens 6 --do_corr``
-(tiny seeded models on the CPU), or ``--synthetic`` for Vicuna-7B widths
-with random weights on the card (the default ``--device cuda``). As with
-the root test.py, the weights are float (the stacked layout over the bf16
-cache) unless ``--int8`` (W8A8) or ``--w4`` (W4A8) asks for the quantized
-serving params.
+(tiny seeded models on the CPU), ``--synthetic`` for Vicuna-7B widths with
+random weights, or the checkpoints as the root test.py takes them
+(``--vicuna_path``, ``--lora_model``, ``--blip2_checkpoint``,
+``--chexbert_checkpoint``, ``--emb_cache``), on the card by default
+(``--device cuda``). As with the root test.py, the weights are float (the
+stacked layout over the bf16 cache) unless ``--int8`` (W8A8) or ``--w4``
+(W4A8) asks for the quantized serving params.
 """
 from __future__ import annotations
 
@@ -70,9 +72,6 @@ class EvalOptions:
 
 
 def _check_options(opts: EvalOptions) -> None:
-    if opts.num_beams > 1:
-        raise NotImplementedError("num_beams > 1: beam search (decode/beam.py) is not ported "
-                                  "yet (ROADMAP.md queue 1 item 4)")
     if opts.corr_spec > 0:
         raise NotImplementedError("corr_spec > 0: the batched speculative correction pass "
                                   "(SpecCompactBatcher, decode/spec_ring.py) is not ported yet "
@@ -221,10 +220,6 @@ def run_all_qa_pass(pipe: RaDialogPipeline, records: List[Dict], preds_history: 
 
 
 # ------------------------------------------------------------- command line
-REAL_CHECKPOINT_FLAGS = ("vicuna_path", "lora_model", "blip2_checkpoint",
-                         "chexbert_checkpoint", "emb_cache")
-
-
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     """The root test.py's flags with their defaults, plus --synthetic and
     --device."""
@@ -275,24 +270,27 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 
 def _check_args(args: argparse.Namespace) -> None:
-    for flag in REAL_CHECKPOINT_FLAGS:
-        if getattr(args, flag) is not None:
-            raise NotImplementedError(f"--{flag}: loading real checkpoints is not ported yet "
-                                      "(ROADMAP.md queue 1 item 3)")
-    if not (args.mock or args.synthetic):
-        raise NotImplementedError("loading real checkpoints is not ported yet (ROADMAP.md "
-                                  "queue 1 item 3): pass --mock or --synthetic")
+    if not (args.mock or args.synthetic or args.vicuna_path):
+        raise ValueError("pass --vicuna_path (a Vicuna checkpoint directory), --mock or "
+                         "--synthetic")
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass --device cpu to run on the CPU")
 
 
-def mock_emb_provider(num_img_tokens: int, qformer_dim: int) -> EmbProvider:
-    """Deterministic per-dicom embeddings: normal draws from a generator
-    seeded with the crc32 of the dicom id."""
-    def provider(dicoms):
-        return np.stack([np.random.default_rng(zlib.crc32(str(d).encode())).normal(
-            size=(num_img_tokens, qformer_dim)).astype(np.float32) for d in dicoms])
-    return provider
+def mock_emb_provider(num_img_tokens: int, qformer_dim: int,
+                      cache: Optional[Dict[str, np.ndarray]] = None) -> EmbProvider:
+    """Per-dicom embeddings: the row of ``cache`` (the pipeline's emb_cache)
+    where there is one, else normal draws from a generator seeded with the
+    crc32 of the dicom id, as the root test.py makes them."""
+    cache = cache or {}
+
+    def one(d):
+        if str(d) in cache:
+            return np.asarray(cache[str(d)])
+        return np.random.default_rng(zlib.crc32(str(d).encode())).normal(
+            size=(num_img_tokens, qformer_dim)).astype(np.float32)
+
+    return lambda dicoms: np.stack([one(d) for d in dicoms])
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
@@ -325,6 +323,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
     print(f"eval records: {len(records)}")
 
     pipe = RaDialogPipeline(PipelineConfig(
+        vicuna_path=args.vicuna_path, lora_path=args.lora_model,
+        blip2_checkpoint=args.blip2_checkpoint, chexbert_checkpoint=args.chexbert_checkpoint,
+        emb_cache=args.emb_cache,
         mock=args.mock, synthetic=args.synthetic, quantize=args.int8 or args.w4,
         weight_bits=4 if args.w4 else 8,
         kv_int8=False if args.kv_bf16 else None, max_new_tokens=args.max_new_tokens,
@@ -332,7 +333,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
     emb_provider = None
     if args.use_embs:
         emb_provider = mock_emb_provider(pipe.llama_cfg.num_img_tokens,
-                                         pipe.llama_cfg.qformer_dim)
+                                         pipe.llama_cfg.qformer_dim, pipe.emb_cache)
     results = run_eval(pipe, records, opts, emb_provider=emb_provider)
     print(json.dumps({k: round(float(v), 6) for k, v in results.items()}, indent=2))
     return results

@@ -10,14 +10,19 @@ format. The frozen base is float or, with ``quantize_base``, int8
 kernels forward and backward (ops/flash_attention.py).
 
 Weights are ``mock`` (TINY_LLAMA, seeded on the host, so a CPU run and a
-card run start from the same numbers) or ``synthetic`` (Vicuna-7B widths,
-random weights from a seeded generator on the device, bf16 compute).
-Loading real checkpoints is not ported yet.
+card run start from the same numbers), ``synthetic`` (Vicuna-7B widths,
+random weights from a seeded generator on the device, bf16 compute) or, as
+in the JAX package, the Vicuna checkpoint directory ``base_model`` (its
+tokenizer and safetensors or ``pytorch_model*.bin`` shards; bf16, or int8
+with ``quantize_base``), with a PEFT adapter ``lora_weights`` to start from.
 
   python -m radialog_tpu_torch.apps.finetune_lora --mock true \\
       --data_path tests/fixtures/instruct.json --batch_size 4 \\
       --micro_batch_size 2 --num_epochs 1 --max_steps 4 --cutoff_len 64 \\
       --use_embs true --output_dir /tmp/lora-out [--device cpu]
+  python -m radialog_tpu_torch.apps.finetune_lora --base_model VICUNA_DIR \\
+      --lora_weights ADAPTER_DIR/adapter_model.bin --quantize_base true \\
+      --data_path DATA.json --output_dir OUT_DIR
 """
 from __future__ import annotations
 
@@ -38,9 +43,11 @@ from ..data.datasets import (balanced_epoch_indices, load_instruct_dataset,
                              split_report_instruct)
 from ..models.llama import LlamaConfig, TINY_LLAMA, VICUNA_7B, llama_init, lora_init
 from ..ops.layers import BF16, FP32, set_precision
-from ..ops.quant import quantize_llama, random_q8_train_base
+from ..ops.quant import quantize_llama, quantize_llama_np, random_q8_train_base
 from ..train.optim import linear_warmup_cosine, make_adamw, tree_map
 from ..train.steps import TrainState, lora_loss_fn, make_lora_train_step
+from ..utils import hf_weights
+from . import tokenization
 from .tokenization import (Prompter, WhitespaceTokenizer, pad_batch_right, pad_labels_right,
                            tokenize_with_masked_prompt)
 
@@ -119,8 +126,8 @@ def _to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
 
 
 def _build_model(cfg: FinetuneConfig, device, base: Optional[Dict] = None):
-    """(llama_cfg, tokenizer, base, policy) of the mock or the synthetic
-    run; a ``base`` given by the caller is kept."""
+    """(llama_cfg, tokenizer, base, policy) of the mock, the synthetic or the
+    checkpoint run; a ``base`` given by the caller is kept."""
     if cfg.mock:
         # positions up to the cutoff need rope rows (the JAX package's
         # gather clamps past max_position instead)
@@ -133,7 +140,7 @@ def _build_model(cfg: FinetuneConfig, device, base: Optional[Dict] = None):
             base = llama_init(torch.Generator().manual_seed(0), llama_cfg, device="cpu")
             base = tree_map(lambda x: x.to(device),
                             quantize_llama(base) if cfg.quantize_base else base)
-    else:
+    elif cfg.synthetic:
         llama_cfg, policy = VICUNA_7B, BF16
         if base is None:
             gen = torch.Generator(device=device).manual_seed(0)
@@ -141,6 +148,17 @@ def _build_model(cfg: FinetuneConfig, device, base: Optional[Dict] = None):
                 base = random_q8_train_base(llama_cfg, gen, device=device)
             else:
                 base = llama_init(gen, llama_cfg, device=device, dtype=torch.bfloat16)
+    else:
+        # the checkpoint: the int8 base quantized on the host and moved leaf
+        # by leaf, or every leaf in bf16
+        llama_cfg, policy = VICUNA_7B, BF16
+        tokenizer = tokenization.load_vicuna_tokenizer(cfg.base_model)
+        if base is None:
+            converted = hf_weights.convert_llama(hf_weights._load_hf_state_dict(cfg.base_model),
+                                                 llama_cfg.num_layers)
+            base = (quantize_llama_np(converted, device=device) if cfg.quantize_base
+                    else tree_map(lambda x: x.to(device, torch.bfloat16), converted))
+        return llama_cfg, tokenizer, base, policy
     tokenizer = WhitespaceTokenizer(vocab_size=llama_cfg.vocab_size,
                                     num_img_tokens=llama_cfg.num_img_tokens,
                                     img_token_id=llama_cfg.img_token_id)
@@ -159,14 +177,11 @@ def train(cfg: FinetuneConfig,
     sequence lengths (padding not counted). ``base`` and ``lora`` replace the trees the
     configuration would build (on ``cfg.device`` already), so that two runs
     can share their weights."""
-    if cfg.mock == cfg.synthetic:
-        raise NotImplementedError(
-            "choose mock=True or synthetic=True: loading real weights is not ported yet (it "
-            "needs the Vicuna checkpoint and tokenizer files of base_model and the "
-            "converters of radialog_tpu/utils/hf_weights.py)")
-    if cfg.lora_weights:
-        raise NotImplementedError("loading a PEFT adapter (lora_weights) is not ported yet: "
-                                  "it needs utils/hf_weights.convert_peft_lora")
+    if cfg.mock and cfg.synthetic:
+        raise ValueError("choose one of mock=True and synthetic=True")
+    if not (cfg.mock or cfg.synthetic or cfg.base_model):
+        raise ValueError("base_model required (a Vicuna checkpoint directory), or mock=True "
+                         "or synthetic=True")
     device = torch.device(cfg.device)
     if device.type == "cuda":
         if not torch.cuda.is_available():
@@ -176,6 +191,10 @@ def train(cfg: FinetuneConfig,
 
     # ---- model
     llama_cfg, tokenizer, base, policy = _build_model(cfg, device, base)
+    if lora is None and cfg.lora_weights:   # f32, as the JAX package loads it
+        lora = tree_map(lambda x: x.to(device, torch.float32), hf_weights.convert_peft_lora(
+            hf_weights._torch_load(cfg.lora_weights), llama_cfg.num_layers,
+            rank=cfg.lora_r, alpha=cfg.lora_alpha))
     if lora is None:   # the mock's on the host, so a CPU run and a card run start alike
         gen_dev = "cpu" if cfg.mock else device
         lora = lora_init(torch.Generator(device=gen_dev).manual_seed(cfg.seed), llama_cfg,

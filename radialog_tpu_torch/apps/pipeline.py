@@ -1,30 +1,39 @@
-"""The serving subset of the RaDialog pipeline (port of
-radialog_tpu/apps/pipeline.py ``RaDialogPipeline``).
+"""The RaDialog pipeline (port of radialog_tpu/apps/pipeline.py
+``RaDialogPipeline``).
 
-Covered: mock construction (tiny seeded models, real interface contract:
-32 <IMG> slots, 32 queries) and synthetic full-width construction (Vicuna-7B,
-BioViL-T, BERT-base Q-Former, the CheXpert classifier and the BERT-base
-CheXbert labeler with random weights from a seeded ``torch.Generator``),
-both quantized (``quantize=True``, the port's default: W8A8 weights or,
-with ``weight_bits=4``, W4A8 layers, and the int8 KV cache or, with
+Three ways to build it: ``mock`` (tiny seeded models, real interface
+contract: 32 <IMG> slots, 32 queries), ``synthetic`` (full widths, random
+weights from a seeded ``torch.Generator``) or, as in the JAX package, from
+checkpoint files: ``vicuna_path`` (an HF directory of safetensors or
+``pytorch_model*.bin`` shards, with the tokenizer), ``lora_path`` (PEFT
+``adapter_model.bin``, ``adapter_config.json`` beside it), ``blip2_checkpoint``
+(the stage-1 ``.pth``, with BioViL-T under ``visual_encoder.``),
+``classifier_checkpoint`` (the Lightning ``.ckpt``), ``chexbert_checkpoint``
+and ``emb_cache`` (an npz of query embeddings by dicom id). A component
+without a checkpoint keeps its seeded init, as in JAX. The LLaMA is quantized
+(``quantize=True``, the port's default: W8A8 weights or, with
+``weight_bits=4``, W4A8 layers, and the int8 KV cache or, with
 ``kv_int8=False``, the bf16 one) or float (``quantize=False``, the JAX
 package's default: ``llama_init``'s stacked tree in the policy's dtype, f32
-for the mock and bf16 at full width, over the bf16 cache, with no prefix
-sharing); ``embed_images``,
-``classify_findings``, ``label_reports``, the shared-prefix rule,
-``generate_texts``, greedy or sampled (the engine's ``prefill`` picks the
-direct or the cache-free prefill by batch size) and ``generate_texts_ring``
-through the continuous-batching ring, each with either KV dtype. Loading
-real checkpoints, beams and the speculative ring are not ported yet.
+for the mock and bf16 otherwise, over the bf16 cache, with no prefix
+sharing). ``embed_images`` (cache hits first), ``classify_findings``,
+``label_reports``, the shared-prefix rule, ``generate_texts`` (greedy,
+sampled, or beam search with ``num_beams > 1``, decode/beam.py) and
+``generate_texts_ring`` through the continuous-batching ring. The
+speculative ring is not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
+import time
+from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..decode.beam import generate_beam
 from ..decode.engine import (DecodeParams, GenerationResult, generate,
                              generate_shared_prefix)
 from ..models.bert import BertConfig
@@ -37,6 +46,8 @@ from ..models.llama import TINY_LLAMA, VICUNA_7B, llama_init, lora_init
 from ..models.qformer import QFormerConfig, TINY_QFORMER, qformer_init
 from ..ops.layers import BF16, DTypePolicy, FP32, layernorm, layernorm_init, set_precision
 from ..ops.quant import quantize_llama_host, random_serving_params
+from ..utils import hf_weights
+from . import tokenization
 from .tokenization import WhitespaceTokenizer, pad_batch_right
 
 # shortest common prefix worth a separate prefix prefill (as in the JAX package)
@@ -47,6 +58,13 @@ MOCK_CHEXBERT = BertConfig(vocab_size=512, hidden_size=32, num_layers=2, num_hea
 
 @dataclasses.dataclass
 class PipelineConfig:
+    vicuna_path: Optional[str] = None        # HF dir with tokenizer + weights
+    lora_path: Optional[str] = None          # adapter_model.bin
+    blip2_checkpoint: Optional[str] = None   # stage-1 .pth
+    classifier_checkpoint: Optional[str] = None  # Lightning .ckpt
+    chexbert_checkpoint: Optional[str] = None
+    bert_tokenizer_path: Optional[str] = None
+    emb_cache: Optional[str] = None          # npz: dicom -> (32, 768)
     mock: bool = False              # tiny seeded models
     synthetic: bool = False         # full widths, random weights
     bf16: bool = True
@@ -82,7 +100,10 @@ class PipelineConfig:
 
 def move_tree(tree, device, dtype=None):
     """Every leaf of a tree of dicts, lists and tuples moved to ``device``
-    (tensors, PackedQ8 and PackedQ4), tensors also cast to ``dtype``."""
+    (tensors, PackedQ8 and PackedQ4), tensors also cast to ``dtype``; None
+    stays None."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: move_tree(v, device, dtype) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -96,14 +117,18 @@ class RaDialogPipeline:
     on ``cfg.device``."""
 
     def __init__(self, cfg: PipelineConfig):
-        if cfg.mock == cfg.synthetic:
-            raise ValueError("choose mock=True or synthetic=True: loading real "
-                             "checkpoints is not ported yet")
+        if cfg.mock and cfg.synthetic:
+            raise ValueError("choose one of mock=True and synthetic=True")
+        real = not (cfg.mock or cfg.synthetic)
+        if real and cfg.vicuna_path is None:
+            raise ValueError("vicuna_path required (or use mock=True)")
         self.cfg = cfg
         self.device = torch.device(cfg.device)
         if self.device.type == "cuda":
             set_precision()
         self.policy: DTypePolicy = BF16 if cfg.bf16 and not cfg.mock else FP32
+        # seconds of the checkpoint loads by stage (read, convert, to_card, pack)
+        self.load_seconds: Dict[str, float] = {}
         gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
         dev = self.device
         dtype = torch.bfloat16 if self.policy is BF16 else torch.float32
@@ -119,7 +144,9 @@ class RaDialogPipeline:
             self.qformer_cfg = dataclasses.replace(TINY_QFORMER, num_query_tokens=32)
         else:
             self.llama_cfg = VICUNA_7B
-            if cfg.quantize:
+            if real:
+                self.llama = self._load_llama(cfg.vicuna_path, dtype)
+            elif cfg.quantize:
                 self.llama = random_serving_params(self.llama_cfg, gen, device=dev,
                                                    bits=cfg.weight_bits)
             else:
@@ -127,18 +154,79 @@ class RaDialogPipeline:
                 # stacked leaf is at most 32 x 4096 x 11008 x 4 B = 5.8 GB
                 self.llama = llama_init(gen, self.llama_cfg, device=dev, dtype=dtype)
             self.qformer_cfg = QFormerConfig()
-        self.tokenizer = WhitespaceTokenizer(vocab_size=self.llama_cfg.vocab_size,
-                                             num_img_tokens=self.llama_cfg.num_img_tokens,
-                                             img_token_id=self.llama_cfg.img_token_id)
-        self.lora = lora_init(gen, self.llama_cfg, device=dev, dtype=dtype)
-        self.blip2 = {"qformer": qformer_init(gen, self.qformer_cfg, dev),
-                      "ln_vision": layernorm_init(self.qformer_cfg.encoder_width, dev)}
-        self.visual, self.visual_state = biovil_t_init(
-            gen, dev, joint_feature_size=self.qformer_cfg.encoder_width)
-        self.classifier, self.classifier_state = chexpert_classifier_init(gen, dev)
+        self.tokenizer = (tokenization.load_vicuna_tokenizer(cfg.vicuna_path) if real else
+                          WhitespaceTokenizer(vocab_size=self.llama_cfg.vocab_size,
+                                              num_img_tokens=self.llama_cfg.num_img_tokens,
+                                              img_token_id=self.llama_cfg.img_token_id))
+        self.lora = (self._load_lora(cfg.lora_path, dtype) if real and cfg.lora_path
+                     else lora_init(gen, self.llama_cfg, device=dev, dtype=dtype))
+        if real and cfg.blip2_checkpoint:
+            self.blip2, vis_state = self._load_blip2(cfg.blip2_checkpoint)
+            self.visual = self.blip2.get("visual")
+            self.visual_state = vis_state.get("visual")
+        else:
+            self.blip2 = {"qformer": qformer_init(gen, self.qformer_cfg, dev),
+                          "ln_vision": layernorm_init(self.qformer_cfg.encoder_width, dev)}
+            self.visual, self.visual_state = biovil_t_init(
+                gen, dev, joint_feature_size=self.qformer_cfg.encoder_width)
+        if real and cfg.classifier_checkpoint:
+            sd = hf_weights._torch_load(cfg.classifier_checkpoint)
+            self.classifier, self.classifier_state = (
+                move_tree(t, dev, torch.float32) for t in
+                hf_weights.convert_chexpert_classifier(sd.get("state_dict", sd)))
+        else:
+            self.classifier, self.classifier_state = chexpert_classifier_init(gen, dev)
         self.chexbert_cfg = MOCK_CHEXBERT if cfg.mock else BertConfig()
-        self.chexbert = chexbert_init(gen, self.chexbert_cfg, dev)
-        self.bert_tokenizer = WhitespaceTokenizer(vocab_size=self.chexbert_cfg.vocab_size)
+        if real and cfg.chexbert_checkpoint:
+            sd = hf_weights._torch_load(cfg.chexbert_checkpoint)
+            sd = sd.get("model_state_dict", sd.get("state_dict", sd))
+            self.chexbert = move_tree(hf_weights.convert_chexbert(sd), dev, torch.float32)
+            self.bert_tokenizer = tokenization.load_bert_tokenizer(cfg.bert_tokenizer_path)
+        else:
+            self.chexbert = chexbert_init(gen, self.chexbert_cfg, dev)
+            self.bert_tokenizer = WhitespaceTokenizer(vocab_size=self.chexbert_cfg.vocab_size)
+        self.emb_cache: Dict[str, np.ndarray] = {}
+        if cfg.emb_cache and Path(cfg.emb_cache).exists():
+            self.emb_cache = dict(np.load(cfg.emb_cache))
+
+    # ------------------------------------------------------------- loaders
+    def _load_llama(self, path: str, dtype) -> Dict:
+        """The HF checkpoint of ``path`` -> W8A8 / W4A8 serving params
+        (``quantize_llama_host``: one layer at a time, W8A8 packed on the
+        device) or the stacked tree in ``dtype``. Stage seconds go to
+        ``load_seconds``."""
+        t0 = time.perf_counter()
+        sd = hf_weights._load_hf_state_dict(path)
+        t1 = time.perf_counter()
+        params = hf_weights.convert_llama(sd, VICUNA_7B.num_layers)
+        del sd
+        t2 = time.perf_counter()
+        self.load_seconds.update(read=t1 - t0, convert=t2 - t1)
+        if self.cfg.quantize:
+            return quantize_llama_host(params, device=self.device, bits=self.cfg.weight_bits,
+                                       seconds=self.load_seconds)
+        out = move_tree(params, self.device, dtype)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.load_seconds["to_card"] = time.perf_counter() - t2
+        return out
+
+    def _load_lora(self, path: str, dtype) -> Dict:
+        """PEFT adapter -> the LoRA tree in ``dtype`` (its scale too, as in
+        JAX); rank and alpha from the ``adapter_config.json`` beside it."""
+        acfg = None
+        cfg_path = Path(path).parent / "adapter_config.json"
+        if cfg_path.exists():
+            acfg = json.loads(cfg_path.read_text())
+        lora = hf_weights.convert_peft_lora(hf_weights._torch_load(path),
+                                            self.llama_cfg.num_layers, adapter_config=acfg)
+        return move_tree(lora, self.device, dtype)
+
+    def _load_blip2(self, path: str) -> Tuple[Dict, Dict]:
+        ckpt = hf_weights._torch_load(path)
+        params, state = hf_weights.convert_blip2(ckpt.get("model", ckpt))
+        return move_tree(params, self.device, torch.float32), move_tree(state, self.device,
+                                                                        torch.float32)
 
     def to(self, device) -> "RaDialogPipeline":
         """Move every parameter to ``device`` (the same weights on another
@@ -153,8 +241,15 @@ class RaDialogPipeline:
 
     # ------------------------------------------------------------ vision
     @torch.no_grad()
-    def embed_images(self, images: torch.Tensor) -> torch.Tensor:
-        """(B,448,448,3) float [0,1] -> Q-Former query embeddings (B,32,768)."""
+    def embed_images(self, images: torch.Tensor,
+                     dicoms: Optional[Sequence[str]] = None) -> torch.Tensor:
+        """(B,448,448,3) float [0,1] -> Q-Former query embeddings (B,32,768);
+        the rows of ``emb_cache`` instead when every one of ``dicoms`` is
+        there."""
+        if dicoms is not None and self.emb_cache:
+            hits = [self.emb_cache.get(str(d)) for d in dicoms]
+            if all(h is not None for h in hits):
+                return torch.as_tensor(np.stack(hits), device=self.device)
         out = biovil_t_apply(self.visual, self.visual_state, images.to(self.device),
                              policy=self.policy)
         patch = patch_tokens_for_qformer(out.projected_patch_embeddings)
@@ -262,14 +357,20 @@ class RaDialogPipeline:
                        img_embs: Optional[torch.Tensor] = None,
                        max_new_tokens: Optional[int] = None, do_sample: bool = False,
                        temperature: float = 1.0, num_beams: int = 1) -> List[str]:
-        """Tokenize -> prefill -> decode (greedy, or sampled at
-        ``temperature`` from the noise of ``cfg.seed``) -> prompt + generated
-        text."""
-        if num_beams > 1:
-            raise NotImplementedError("beam search (decode/beam.py) is not ported yet")
+        """Tokenize -> prefill -> decode (greedy, sampled at ``temperature``
+        from the noise of ``cfg.seed``, or beam search over ``num_beams``
+        beams on the bf16 cache) -> prompt + generated text."""
         ids = [self.tokenizer(p)["input_ids"] for p in prompts]
-        res = self.generate_ids(ids, img_embs, self.decode_params(
-            max_new_tokens, do_sample=do_sample, temperature=temperature))
+        dp = self.decode_params(max_new_tokens, do_sample=do_sample, temperature=temperature)
+        if num_beams > 1:
+            tokens, lengths = pad_batch_right(ids, self.tokenizer.pad_token_id)
+            res = generate_beam(self.llama, self.llama_cfg,
+                                torch.as_tensor(tokens, device=self.device),
+                                torch.as_tensor(lengths, device=self.device),
+                                dataclasses.replace(dp, unroll=1), num_beams=num_beams,
+                                img_embs=img_embs, lora=self.lora, policy=self.policy)
+        else:
+            res = self.generate_ids(ids, img_embs, dp)
         gen = res.tokens.cpu().numpy()
         lens = res.lengths.cpu().numpy()
         return [p + " " + self.tokenizer.decode(gen[i][:int(lens[i])], skip_special_tokens=True)

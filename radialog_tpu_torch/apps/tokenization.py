@@ -1,8 +1,13 @@
 """Tokenizer pieces the serving and finetune paths need, copied from
 radialog_tpu/data/tokenization.py so the port imports nothing of the JAX
-package: the deterministic ``WhitespaceTokenizer`` stand-in,
-``pad_batch_right``, and for finetuning the vicuna_v11 ``Prompter``,
-``tokenize_with_masked_prompt`` and ``pad_labels_right``."""
+package: the loaders of the real tokenizers (``load_vicuna_tokenizer``,
+``load_bert_tokenizer``), the deterministic ``WhitespaceTokenizer``
+stand-in, ``pad_batch_right``, and for finetuning the vicuna_v11
+``Prompter``, ``tokenize_with_masked_prompt`` and ``pad_labels_right``.
+
+The loaders import ``transformers`` when called, and only then; callers
+look them up on this module at call time, so a run without the tokenizer
+files can put a ``WhitespaceTokenizer`` in their place."""
 from __future__ import annotations
 
 import dataclasses
@@ -34,6 +39,33 @@ class Prompter:
 
     def get_response(self, output: str) -> str:
         return output.split(self.response_split)[1].strip()
+
+
+def _auto_tokenizer():
+    try:
+        from transformers import AutoTokenizer
+    except ImportError as e:
+        raise ImportError("loading a real tokenizer needs the transformers package, which "
+                          f"this Python does not have ({e}); the port's runs without "
+                          "tokenizer files use WhitespaceTokenizer") from e
+    return AutoTokenizer
+
+
+def load_vicuna_tokenizer(path: str, num_img_tokens: int = 32):
+    """The fast LLaMA tokenizer of a local Vicuna checkout with the <IMG>
+    special token appended (id 32000) and unk as the pad token."""
+    tok = _auto_tokenizer().from_pretrained(path, use_fast=True)
+    if IMG_TOKEN not in tok.get_vocab():
+        tok.add_special_tokens({"additional_special_tokens": [IMG_TOKEN]})
+    tok.pad_token = tok.unk_token if tok.unk_token else tok.eos_token
+    return tok
+
+
+def load_bert_tokenizer(path: Optional[str] = None):
+    """CheXbert's tokenizer: ``path``, else ``bert-base-uncased`` (from the
+    local Hugging Face cache; nothing is downloaded on a machine without a
+    network)."""
+    return _auto_tokenizer().from_pretrained(path or "bert-base-uncased")
 
 
 class WhitespaceTokenizer:

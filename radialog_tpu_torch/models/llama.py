@@ -148,7 +148,9 @@ def quantize_kv(x: torch.Tensor, scale_dtype=torch.bfloat16) -> Tuple[torch.Tens
     activation quantizer (ops/q8_matmul.quantize_act) and K2's q
     quantization, as in the JAX package."""
     xf = x.float()
-    scale = (torch.clamp(xf.abs().amax(dim=-1), min=1e-8) / 127.0).to(scale_dtype)
+    # a tensor divisor: a Python scalar would make PyTorch's CUDA division a
+    # multiplication by its reciprocal, which rounds differently from JAX's
+    scale = (torch.clamp(xf.abs().amax(dim=-1), min=1e-8) / xf.new_tensor(127.0)).to(scale_dtype)
     x8 = torch.clamp(torch.round(xf / scale.float()[..., None]), -127, 127).to(torch.int8)
     return x8, scale
 

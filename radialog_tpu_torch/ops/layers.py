@@ -161,7 +161,17 @@ def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6) -> torch.Te
 
 # ---------------------------------------------------------------- misc ops
 def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    return table[ids.long()]
+    """Rows of ``table`` as ``jnp.take(table, ids, axis=0)`` gives them: a
+    negative id counts from the end, and an id outside the table reads a
+    row of NaN (a 32000-row Vicuna table under vocab 32001 at ``<IMG>``,
+    whose rows the image splice then overwrites). No index leaves the
+    table."""
+    n = table.shape[0]
+    ids = ids.long()
+    ids = torch.where(ids < 0, ids + n, ids)
+    inside = (ids >= 0) & (ids < n)
+    rows = table[torch.where(inside, ids, torch.zeros_like(ids))]
+    return torch.where(inside[..., None], rows, torch.full_like(rows[:1], float("nan")))
 
 
 def gelu_exact(x: torch.Tensor) -> torch.Tensor:

@@ -103,9 +103,20 @@ class PackedQ8:
                         None if self.b is None else self.b.to(device))
 
 
-def pack_q8(w: np.ndarray, b=None) -> PackedQ8:
-    """(K, N) float (numpy, host) -> PackedQ8. Symmetric per-output-channel
-    scales; the same rounding as the JAX package's ``pack_q8``."""
+def pack_q8(w, b=None) -> PackedQ8:
+    """(K, N) float -> PackedQ8. Symmetric per-output-channel scales; the
+    same rounding as the JAX package's ``pack_q8``. A numpy array is packed
+    on the host; a tensor on its own device, in f32 with the same
+    operations (max, an IEEE division, round half to even), so the bytes
+    are the host's."""
+    if isinstance(w, torch.Tensor):
+        wf = w.float()
+        # a tensor divisor: PyTorch's CUDA division multiplies by the
+        # reciprocal of a Python scalar, which rounds differently
+        scale = torch.clamp(wf.abs().amax(dim=0) / wf.new_tensor(127.0), min=1e-8)
+        w_q = torch.clamp(torch.round(wf / scale[None, :]), -127, 127).to(torch.int8)
+        return PackedQ8(w_q.T.contiguous(), scale,
+                        None if b is None else torch.as_tensor(b, device=w.device))
     w = np.asarray(w, np.float32)
     scale = np.maximum(np.abs(w).max(axis=0) / 127.0, 1e-8).astype(np.float32)
     w_q = np.clip(np.round(w / scale[None, :]), -127, 127).astype(np.int8)
@@ -118,7 +129,7 @@ def quantize_act(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-row symmetric int8: (x8 (M,K) int8, x_scale (M,) f32). Round half
     to even on x / (max|x| / 127) in f32, bitwise equal to the JAX version."""
     xf = x.float()
-    xs = torch.clamp(xf.abs().amax(dim=-1), min=1e-8) / 127.0
+    xs = torch.clamp(xf.abs().amax(dim=-1), min=1e-8) / xf.new_tensor(127.0)  # as pack_q8
     x8 = torch.clamp(torch.round(xf / xs[..., None]), -127, 127).to(torch.int8)
     return x8, xs
 

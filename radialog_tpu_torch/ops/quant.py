@@ -5,8 +5,8 @@ Two layouts. The training layout (``quantize_weight``, ``quantize_llama``,
 ``llama_init`` and replaces each projection leaf by ``{"w_q" (..., in, out)
 int8, "scale" (..., out) f32}``: the frozen base of LoRA finetuning, which
 ``linear_q8`` multiplies as ``(x @ w_q) * scale`` and differentiates in x
-only. The serving layout (``quantize_llama_host``, fuse=True) is packed on
-the host: projections become ``PackedQ8`` leaves (ops/q8_matmul.py) or, at
+only. The serving layout (``quantize_llama_host``, fuse=True) is packed
+layer by layer: projections become ``PackedQ8`` leaves (ops/q8_matmul.py) or, at
 ``bits=4``, ``PackedQ4`` leaves (ops/q4_matmul.py); q|k|v and gate|up are concatenated
 into single matmuls; layers are a list of per-layer dicts (the unrolled
 serving path of models/llama.py). The lm_head stays int8 at either width:
@@ -14,8 +14,8 @@ it decides the argmax.
 """
 from __future__ import annotations
 
-import functools
-from typing import Any, Dict
+import time
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -30,7 +30,9 @@ _QUANT_TARGETS = ("wq", "wk", "wv", "wo", "gate", "up", "down")
 def quantize_weight(w: torch.Tensor) -> Dict[str, torch.Tensor]:
     """(..., in, out) float -> {"w_q": int8, "scale": f32 per out channel}."""
     wf = w.float()
-    scale = torch.clamp(wf.abs().amax(dim=-2, keepdim=True) / 127.0, min=1e-8)
+    # a tensor divisor: PyTorch's CUDA division multiplies by the reciprocal
+    # of a Python scalar, which rounds differently from the host's division
+    scale = torch.clamp(wf.abs().amax(dim=-2, keepdim=True) / wf.new_tensor(127.0), min=1e-8)
     w_q = torch.clamp(torch.round(wf / scale), -127, 127).to(torch.int8)
     return {"w_q": w_q, "scale": scale.squeeze(-2)}
 
@@ -88,8 +90,10 @@ def quantize_llama(params: Dict, quantize_embed: bool = True) -> Dict:
 
 def quantize_llama_np(params: Dict, device="cuda", quantize_embed: bool = True) -> Dict:
     """``quantize_llama`` from a host tree (numpy arrays or CPU tensors),
-    moved to ``device`` leaf by leaf after quantization, so the float copy
-    never lives on the card. Norms become f32."""
+    quantized on ``device`` one layer of a leaf at a time, so the float
+    copy of the whole model never lives on the card (the same bytes as on
+    the host: a max, an IEEE division and round half to even). Norms
+    become f32."""
     def host(x):
         return x.detach().cpu() if isinstance(x, torch.Tensor) else torch.from_numpy(
             np.array(np.asarray(x, np.float32)))
@@ -98,7 +102,11 @@ def quantize_llama_np(params: Dict, device="cuda", quantize_embed: bool = True) 
         return host(x).to(device=device, dtype=dtype)
 
     def put_q(w):
-        return {k: v.to(device) for k, v in quantize_weight(host(w)).items()}
+        w = host(w)
+        if w.ndim == 2:
+            return quantize_weight(w.to(device))
+        per_layer = [quantize_weight(w[i].to(device)) for i in range(w.shape[0])]
+        return {k: torch.stack([q[k] for q in per_layer]) for k in ("w_q", "scale")}
 
     src = params["layers"]
     layers = {name: put_q(src[name]["w"]) for name in _QUANT_TARGETS}
@@ -150,44 +158,65 @@ def _check_bits(bits: int, w4_mode: str) -> None:
 
 
 def quantize_llama_host(params: Dict, device="cuda", bits: int = 8,
-                        w4_mode: str = "asym") -> Dict:
+                        w4_mode: str = "asym",
+                        seconds: Optional[Dict[str, float]] = None) -> Dict:
     """Stacked float LLaMA params (numpy or tensors, leaves with a leading
     layer axis as ``llama_init`` builds them) -> serving params on
-    ``device``. Quantization runs on the host, so the float copy never
-    lives on the card. ``bits=4`` packs the layer projections as PackedQ4
-    on the ``w4_mode`` grid ("asym": MSE-optimal clipped asymmetric, "sym":
-    symmetric absmax)."""
+    ``device``, one layer at a time: each leaf is sliced to the layer
+    before it is converted, so no whole stack is ever copied. ``bits=8``
+    packs each layer on ``device`` itself (``pack_q8`` of a tensor: the
+    layer's float weights are the only float copy there, and the bytes are
+    the host packer's); ``bits=4`` packs on the host as PackedQ4 on the
+    ``w4_mode`` grid ("asym": MSE-optimal clipped asymmetric, "sym":
+    symmetric absmax) and moves the result. ``seconds``, when given, gets
+    the seconds of the copies to ``device`` ("to_card") and of the rest
+    ("pack"), each stage waited for."""
     _check_bits(bits, w4_mode)
-    pack_layer = functools.partial(pack_q4, mode=w4_mode) if bits == 4 else pack_q8
+    dev = torch.device(device)
+    clock = {"to_card": 0.0, "pack": 0.0}
 
-    def host(x):
+    def sync() -> float:
+        if seconds is not None and dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return time.perf_counter()
+
+    def f32(x):   # a tensor on ``device`` in f32 (numpy leaves keep their values)
+        x = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x))
+        t0 = sync()
+        x = x.to(dev)
+        clock["to_card"] += sync() - t0
+        return x.float()
+
+    def f32_host(x):
         return x.detach().cpu().float().numpy() if isinstance(x, torch.Tensor) \
             else np.asarray(x, np.float32)
 
-    def put(x, dtype=torch.float32):
-        return torch.tensor(host(x)).to(device=device, dtype=dtype)
+    def pack_layer(*ws):
+        if bits == 4:
+            w = np.concatenate([f32_host(x) for x in ws], axis=-1)
+            return pack_q4(w, mode=w4_mode).to(device)
+        return pack_q8(torch.cat([f32(x) for x in ws], dim=-1))
 
+    t_start = sync()
     src = params["layers"]
-    num_layers = host(src["wq"]["w"]).shape[0]
     layers = []
-    for i in range(num_layers):
-        wqkv = np.concatenate([host(src["wq"]["w"])[i], host(src["wk"]["w"])[i],
-                               host(src["wv"]["w"])[i]], axis=-1)
-        gateup = np.concatenate([host(src["gate"]["w"])[i], host(src["up"]["w"])[i]],
-                                axis=-1)
+    for i in range(len(src["wq"]["w"])):
         layers.append({
-            "input_ln": put(host(src["input_ln"])[i]),
-            "post_ln": put(host(src["post_ln"])[i]),
-            "wqkv": pack_layer(wqkv).to(device),
-            "gateup": pack_layer(gateup).to(device),
-            "wo": pack_layer(host(src["wo"]["w"])[i]).to(device),
-            "down": pack_layer(host(src["down"]["w"])[i]).to(device),
+            "input_ln": f32(src["input_ln"][i]),
+            "post_ln": f32(src["post_ln"][i]),
+            "wqkv": pack_layer(src["wq"]["w"][i], src["wk"]["w"][i], src["wv"]["w"][i]),
+            "gateup": pack_layer(src["gate"]["w"][i], src["up"]["w"][i]),
+            "wo": pack_layer(src["wo"]["w"][i]),
+            "down": pack_layer(src["down"]["w"][i]),
         })
-    out = {"final_ln": put(params["final_ln"]), "layers": layers,
-           "lm_head": pack_q8(host(params["lm_head"]["w"])).to(device),
-           "embed": put(params["embed"], torch.bfloat16)}
+    out = {"final_ln": f32(params["final_ln"]), "layers": layers,
+           "lm_head": pack_q8(f32(params["lm_head"]["w"])),
+           "embed": f32(params["embed"]).to(torch.bfloat16)}
     if "img_proj" in params:
-        out["img_proj"] = {k: put(v) for k, v in params["img_proj"].items()}
+        out["img_proj"] = {k: f32(v) for k, v in params["img_proj"].items()}
+    if seconds is not None:
+        seconds["to_card"] = clock["to_card"]
+        seconds["pack"] = sync() - t_start - clock["to_card"]
     return out
 
 

@@ -221,11 +221,14 @@ def test_export_adapter_matches_jax(both_runs, tmp_path):
 
 
 def test_train_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="Vicuna checkpoint"):
+    """Real checkpoints were refused until the loaders were ported (the runs
+    from files: tests/test_torch_ckpt_pipeline.py). Now a run needs weights:
+    base_model, mock or synthetic; and a lora_weights file is read."""
+    with pytest.raises(ValueError, match="base_model required"):
         tft.train(tft.FinetuneConfig(data_path=FIXTURE, device="cpu"))
-    with pytest.raises(NotImplementedError, match="mock=True or synthetic=True"):
+    with pytest.raises(ValueError, match="one of mock=True and synthetic=True"):
         tft.train(tft.FinetuneConfig(mock=True, synthetic=True, data_path=FIXTURE, device="cpu"))
-    with pytest.raises(NotImplementedError, match="PEFT"):
+    with pytest.raises(FileNotFoundError, match="x.bin"):
         tft.train(tft.FinetuneConfig(mock=True, lora_weights="x.bin", data_path=FIXTURE,
                                      device="cpu"))
     if not torch.cuda.is_available():
