@@ -201,6 +201,12 @@ each; any failing phase exits non-zero:
           the trainer from the files (int8 base, the adapter, flash, 2
           micro-steps: K3, K5a, K5b); pack_q4's seconds for one layer
 
+``python3 chip_smoke.py --time-report ROOT [ROOT ...]`` runs only the slice
+phase's report batch, of each checkout at ROOT in turn (its own package and
+chip_smoke.py, a process each), to compare commits in one call: the stream
+waits the host makes in an 8-token warm-up (torch's sync debug mode), then
+two timed passes' reports/s, launches and a checksum of the tokens.
+
 The line before the last is a JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}. A kernel's time is the
 median over launches timed with CUDA events, the 50 MB L2 flushed before
@@ -3441,5 +3447,81 @@ def main() -> int:
     return 0
 
 
+REPORT_REPS = 2
+
+
+def time_report_one(root: str) -> int:
+    """The slice phase's report batch (56 x 300, W8A8 Vicuna-7B at random
+    weights, int8 cache, defer off) on the checkout at ``root``, with that
+    checkout's own chip_smoke.py and package, in this process: a warm-up of
+    8 tokens with torch's sync debug mode on (every stream wait the host
+    makes counted), then REPORT_REPS timed passes."""
+    import warnings
+    import zlib
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    os.chdir(root)
+    import torch
+    import chip_smoke as cs
+    from radialog_tpu_torch.apps import pipeline as pipeline_mod
+    from radialog_tpu_torch.ops import flash_decode as tfd
+    from radialog_tpu_torch.ops import q8_matmul as tq8
+    from radialog_tpu_torch.ops.layers import set_precision
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    set_precision()
+    pipe = pipeline_mod.RaDialogPipeline(pipeline_mod.PipelineConfig(synthetic=True, seed=0))
+    _, _, report_step = cs._report_batch(torch, pipe)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        report_step(8)
+        torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode(0)
+    waits = sum("synchroniz" in str(w.message) for w in caught)
+    counted = {"q8_matmul": tq8.q8_matmul_int32, "flash_decode_int8": tfd.flash_decode_int8_kernel}
+    for rep in range(REPORT_REPS):
+        for fn in counted.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.time()
+        _, _, res = report_step(cs.NEW)
+        tokens = res.tokens.cpu()
+        dt = time.time() - t0
+        emit("report", rep=rep, reports_per_s=cs.BATCH / dt, seconds=dt,
+             stream_waits_in_8_tokens=waits,
+             launches={k: fn.launches for k, fn in counted.items()},
+             tokens_crc32=zlib.crc32(tokens.numpy().tobytes()),
+             ok=tokens.shape == (cs.BATCH, cs.NEW))
+    return 0
+
+
+def time_report(roots) -> int:
+    """time_report_one for each checkout in ``roots``, in the order given,
+    each in a process of its own, so that commits compare in one call."""
+    if not roots:
+        print("usage: chip_smoke.py --time-report ROOT [ROOT ...]", file=sys.stderr)
+        return 2
+    print(smi(), flush=True)
+    rc = 0
+    for root in roots:
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--time-report-one",
+                               root], capture_output=True, text=True, timeout=900)
+        for line in proc.stdout.splitlines():
+            if line.startswith("{"):
+                print(json.dumps({"root": root, **json.loads(line)}), flush=True)
+        if proc.returncode != 0:
+            print(f"chip_smoke: {root} failed (rc {proc.returncode}):\n{proc.stderr[-4000:]}",
+                  file=sys.stderr, flush=True)
+            rc = 1
+    return rc
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--time-report"]:
+        sys.exit(time_report(sys.argv[2:]))
+    if sys.argv[1:2] == ["--time-report-one"] and len(sys.argv) == 3:
+        sys.exit(time_report_one(sys.argv[2]))
     sys.exit(main())

@@ -149,15 +149,19 @@ def _build_model(cfg: FinetuneConfig, device, base: Optional[Dict] = None):
             else:
                 base = llama_init(gen, llama_cfg, device=device, dtype=torch.bfloat16)
     else:
-        # the checkpoint: the int8 base quantized on the host and moved leaf
-        # by leaf, or every leaf in bf16
+        # the checkpoint, one layer at a time: the int8 base quantized on the
+        # device, or every leaf in bf16
         llama_cfg, policy = VICUNA_7B, BF16
         tokenizer = tokenization.load_vicuna_tokenizer(cfg.base_model)
         if base is None:
             converted = hf_weights.convert_llama(hf_weights._load_hf_state_dict(cfg.base_model),
-                                                 llama_cfg.num_layers)
-            base = (quantize_llama_np(converted, device=device) if cfg.quantize_base
-                    else tree_map(lambda x: x.to(device, torch.bfloat16), converted))
+                                                 llama_cfg.num_layers, stack=False)
+            if cfg.quantize_base:
+                base = quantize_llama_np(converted, device=device)
+            else:
+                layers = converted.pop("layers")
+                base = tree_map(lambda x: x.to(device, torch.bfloat16), converted)
+                base["layers"] = hf_weights.stack_layers(layers, device, torch.bfloat16)
         return llama_cfg, tokenizer, base, policy
     tokenizer = WhitespaceTokenizer(vocab_size=llama_cfg.vocab_size,
                                     num_img_tokens=llama_cfg.num_img_tokens,

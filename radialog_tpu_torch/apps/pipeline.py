@@ -127,7 +127,7 @@ class RaDialogPipeline:
         if self.device.type == "cuda":
             set_precision()
         self.policy: DTypePolicy = BF16 if cfg.bf16 and not cfg.mock else FP32
-        # seconds of the checkpoint loads by stage (read, convert, to_card, pack)
+        # seconds of the checkpoint load by stage (read, convert, to_card)
         self.load_seconds: Dict[str, float] = {}
         gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
         dev = self.device
@@ -192,23 +192,27 @@ class RaDialogPipeline:
     # ------------------------------------------------------------- loaders
     def _load_llama(self, path: str, dtype) -> Dict:
         """The HF checkpoint of ``path`` -> W8A8 / W4A8 serving params
-        (``quantize_llama_host``: one layer at a time, W8A8 packed on the
-        device) or the stacked tree in ``dtype``. Stage seconds go to
-        ``load_seconds``."""
+        (``quantize_llama_host``, W8A8 packed on the device) or the stacked
+        tree in ``dtype``, built one layer at a time from views of the
+        state dict, so the host holds the checkpoint once. Stage seconds go
+        to ``load_seconds``: read, convert, and to_card (the quantized
+        path's pack included)."""
         t0 = time.perf_counter()
         sd = hf_weights._load_hf_state_dict(path)
         t1 = time.perf_counter()
-        params = hf_weights.convert_llama(sd, VICUNA_7B.num_layers)
+        params = hf_weights.convert_llama(sd, VICUNA_7B.num_layers, stack=False)
         del sd
         t2 = time.perf_counter()
-        self.load_seconds.update(read=t1 - t0, convert=t2 - t1)
         if self.cfg.quantize:
-            return quantize_llama_host(params, device=self.device, bits=self.cfg.weight_bits,
-                                       seconds=self.load_seconds)
-        out = move_tree(params, self.device, dtype)
+            out = quantize_llama_host(params, device=self.device, bits=self.cfg.weight_bits)
+        else:
+            out = move_tree({k: v for k, v in params.items() if k != "layers"},
+                            self.device, dtype)
+            out["layers"] = hf_weights.stack_layers(params["layers"], self.device, dtype)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        self.load_seconds["to_card"] = time.perf_counter() - t2
+        self.load_seconds = {"read": t1 - t0, "convert": t2 - t1,
+                             "to_card": time.perf_counter() - t2}
         return out
 
     def _load_lora(self, path: str, dtype) -> Dict:

@@ -52,6 +52,7 @@ from ..ops.attention import NEG_INF, mha, mha_shared_prefix
 from ..ops.flash_attention import flash_attention
 from ..ops.flash_decode import flash_decode_int8
 from ..ops.layers import DTypePolicy, FP32, embedding_lookup, linear, rmsnorm
+from ..ops.q8_matmul import div127
 from ..ops.rotary import apply_rope, rope_tables
 
 
@@ -148,9 +149,7 @@ def quantize_kv(x: torch.Tensor, scale_dtype=torch.bfloat16) -> Tuple[torch.Tens
     activation quantizer (ops/q8_matmul.quantize_act) and K2's q
     quantization, as in the JAX package."""
     xf = x.float()
-    # a tensor divisor: a Python scalar would make PyTorch's CUDA division a
-    # multiplication by its reciprocal, which rounds differently from JAX's
-    scale = (torch.clamp(xf.abs().amax(dim=-1), min=1e-8) / xf.new_tensor(127.0)).to(scale_dtype)
+    scale = div127(torch.clamp(xf.abs().amax(dim=-1), min=1e-8)).to(scale_dtype)
     x8 = torch.clamp(torch.round(xf / scale.float()[..., None]), -127, 127).to(torch.int8)
     return x8, scale
 

@@ -39,6 +39,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
+from .q8_matmul import div127
 
 NEG_INF = -1e30
 MAX_BS = 256
@@ -75,9 +76,7 @@ def quantize_q(q: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-head symmetric int8 of q (B,H,D): (q8 int8, qs (B,H) f32), the
     rounding of the KV cache's quantize_kv at f32 scales."""
     qf = q.float()
-    # a tensor divisor: a Python scalar would make PyTorch's CUDA division a
-    # multiplication by its reciprocal, which rounds differently from JAX's
-    qs = torch.clamp(qf.abs().amax(dim=-1), min=1e-8) / qf.new_tensor(127.0)
+    qs = div127(torch.clamp(qf.abs().amax(dim=-1), min=1e-8))
     q8 = torch.clamp(torch.round(qf / qs[..., None]), -127, 127).to(torch.int8)
     return q8, qs
 

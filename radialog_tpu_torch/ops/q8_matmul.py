@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -103,6 +104,20 @@ class PackedQ8:
                         None if self.b is None else self.b.to(device))
 
 
+@functools.lru_cache(maxsize=None)
+def _f32_127(device: torch.device) -> torch.Tensor:
+    with torch.inference_mode(False):   # usable in autograd whoever made it first
+        return torch.full((), 127.0, dtype=torch.float32, device=device)
+
+
+def div127(x: torch.Tensor) -> torch.Tensor:
+    """``x / 127`` of an f32 tensor as an IEEE division, as numpy and JAX
+    divide. PyTorch's CUDA division by a Python scalar multiplies by the
+    scalar's reciprocal, which rounds differently; the divisor is a 0-dim
+    tensor kept on each device, so no call copies it from the host."""
+    return x / _f32_127(x.device)
+
+
 def pack_q8(w, b=None) -> PackedQ8:
     """(K, N) float -> PackedQ8. Symmetric per-output-channel scales; the
     same rounding as the JAX package's ``pack_q8``. A numpy array is packed
@@ -111,9 +126,7 @@ def pack_q8(w, b=None) -> PackedQ8:
     are the host's."""
     if isinstance(w, torch.Tensor):
         wf = w.float()
-        # a tensor divisor: PyTorch's CUDA division multiplies by the
-        # reciprocal of a Python scalar, which rounds differently
-        scale = torch.clamp(wf.abs().amax(dim=0) / wf.new_tensor(127.0), min=1e-8)
+        scale = torch.clamp(div127(wf.abs().amax(dim=0)), min=1e-8)
         w_q = torch.clamp(torch.round(wf / scale[None, :]), -127, 127).to(torch.int8)
         return PackedQ8(w_q.T.contiguous(), scale,
                         None if b is None else torch.as_tensor(b, device=w.device))
@@ -129,7 +142,7 @@ def quantize_act(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-row symmetric int8: (x8 (M,K) int8, x_scale (M,) f32). Round half
     to even on x / (max|x| / 127) in f32, bitwise equal to the JAX version."""
     xf = x.float()
-    xs = torch.clamp(xf.abs().amax(dim=-1), min=1e-8) / xf.new_tensor(127.0)  # as pack_q8
+    xs = div127(torch.clamp(xf.abs().amax(dim=-1), min=1e-8))
     x8 = torch.clamp(torch.round(xf / xs[..., None]), -127, 127).to(torch.int8)
     return x8, xs
 

@@ -14,14 +14,13 @@ it decides the argmax.
 """
 from __future__ import annotations
 
-import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List
 
 import numpy as np
 import torch
 
 from .q4_matmul import GROUP, PackedQ4, pack_q4, pick_bk
-from .q8_matmul import PackedQ8, pack_q8
+from .q8_matmul import PackedQ8, div127, pack_q8
 
 
 _QUANT_TARGETS = ("wq", "wk", "wv", "wo", "gate", "up", "down")
@@ -30,9 +29,7 @@ _QUANT_TARGETS = ("wq", "wk", "wv", "wo", "gate", "up", "down")
 def quantize_weight(w: torch.Tensor) -> Dict[str, torch.Tensor]:
     """(..., in, out) float -> {"w_q": int8, "scale": f32 per out channel}."""
     wf = w.float()
-    # a tensor divisor: PyTorch's CUDA division multiplies by the reciprocal
-    # of a Python scalar, which rounds differently from the host's division
-    scale = torch.clamp(wf.abs().amax(dim=-2, keepdim=True) / wf.new_tensor(127.0), min=1e-8)
+    scale = torch.clamp(div127(wf.abs().amax(dim=-2, keepdim=True)), min=1e-8)
     w_q = torch.clamp(torch.round(wf / scale), -127, 127).to(torch.int8)
     return {"w_q": w_q, "scale": scale.squeeze(-2)}
 
@@ -88,12 +85,23 @@ def quantize_llama(params: Dict, quantize_embed: bool = True) -> Dict:
     return out
 
 
+def _per_layer(layers) -> List[Dict]:
+    """``layers`` as a list of per-layer trees: a list as it is; a stacked
+    tree (leaves with a leading layer axis) sliced to views, one a layer."""
+    if isinstance(layers, (list, tuple)):
+        return list(layers)
+
+    def take(tree, i):
+        return {k: take(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+    return [take(layers, i) for i in range(len(layers["wq"]["w"]))]
+
+
 def quantize_llama_np(params: Dict, device="cuda", quantize_embed: bool = True) -> Dict:
-    """``quantize_llama`` from a host tree (numpy arrays or CPU tensors),
-    quantized on ``device`` one layer of a leaf at a time, so the float
-    copy of the whole model never lives on the card (the same bytes as on
-    the host: a max, an IEEE division and round half to even). Norms
-    become f32."""
+    """``quantize_llama`` from a host tree (numpy arrays or CPU tensors;
+    ``layers`` stacked or a list of per-layer trees), quantized on
+    ``device`` one layer of a leaf at a time, so the float copy of the
+    whole model never lives on the card (the same bytes as on the host: a
+    max, an IEEE division and round half to even). Norms become f32."""
     def host(x):
         return x.detach().cpu() if isinstance(x, torch.Tensor) else torch.from_numpy(
             np.array(np.asarray(x, np.float32)))
@@ -102,16 +110,16 @@ def quantize_llama_np(params: Dict, device="cuda", quantize_embed: bool = True) 
         return host(x).to(device=device, dtype=dtype)
 
     def put_q(w):
-        w = host(w)
-        if w.ndim == 2:
-            return quantize_weight(w.to(device))
-        per_layer = [quantize_weight(w[i].to(device)) for i in range(w.shape[0])]
-        return {k: torch.stack([q[k] for q in per_layer]) for k in ("w_q", "scale")}
+        return quantize_weight(host(w).to(device))
 
-    src = params["layers"]
-    layers = {name: put_q(src[name]["w"]) for name in _QUANT_TARGETS}
-    layers["input_ln"] = put(src["input_ln"], torch.float32)
-    layers["post_ln"] = put(src["post_ln"], torch.float32)
+    def stacked(leaves):
+        return ({k: torch.stack([x[k] for x in leaves]) for k in leaves[0]}
+                if isinstance(leaves[0], dict) else torch.stack(leaves))
+
+    src = _per_layer(params["layers"])
+    layers = {name: stacked([put_q(lay[name]["w"]) for lay in src]) for name in _QUANT_TARGETS}
+    layers["input_ln"] = stacked([put(lay["input_ln"], torch.float32) for lay in src])
+    layers["post_ln"] = stacked([put(lay["post_ln"], torch.float32) for lay in src])
     out = {"layers": layers, "final_ln": put(params["final_ln"], torch.float32)}
     if quantize_embed:
         out["lm_head"] = put_q(params["lm_head"]["w"])
@@ -158,34 +166,23 @@ def _check_bits(bits: int, w4_mode: str) -> None:
 
 
 def quantize_llama_host(params: Dict, device="cuda", bits: int = 8,
-                        w4_mode: str = "asym",
-                        seconds: Optional[Dict[str, float]] = None) -> Dict:
-    """Stacked float LLaMA params (numpy or tensors, leaves with a leading
-    layer axis as ``llama_init`` builds them) -> serving params on
-    ``device``, one layer at a time: each leaf is sliced to the layer
-    before it is converted, so no whole stack is ever copied. ``bits=8``
-    packs each layer on ``device`` itself (``pack_q8`` of a tensor: the
-    layer's float weights are the only float copy there, and the bytes are
-    the host packer's); ``bits=4`` packs on the host as PackedQ4 on the
-    ``w4_mode`` grid ("asym": MSE-optimal clipped asymmetric, "sym":
-    symmetric absmax) and moves the result. ``seconds``, when given, gets
-    the seconds of the copies to ``device`` ("to_card") and of the rest
-    ("pack"), each stage waited for."""
+                        w4_mode: str = "asym") -> Dict:
+    """Float LLaMA params (numpy or tensors; ``layers`` stacked as
+    ``llama_init`` builds them, or a list of per-layer trees as
+    ``utils/hf_weights.convert_llama(stack=False)`` reads a checkpoint) ->
+    serving params on ``device``, one layer at a time: each leaf is sliced
+    to the layer before it is converted, so no whole stack is ever copied.
+    ``bits=8`` packs each layer on ``device`` itself (``pack_q8`` of a
+    tensor: the layer's float weights are the only float copy there, and
+    the bytes are the host packer's); ``bits=4`` packs on the host as
+    PackedQ4 on the ``w4_mode`` grid ("asym": MSE-optimal clipped
+    asymmetric, "sym": symmetric absmax) and moves the result."""
     _check_bits(bits, w4_mode)
     dev = torch.device(device)
-    clock = {"to_card": 0.0, "pack": 0.0}
-
-    def sync() -> float:
-        if seconds is not None and dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        return time.perf_counter()
 
     def f32(x):   # a tensor on ``device`` in f32 (numpy leaves keep their values)
         x = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x))
-        t0 = sync()
-        x = x.to(dev)
-        clock["to_card"] += sync() - t0
-        return x.float()
+        return x.to(dev).float()
 
     def f32_host(x):
         return x.detach().cpu().float().numpy() if isinstance(x, torch.Tensor) \
@@ -197,26 +194,19 @@ def quantize_llama_host(params: Dict, device="cuda", bits: int = 8,
             return pack_q4(w, mode=w4_mode).to(device)
         return pack_q8(torch.cat([f32(x) for x in ws], dim=-1))
 
-    t_start = sync()
-    src = params["layers"]
-    layers = []
-    for i in range(len(src["wq"]["w"])):
-        layers.append({
-            "input_ln": f32(src["input_ln"][i]),
-            "post_ln": f32(src["post_ln"][i]),
-            "wqkv": pack_layer(src["wq"]["w"][i], src["wk"]["w"][i], src["wv"]["w"][i]),
-            "gateup": pack_layer(src["gate"]["w"][i], src["up"]["w"][i]),
-            "wo": pack_layer(src["wo"]["w"][i]),
-            "down": pack_layer(src["down"]["w"][i]),
-        })
+    layers = [{
+        "input_ln": f32(lay["input_ln"]),
+        "post_ln": f32(lay["post_ln"]),
+        "wqkv": pack_layer(lay["wq"]["w"], lay["wk"]["w"], lay["wv"]["w"]),
+        "gateup": pack_layer(lay["gate"]["w"], lay["up"]["w"]),
+        "wo": pack_layer(lay["wo"]["w"]),
+        "down": pack_layer(lay["down"]["w"]),
+    } for lay in _per_layer(params["layers"])]
     out = {"final_ln": f32(params["final_ln"]), "layers": layers,
            "lm_head": pack_q8(f32(params["lm_head"]["w"])),
            "embed": f32(params["embed"]).to(torch.bfloat16)}
     if "img_proj" in params:
         out["img_proj"] = {k: f32(v) for k, v in params["img_proj"].items()}
-    if seconds is not None:
-        seconds["to_card"] = clock["to_card"]
-        seconds["pack"] = sync() - t_start - clock["to_card"]
     return out
 
 

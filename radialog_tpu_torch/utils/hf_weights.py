@@ -71,30 +71,55 @@ def _bn(sd: Dict, name: str) -> Tuple[Dict, Dict]:
 
 
 # ---------------------------------------------------------------------- llama
-def convert_llama(sd: Dict, num_layers: int) -> Dict:
-    """HF LlamaForCausalLM state dict -> ``llama_init``'s tree (stacked layers),
-    plus ``img_proj`` when the base carries ``model.img_proj_layer``."""
-    def stack(fmt: str, transpose: bool = True) -> torch.Tensor:
-        ws = [_t(sd[fmt.format(i=i)]) for i in range(num_layers)]
-        return torch.stack([w.T if transpose else w for w in ws])
+_LLAMA_PROJ = {"wq": "self_attn.q_proj", "wk": "self_attn.k_proj", "wv": "self_attn.v_proj",
+               "wo": "self_attn.o_proj", "gate": "mlp.gate_proj", "up": "mlp.up_proj",
+               "down": "mlp.down_proj"}
 
-    layers = {
-        "wq": {"w": stack("model.layers.{i}.self_attn.q_proj.weight")},
-        "wk": {"w": stack("model.layers.{i}.self_attn.k_proj.weight")},
-        "wv": {"w": stack("model.layers.{i}.self_attn.v_proj.weight")},
-        "wo": {"w": stack("model.layers.{i}.self_attn.o_proj.weight")},
-        "gate": {"w": stack("model.layers.{i}.mlp.gate_proj.weight")},
-        "up": {"w": stack("model.layers.{i}.mlp.up_proj.weight")},
-        "down": {"w": stack("model.layers.{i}.mlp.down_proj.weight")},
-        "input_ln": stack("model.layers.{i}.input_layernorm.weight", transpose=False),
-        "post_ln": stack("model.layers.{i}.post_attention_layernorm.weight", transpose=False),
-    }
+
+def llama_layer(sd: Dict, i: int) -> Dict:
+    """Layer ``i`` of an HF LlamaForCausalLM state dict as one layer of
+    ``llama_init``'s tree, of views of the checkpoint's tensors: each
+    (out, in) weight transposed, not copied."""
+    pre = f"model.layers.{i}."
+    layer = {name: {"w": _t(sd[f"{pre}{key}.weight"]).T} for name, key in _LLAMA_PROJ.items()}
+    layer["input_ln"] = _t(sd[f"{pre}input_layernorm.weight"])
+    layer["post_ln"] = _t(sd[f"{pre}post_attention_layernorm.weight"])
+    return layer
+
+
+def convert_llama(sd: Dict, num_layers: int, stack: bool = True) -> Dict:
+    """HF LlamaForCausalLM state dict -> ``llama_init``'s tree (stacked layers),
+    plus ``img_proj`` when the base carries ``model.img_proj_layer``.
+
+    ``stack=False`` leaves ``layers`` a list of ``llama_layer`` views, which
+    ``ops/quant.quantize_llama_host``, ``quantize_llama_np`` and
+    ``stack_layers`` take one layer at a time: the host then holds the
+    checkpoint's bytes once, not a second stacked copy."""
+    layers = [llama_layer(sd, i) for i in range(num_layers)]
+    if stack:
+        layers = {k: ({"w": torch.stack([lay[k]["w"] for lay in layers])}
+                      if isinstance(v, dict) else torch.stack([lay[k] for lay in layers]))
+                  for k, v in layers[0].items()}
     params = {"embed": _t(sd["model.embed_tokens.weight"]), "layers": layers,
               "final_ln": _t(sd["model.norm.weight"]),
               "lm_head": {"w": _t(sd["lm_head.weight"]).T.contiguous()}}
     if "model.img_proj_layer.weight" in sd:
         params["img_proj"] = _lin(sd, "model.img_proj_layer")
     return params
+
+
+def stack_layers(layers: List[Dict], device, dtype: torch.dtype) -> Dict:
+    """A list of per-layer trees (``convert_llama(stack=False)``) -> the
+    stacked tree on ``device`` in ``dtype``, filled one layer at a time, so
+    no stacked copy is made on the host."""
+    def stack(leaves):
+        out = torch.empty((len(leaves), *leaves[0].shape), dtype=dtype, device=device)
+        for i, x in enumerate(leaves):
+            out[i].copy_(x.to(device))   # the checkpoint's dtype crosses; cast on device
+        return out
+    return {k: ({kk: stack([lay[k][kk] for lay in layers]) for kk in v}
+                if isinstance(v, dict) else stack([lay[k] for lay in layers]))
+            for k, v in layers[0].items()}
 
 
 # both the reference-era key format (lora_A.weight) and PEFT's with the

@@ -162,6 +162,66 @@ def test_convert_llama_keeps_bf16_and_widens_others():
     assert_same_tree(got, jhf.convert_llama(sd64, 2))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+def test_convert_llama_per_layer_views_are_the_stack(dtype):
+    """convert_llama(stack=False): layer i of the stacked tree, each leaf a
+    view of the state dict's tensor (no copy on the host)."""
+    sd = llama_sd(dtype=dtype)
+    stacked, views = thf.convert_llama(sd, 2), thf.convert_llama(sd, 2, stack=False)
+    assert views.keys() == stacked.keys() and len(views["layers"]) == 2
+    want = flat(stacked["layers"])
+    for i, layer in enumerate(views["layers"]):
+        got = flat(layer)
+        assert got.keys() == want.keys()
+        for k, v in got.items():
+            assert v.dtype == dtype and torch.equal(v, want[k][i]), (i, k)
+        for k, key in thf._LLAMA_PROJ.items():
+            src = sd[f"model.layers.{i}.{key}.weight"]
+            assert layer[k]["w"].data_ptr() == src.data_ptr()
+    for k in ("embed", "final_ln", "lm_head", "img_proj"):
+        assert flat(views[k]).keys() == flat(stacked[k]).keys()
+        assert all(torch.equal(a, b) for a, b in zip(flat(views[k]).values(),
+                                                     flat(stacked[k]).values()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stack_layers_is_the_stack_cast(dtype):
+    """stack_layers fills the stacked tree one layer at a time: bitwise the
+    stacked converter's output cast to ``dtype``."""
+    sd = llama_sd(dtype=torch.float16)
+    want = flat(thf.convert_llama(sd, 2)["layers"])
+    got = flat(thf.stack_layers(thf.convert_llama(sd, 2, stack=False)["layers"], "cpu", dtype))
+    assert got.keys() == want.keys()
+    for k in want:
+        assert got[k].dtype == dtype and torch.equal(got[k], want[k].to(dtype)), k
+
+
+def _same_serving_tree(a, b):
+    import dataclasses
+    if dataclasses.is_dataclass(a):
+        return type(a) is type(b) and all(_same_serving_tree(getattr(a, f.name), getattr(b, f.name))
+                                          for f in dataclasses.fields(a))
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same_serving_tree(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(map(_same_serving_tree, a, b))
+    if isinstance(a, torch.Tensor):
+        return a.dtype == b.dtype and torch.equal(a, b)
+    return a == b
+
+
+@pytest.mark.parametrize("quantizer", ["quantize_llama_host", "quantize_llama_np"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+def test_quantizers_take_per_layer_views(quantizer, dtype):
+    """ops/quant's serving and training quantizers give the same bytes from
+    convert_llama(stack=False)'s per-layer views as from the stacked tree."""
+    from radialog_tpu_torch.ops import quant
+    sd = llama_sd(dtype=dtype)
+    fn = getattr(quant, quantizer)
+    assert _same_serving_tree(fn(thf.convert_llama(sd, 2, stack=False), device="cpu"),
+                              fn(thf.convert_llama(sd, 2), device="cpu"))
+
+
 @pytest.mark.parametrize("fmt", ["lora_A.weight", "lora_A.default.weight"])
 @pytest.mark.parametrize("prefix", ["base_model.model.model.", "base_model.model."])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16])

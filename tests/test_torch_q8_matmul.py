@@ -51,6 +51,35 @@ def test_quantize_act_matches_jax_bitwise():
     np.testing.assert_array_equal(xs.numpy(), np.asarray(js))
 
 
+def test_div127_is_an_ieee_division_by_a_kept_constant(monkeypatch):
+    """div127 divides as numpy does (no reciprocal product), with one 0-dim
+    divisor kept per device: no call makes a tensor from a Python value
+    (on the card that is a host copy and a stream wait). A divisor first
+    made under inference mode still works in autograd."""
+    x = torch.from_numpy(np.random.default_rng(2).normal(size=(5, 64)).astype(np.float32))
+    x[0, :3] = torch.tensor([1.0, 3.0, 1e-8])
+    np.testing.assert_array_equal(tq8.div127(x).numpy(), x.numpy() / np.float32(127.0))
+    tq8._f32_127.cache_clear()
+    with torch.inference_mode():
+        first = tq8._f32_127(x.device)
+        tq8.div127(x)
+    assert tq8._f32_127(x.device) is first and not first.is_inference()
+    assert first.dtype == torch.float32 and first.shape == ()
+    made = []
+    for owner, name in ((torch, "tensor"), (torch, "as_tensor"), (torch, "full"),
+                        (torch.Tensor, "new_tensor"), (torch.Tensor, "new_full")):
+        real = getattr(owner, name)
+        monkeypatch.setattr(owner, name, lambda *a, real=real, name=name, **k:
+                            made.append(name) or real(*a, **k))
+    tq8.quantize_act(x)
+    tq8.pack_q8(x.T.contiguous())
+    monkeypatch.undo()
+    assert made == []
+    leaf = x.clone().requires_grad_(True)
+    tq8.div127(leaf).sum().backward()
+    np.testing.assert_array_equal(leaf.grad.numpy(), np.full(x.shape, np.float32(1) / np.float32(127)))
+
+
 @pytest.mark.parametrize("m,k,n", SHAPES)
 @pytest.mark.parametrize("bias", [False, True])
 def test_q8_matmul_matches_jax_reference_bitwise(m, k, n, bias):
