@@ -8,7 +8,8 @@ each; any failing phase exits non-zero:
   device  card name and power limit, torch/CUDA versions; builds every
           kernel from csrc/ (one nvcc per source, started together)
   k1      W8A8 GEMM kernel vs its plain version, bitwise, at the five
-          Vicuna-7B weight shapes x M in {1, 16, 56, 48, 256, 440, 448, 56*80}
+          Vicuna-7B weight shapes x M in {1, 5, 6, 16, 18, 20, 56, 48, 256,
+          440, 448, 56*80} (5, 6, 18, 20 and 48: verify blocks)
           (16 and 256: the serve phase's decode lanes and a full admission;
           1, 440 and 448: the eval phase's batch-1 decode and correction
           prefills, whose last 64-row tile is partial); each
@@ -140,6 +141,30 @@ each; any failing phase exits non-zero:
           metrics; K1 (bitwise), K2 and K3 held against their plain
           versions on the inputs the run gave them in the first and the
           last correction; cut from the test split in depth only (3 studies)
+  spec    speculative decoding at full width on the eval phase's pipeline
+          and prompts: the int8 verify attention card against CPU at S=1280
+          (integer sums bitwise past 2^24, where an f32 product misses);
+          generate_spec (k 4) on the first correction prompt, 256 tokens
+          over the int8 cache and 128 over the bf16 one (verifies, tokens per verify,
+          seconds, stream waits per verify, where the tokens part from the
+          eval phase's batch-1 loop); the eval command line with --corr_spec
+          5 (one SpecCompactBatcher for the corrections, the report pass
+          answered from the eval phase's run: seconds beside the batch-1
+          loop's, each correction's share of tokens equal to it, the files);
+          SpecRingBatcher on the bf16 ring, 4 sessions x 64 tokens. Every
+          run held by teacher forcing: its tokens through the plain prefill
+          and decode steps, every verify row on the final sequence within
+          SPEC_TOL (LOGIT_TOL printed beside); the batch-1 runs' rows
+          bitwise those of the verify forward fed the same tokens
+  chat    the chat app at full width on the slice's pipeline: the image's
+          / 255 card against CPU for all 256 uint8 values; ChatSession with
+          speculation (k 5) over the bf16 session cache: a 300-token report
+          on the slice's first X-ray, a follow-up (incremental prefill logits
+          against a full re-prefill, SPEC_TOL), a speculative turn teacher-
+          forced through the plain session, an ask_stream turn equal to ask's
+          tokens; seconds per turn and to the first chunk, verifies, peak
+          memory; then python -m radialog_tpu_torch.apps.demo --cli --mock
+          with two turns on stdin
 
   serve   the multi-session server at full width on the slice's weights:
           RaDialogServer over the int8 ring, 16 lanes, prompt region 256,
@@ -259,6 +284,34 @@ QA_STUDIES, ALL_QA_STUDIES, LABELED, FOLLOW_UP_NEW = 2, 5, 16, 32
 # against its plain version on the inputs the run itself gave it there
 CORR_T, CORR_T2, CORR_LEN, CORR_LEN2, CORR_NEW, CORR_S = 440, 448, 437, 445, 256, 768
 EVAL_STUDIES = 3
+# the speculative phases: K1's rows in a verify block (batch 1 at k = 4 and
+# 5; 8 compact lanes at k = 5); batch-1 drafts and new tokens (the
+# correction turn's 256); the chat's drafts, reply tokens after its 300-token
+# report, and chunk; SpecRingBatcher's lanes, sessions, new tokens, drafts,
+# verifies a chunk and ring (a multiple of k + 1 above 64 verifies x 5 slots);
+# the S of the int8 verify attention held card against CPU, where 127 x 127 x
+# 1,280 passes 2^24
+VERIFY_M = (5, 6, 48)
+SPEC_K, CORR_SPEC_K, CHAT_K, CHAT_NEW, CHAT_CHUNK = 4, 5, 5, 48, 16
+SPEC_BF16_NEW = 128     # the bf16-cache batch-1 run, cut from 256 for the script's time
+RING_LANES, RING_NEW, RING_K, RING_CHUNK, RING_LEN = 4, 64, 4, 8, 325
+VERIFY_S = 1280
+# tokens of each speculative run teacher-forced through the plain steps (the
+# int8 runs make 256); generated rows of the batch-1 runs held bitwise
+# against one row at a time (_tf_verify one_row), and against the control
+SPEC_TF_N, ONE_ROW_N = 128, 32
+# the bound of the speculative runs' rows against the plain decode steps fed
+# the same tokens (teacher forcing). LOGIT_TOL cannot hold there at 32
+# layers: over the int8 cache the verify attention is another function than
+# K2 (the JAX package's int8 fallback: p requantized per row), and bf16 GEMMs
+# of other row counts round apart. Sound runs of the spec phase read up to
+# 0.81 (mean 0.078) over the int8 cache and 0.52 (0.054) over the bf16 one
+# (H100 80GB HBM3, 700 W). A verify that misses its own row stays as close
+# (the phase's control, printed), so this bound catches gross faults only:
+# the batch-1 runs are also held bitwise against the verify forward fed the
+# same tokens in blocks (_tf_verify) and one row at a time (one_row), and
+# the control must fail the latter
+SPEC_TOL = {"max": 1.2, "mean": 0.12}
 # the float path's binary-QA prefill: the 14 questions about one study as
 # 14 prompts of ~431-440 tokens (the float path shares no prefix), q, k and
 # v contiguous from the separate wq/wk/wv projections of the stacked layout
@@ -345,7 +398,10 @@ def phase_k1(torch, tq8, flush):
     partial last 64-row tile). Each line names the route of the launch
     plan. The summary is one decoder layer's four projections at M = 56,
     with the same sums at M = 16, at the report prefill's M = 4480, at
-    M = 1 and at the correction prefill's M = 440."""
+    M = 1 and at the correction prefill's M = 440; and at the speculative
+    verify blocks: batch 1 at k = 4 and 5 (M = 5, 6) and 8 compact lanes
+    at k = 5 (M = 48); the spec phase's 3 compact lanes at k = 5 and 4 ring
+    lanes at k = 4 (M = 18, 20) are held bitwise too."""
     h, inter, v = 4096, 11008, 32001
     shapes = {"wqkv": (h, 3 * h), "wo": (h, h), "gateup": (h, 2 * inter),
               "down": (inter, h), "lm_head": (h, v)}
@@ -353,10 +409,10 @@ def phase_k1(torch, tq8, flush):
     g = torch.Generator(device="cuda").manual_seed(1)
     refused = {}
     sums = {m: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-                "bytes_bound": 0} for m in (BATCH, LANES, prefill, 1, CORR_T)}
+                "bytes_bound": 0} for m in (BATCH, LANES, prefill, 1, CORR_T) + VERIFY_M}
     for name, (k, n) in shapes.items():
         w8 = torch.randint(-127, 128, (n, k), generator=g, device="cuda", dtype=torch.int8)
-        for m in (1, LANES, 56, 48, PROMPT_REGION, CORR_T, CORR_T2, prefill):
+        for m in (1, 5, 6, LANES, 18, 20, 56, 48, PROMPT_REGION, CORR_T, CORR_T2, prefill):
             x8 = torch.randint(-127, 128, (m, k), generator=g, device="cuda", dtype=torch.int8)
             got = tq8.q8_matmul_int32(x8, w8)
             ref = tq8.q8_matmul_int32_plain(x8, w8)
@@ -373,7 +429,8 @@ def phase_k1(torch, tq8, flush):
                 lib_ms = timed_ms(lambda: torch._int_mm(x8, w8.t()), 20, flush)
             except RuntimeError as e:
                 lib_refused = str(e).splitlines()[0][:200]
-                refused[m] = lib_refused
+                if name != "lm_head":       # the layer sums' refusal, not the vocab's N
+                    refused[m] = lib_refused
             nbytes = m * k + n * k + 4 * m * n
             b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             b_ops = 2 * m * n * k / INT8_OPS_PER_S * 1e3
@@ -394,7 +451,9 @@ def phase_k1(torch, tq8, flush):
                 acc["bytes_bound"] += b_bytes >= b_ops
         del w8
     for m, what in ((LANES, "the serve phase's decode"), (prefill, "the report prefill"),
-                    (1, "batch-1 decode"), (CORR_T, "the correction prefill")):
+                    (1, "batch-1 decode"), (CORR_T, "the correction prefill"),
+                    (5, "a batch-1 verify block, k = 4"), (6, "a batch-1 verify block, k = 5"),
+                    (48, "8 compact lanes' verify blocks, k = 5")):
         emit("k1", layer_sum=f"one decoder layer's 4 projections at {what}", m=m,
              roofline_share=sums[m]["bound_ms"] / sums[m]["ms"],
              **{key: val for key, val in sums[m].items() if key != "bytes_bound"})
@@ -407,9 +466,13 @@ def phase_k1(torch, tq8, flush):
     summary["ms_prefill"] = sums[prefill]["ms"]
     summary["library_ms_prefill"] = sums[prefill]["library_ms"]
     summary["bound_ms_prefill"] = sums[prefill]["bound_ms"]
-    for m, key in ((1, "m1"), (CORR_T, "correction_prefill")):
+    for m, key in ((1, "m1"), (CORR_T, "correction_prefill"), (5, "m5"), (6, "m6"),
+                   (48, "m48")):
         summary[f"ms_{key}"], summary[f"bound_ms_{key}"] = sums[m]["ms"], sums[m]["bound_ms"]
         summary[f"library_ms_{key}"] = sums[m]["library_ms"]
+        summary[f"plain_ms_{key}"] = sums[m]["plain_ms"]
+    for m in VERIFY_M:
+        summary[f"library_refused_m{m}"] = refused.get(m)
     summary["bound_by"] = "bytes" if summary.pop("bytes_bound") == 4 else "operations"
     return summary
 
@@ -2172,9 +2235,657 @@ def phase_eval(torch, pipeline_mod, tq8, tfd, tfa):
          held_on_the_run_s_inputs=held, metrics=results, ok=ok, **files)
     if not ok:
         raise AssertionError("the full-width eval phase failed a check")
-    made.clear()
     k1.kept.clear(), k2.kept.clear(), k3.kept.clear()
-    return launches
+    # the spec phase runs on this pipeline and these prompts: its batch-1
+    # correction loop is the plain run the speculative decoders are put beside
+    return launches, {"pipe": made.pop(), "argv": argv,
+                      "report": by[NEW][0], "corrections": by[ev.CORRECTION_NEW]}
+
+
+class _VerifyRecorder:
+    """Stand-in for ``llama_apply`` in a decoder module for a block: every
+    call goes through; of each verify call the block's tokens, positions and
+    f32 logits are kept on the card."""
+
+    def __init__(self, module):
+        self.module, self.real, self.calls = module, module.llama_apply, []
+
+    def __enter__(self):
+        self.module.llama_apply = self
+        return self
+
+    def __exit__(self, *exc):
+        self.module.llama_apply = self.real
+
+    def __call__(self, *args, **kw):
+        out = self.real(*args, **kw)
+        if kw.get("verify"):    # kept on the card: a copy to the host would be a stream wait
+            self.calls.append((args[2].clone(), args[3].clone(), out[0].float()))
+        return out
+
+
+class _RoundTrip:
+    """The pipeline's WhitespaceTokenizer with words "w<id>" that encode
+    back to <id> and "</s>" as eos, so that a chat reply re-tokenizes to
+    its own ids and each turn prefills only its new tokens (the
+    WhitespaceTokenizer decodes to "tok<id>", which encodes to other ids)."""
+
+    def __init__(self, base):
+        self.base = base
+        self.eos_token_id, self.pad_token_id = base.eos_token_id, base.pad_token_id
+
+    def _ids(self, text):
+        out = []
+        for w in text.replace("</s>", " </s> ").split():
+            if w == "</s>":
+                out.append(self.eos_token_id)
+            elif w[:1] == "w" and w[1:].isdigit() and int(w[1:]) < self.base.vocab_size:
+                out.append(int(w[1:]))
+            else:
+                out.extend(self.base.encode(w, add_bos=False))
+        return out
+
+    def __call__(self, text, **_):
+        ids = [self.base.bos_token_id] + self._ids(text)
+        return {"input_ids": ids, "attention_mask": [1] * len(ids)}
+
+    def decode(self, ids, skip_special_tokens=True):
+        # pad and bos ids a reply may hold keep their words; eos is the "</s>"
+        # the conversation template writes after the reply
+        return " ".join(f"w{int(i)}" for i in ids
+                        if not (skip_special_tokens and int(i) == self.eos_token_id))
+
+
+def _tok_ids(text):
+    """The ids of a text the WhitespaceTokenizer decoded ("tok<id>" words)."""
+    import re
+    return [int(x) for x in re.findall(r"\btok(\d+)\b", text)]
+
+
+def _tf_logits(torch, te, pipe, seqs, kv_int8):
+    """Teacher-forced logits: each of ``seqs`` (prompt ids, its image
+    embeddings (1, 32, 768), generated ids) through the engine's prefill and
+    greedy decode steps at batch len(seqs) (prompts right-padded, the
+    static-slot decode of ``generate``), its own ids fed back. Returns per
+    sequence its (len(generated), V) logits on the card: row i the logits
+    before generated id i."""
+    from radialog_tpu_torch.apps.tokenization import pad_batch_right
+    dev, cfg = pipe.device, pipe.llama_cfg
+    tok, lens = (torch.as_tensor(x, device=dev) for x in pad_batch_right([s[0] for s in seqs], 0))
+    n = max(len(s[2]) for s in seqs)
+    forced = torch.zeros((len(seqs), n), dtype=torch.int32)
+    for i, s in enumerate(seqs):
+        forced[i, :len(s[2])] = torch.tensor(s[2])
+    forced = forced.to(dev)
+    dp = te.DecodeParams(max_new_tokens=n)
+    with torch.no_grad():
+        cache, first = te.prefill(pipe.llama, cfg, tok, lens,
+                                  te.default_cache_len(tok.shape[1], dp),
+                                  img_embs=torch.cat([s[1] for s in seqs]), lora=pipe.lora,
+                                  policy=pipe.policy, kv_int8=kv_int8)
+        out = [first]
+        for step in range(n - 1):
+            out.append(te.decode_step(pipe.llama, cfg, cache, forced[:, step], lens, tok.shape[1],
+                                      step, lora=pipe.lora, policy=pipe.policy))
+    logits = torch.stack(out, 1)
+    return [logits[i, :len(s[2])] for i, s in enumerate(seqs)]
+
+
+def _tf_verify(torch, te, pipe, ids, emb, gen, kv_int8, cache_len, k, n=None,
+               one_row=False, drop_own=False):
+    """Teacher forcing through the verify forward: the prompt prefilled as
+    generate_spec does, then the first ``n`` generated ids (all by default)
+    fed in blocks of k + 1 (``llama_apply(verify=True)``, causal over the
+    cache of ``cache_len`` slots). Every block has k + 1 rows, as the
+    speculative run's (the last is padded): a block of other rows would run
+    its GEMMs at another M and round apart. one_row: a block starts at every
+    position and only its first row is kept, so each kept row attends only
+    rows that earlier blocks' first rows wrote: one token at a time, at the
+    run's GEMM shape, with nothing of a block's own structure (its triangle,
+    its later rows, their writes) in any kept row. drop_own: each row's own
+    slot masked out of the bias, a verify that misses its own row (the
+    control). Returns (n, V) logits, row i those before gen[i]."""
+    from radialog_tpu_torch.models.llama import llama_apply
+    from radialog_tpu_torch.ops.attention import NEG_INF, causal_mask_bias
+    t = len(ids)
+    n = len(gen) if n is None else min(n, len(gen))
+    hist = torch.tensor(ids + gen + [0] * k, device=pipe.device)
+    js = torch.arange(k + 1, device=pipe.device)
+    with torch.no_grad():
+        cache, first = te.prefill(pipe.llama, pipe.llama_cfg, hist[None, :t],
+                                  torch.full((1,), t, device=pipe.device), cache_len,
+                                  img_embs=emb, lora=pipe.lora, policy=pipe.policy,
+                                  kv_int8=kv_int8)
+        out = [first[0]]
+        for base in range(t, t + n - 1, 1 if one_row else k + 1):
+            bias = causal_mask_bias(k + 1, cache_len, offset=base, device=pipe.device)
+            if drop_own:
+                bias[0, 0, js, base + js] = NEG_INF
+            logits, _ = llama_apply(
+                pipe.llama, pipe.llama_cfg, hist[base:base + k + 1][None], base + js[None],
+                bias, cache=cache, write_pos=base, lora=pipe.lora, policy=pipe.policy,
+                verify=True)
+            out.extend(logits[0, j] for j in range(1 if one_row else k + 1)
+                       if base + j + 1 - t < n)
+    return torch.stack(out)
+
+
+def _rows_err(a, b):
+    """{"max", "mean", "rows"} of |a - b| over rows 1.. (row 0 is the
+    prefill's, shared by every teacher-forced run)."""
+    d = (a[1:] - b[1:a.shape[0]]).abs()
+    return {"max": float(d.max()), "mean": float(d.mean()), "rows": d.shape[0]}
+
+
+def _verify_err(torch, calls, lanes):
+    """Each verify row of ``calls`` (a _VerifyRecorder's) against the
+    teacher-forced logits of its position. lanes: per batch row of the
+    calls, (the sequence's ids, its prompt length t, its _tf_logits) or
+    None. A row counts where the block's tokens up to it are the sequence's
+    at their positions (a row after a rejected draft saw another context);
+    its logits are those before the token at position p + 1, teacher-forced
+    row p + 1 - t. Returns {"max", "mean", "rows"} over every compared
+    logit."""
+    got, want = [], []
+    for tokens, positions, logits in calls:
+        tokens, positions = tokens.cpu(), positions.cpu()
+        for b, lane in enumerate(lanes):
+            if lane is None:
+                continue
+            seq, t, tf = lane
+            for j in range(tokens.shape[1]):
+                p = int(positions[b, j])
+                i = p + 1 - t
+                if not (1 <= i < tf.shape[0]) or tokens[b, :j + 1].tolist() != seq[p - j:p + 1]:
+                    break
+                got.append(logits[b, j])
+                want.append(tf[i])
+    if not got:
+        return {"max": float("nan"), "mean": float("nan"), "rows": 0}
+    d = (torch.stack(got) - torch.stack(want)).abs()
+    return {"max": float(d.max()), "mean": float(d.mean()), "rows": len(got)}
+
+
+def _within(err, tol=SPEC_TOL) -> bool:
+    return err["rows"] > 0 and err["max"] < tol["max"] and err["mean"] < tol["mean"]
+
+
+def _first_parting(a, b) -> int:
+    """The first index where two id lists differ (min length if neither)."""
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+
+
+def _equal_share(a, b) -> float:
+    n = max(len(a), len(b))
+    return sum(x == y for x, y in zip(a, b)) / n if n else 1.0
+
+
+def _verify_attention_card_vs_cpu(torch):
+    """The int8 verify attention (models/llama.py ``_attention_int8_verify``)
+    on the card against the CPU at B=1, T=5, H=32, D=128, S=VERIFY_S with
+    constant scales and v codes of 100-127: near-uniform softmax weights
+    quantize to ~127, so a p . v sum reaches ~127 x 113 x 1280 > 2^24,
+    past f32's exact integers. The integer sums bitwise (and an f32 product
+    on the card shown to miss them), the output within 1e-4."""
+    from radialog_tpu_torch.models import llama as tl
+    g = torch.Generator().manual_seed(VERIFY_S)
+    b, t, h, d, s = 1, SPEC_K + 1, 32, 128, VERIFY_S
+    q = torch.randn(b, t, h, d, generator=g) * 0.01
+    k8 = torch.randint(-127, 128, (1, b, s, h * d), generator=g, dtype=torch.int8)
+    v8 = torch.randint(100, 128, (1, b, s, h * d), generator=g, dtype=torch.int8)
+    sc = torch.full((1, b, s, h), 0.02, dtype=torch.bfloat16)
+    bias = torch.zeros(b, 1, t, s)
+    cache = tl.KVCache(k8, v8, sc, sc)
+    p8, _ = tl.quantize_kv(torch.softmax(torch.randn(b, h, t, s, generator=g) * 0.01, -1)
+                           * 0.02, torch.float32)
+    vv = v8[0].view(b, s, h, d).permute(0, 2, 1, 3)
+    want = tl.int8_dot_exact(p8, vv)
+    got = tl.int8_dot_exact(p8.cuda(), vv.cuda()).cpu()
+    f32 = torch.matmul(p8.cuda().float(), vv.cuda().float()).cpu()
+    ref = tl._attention_int8_verify(q, cache, 0, bias, d)
+    out = tl._attention_int8_verify(q.cuda(), tl.KVCache(*(x.cuda() for x in (k8, v8, sc, sc))),
+                                    0, bias.cuda(), d).cpu()
+    res = {"s": s, "p8_min": int(p8.min()), "sum_max": float(want.abs().max()),
+           "sums_bitwise": bool(torch.equal(got, want)),
+           "f32_sums_differ": int((f32.double() != want).sum()),
+           "out_max_abs_err": float((out - ref).abs().max())}
+    res["ok"] = (res["sums_bitwise"] and res["sum_max"] > 2 ** 24 and res["f32_sums_differ"] > 0
+                 and res["out_max_abs_err"] < 1e-4)
+    return res
+
+
+def phase_spec(torch, te, tq8, tfd, tfa, ev_state):
+    """Speculative decoding at Vicuna-7B width on the eval phase's pipeline
+    (W8A8, the same synthetic weights) and its prompts:
+      * generate_spec (k = SPEC_K) on the first study's correction prompt
+        with its image embeddings, 256 new tokens over the int8 cache and
+        SPEC_BF16_NEW over the bf16 one: verifies, tokens per verify, seconds, stream waits
+        per verify (torch's sync debug mode), and where the tokens part from
+        the eval phase's batch-1 loop on the same prompt (int8) and from the
+        teacher-forced run's argmax (both);
+      * the eval command line with --corr_spec CORR_SPEC_K over the eval
+        phase's studies (main, the report pass answered from the eval
+        phase's run on the same prompts, asserted): the correction pass
+        through one SpecCompactBatcher, its seconds beside the batch-1
+        loop's, verifies, tokens per verify, each correction's share of
+        tokens equal to the batch-1 loop's, the four files;
+      * SpecRingBatcher, the bf16 ring, RING_LANES sessions x RING_NEW tokens
+        of image prompts;
+      * the int8 verify attention, card against CPU at S = VERIFY_S.
+    The bar of every speculative run: teacher forcing. Its first SPEC_TF_N
+    tokens go through the engine's plain prefill and decode steps
+    (_tf_logits), and
+    every verify row whose context is the final sequence lies within
+    SPEC_TOL of them (LOGIT_TOL is printed beside: it cannot hold at full
+    width, see SPEC_TOL); the batch-1 runs' rows also equal, bitwise, the
+    verify forward fed the same tokens (_tf_verify), in blocks of k + 1 and,
+    over the first ONE_ROW_N rows, one row at a time; a verify whose rows
+    miss their own slot (the control) must part from the latter, and its
+    readings against both references are printed. Token equality is
+    printed, not held: on random weights greedy picks sit near ties, and
+    over the int8 cache the verify attention is another function than K2.
+    Launches of K1, K2 and K3 are counted over the speculative runs only
+    (no teacher forcing)."""
+    import shutil
+    from pathlib import Path
+    from radialog_tpu_torch.apps import evaluate as ev
+    from radialog_tpu_torch.decode import spec_ring as tsr
+    from radialog_tpu_torch.decode import speculative as tsp
+    pipe, corr = ev_state["pipe"], ev_state["corrections"]
+    for attr in ("generate_texts", "label_reports"):     # the eval phase's timing wrappers
+        pipe.__dict__.pop(attr, None)
+    cfg, tok = pipe.llama_cfg, pipe.tokenizer
+    counted = {"q8_matmul": tq8.q8_matmul_int32, "flash_decode_int8": tfd.flash_decode_int8_kernel,
+               "flash_attention": tfa.flash_attention_kernel}
+    launches = dict.fromkeys(counted, 0)
+
+    def main_path(fn):
+        torch.cuda.synchronize()
+        for f in counted.values():
+            f.launches = 0
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        for name, f in counted.items():
+            launches[name] += f.launches
+        return out, time.time() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    attn = _verify_attention_card_vs_cpu(torch)
+    emit("spec", part="int8 verify attention, card vs CPU", **attn)
+    ok = attn["ok"]
+
+    # ---- batch-1 generate_spec on the first correction prompt
+    import warnings
+    prompt, emb = corr[0]["prompts"][0], corr[0]["embs"]
+    ids = tok(prompt)["input_ids"]
+    b1_loop = _tok_ids(corr[0]["out"][0][len(prompt):])
+    runs = {}
+    for kv_int8, new in ((True, CORR_NEW), (False, SPEC_BF16_NEW)):
+        dp = te.DecodeParams(max_new_tokens=new, eos_token_id=tok.eos_token_id)
+        with _VerifyRecorder(tsp) as rec, warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                res, secs = main_path(lambda: tsp.generate_spec(
+                    pipe.llama, cfg, torch.tensor([ids], device="cuda"), dp, k=SPEC_K,
+                    img_embs=emb, lora=pipe.lora, policy=pipe.policy, kv_int8=kv_int8))
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        gen = res.tokens[0, :int(res.lengths[0])].tolist()
+        waits = [w for w in caught if "synchroniz" in str(w.message)]
+        sites = {}
+        for w in waits:     # where the host waited: file:line of the Python frame
+            site = f"{os.path.basename(w.filename)}:{w.lineno}"
+            sites[site] = sites.get(site, 0) + 1
+        runs[kv_int8] = {"rec": rec, "gen": gen, "seconds": secs, "iters": res.iters,
+                         "waits": len(waits), "sites": sites,
+                         "cache_len": te.bucket_length(len(ids) + new + SPEC_K + 1)}
+
+    # ---- the eval command line with --corr_spec
+    out_dir = Path("build/chip_eval_spec")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    argv = [a for a in ev_state["argv"] if a not in ("--do_cp_bin_qa", "--do_cp_all_qa")]
+    argv[argv.index("--output_dir") + 1] = str(out_dir)
+    argv += ["--corr_spec", str(CORR_SPEC_K)]
+    made, ring_calls = [], []
+    real_cls = tsr.SpecCompactBatcher
+
+    class Recorded(real_cls):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    report = ev_state["report"]
+
+    def report_replay(prompts, img_embs=None, max_new_tokens=None, **kw):
+        assert (list(prompts), max_new_tokens) == (report["prompts"], NEW)
+        assert torch.equal(img_embs, report["embs"])
+        return report["out"]
+
+    def ring(prompts, **kw):
+        t0 = time.time()
+        out = type(pipe).generate_texts_ring(pipe, prompts, **kw)
+        torch.cuda.synchronize()
+        ring_calls.append({"prompts": list(prompts), "embs": kw["img_embs"], "out": out,
+                           "s": time.time() - t0, "lanes": kw["lanes"], "k": kw["spec_k"]})
+        return out
+
+    def factory(real, cfg_):
+        pipe.generate_texts, pipe.generate_texts_ring = report_replay, ring
+        return pipe
+    tsr.SpecCompactBatcher = Recorded
+    try:
+        with _VerifyRecorder(tsr) as rec_c, _eval_pipelines(ev, factory):
+            results, main_s = main_path(lambda: ev.main(argv))
+    finally:
+        tsr.SpecCompactBatcher = real_cls
+        pipe.__dict__.pop("generate_texts", None)
+        pipe.__dict__.pop("generate_texts_ring", None)
+    rb, (rc,) = made[0], ring_calls
+    sess = [rb.finished[s] for s in sorted(rb.finished)]
+    files_ok, files = _eval_outputs(out_dir, results, EVAL_STUDIES)
+
+    # ---- SpecRingBatcher, the bf16 ring
+    reqs = _serve_requests(pipe, torch.cat([c["embs"] for c in corr]), RING_LANES, seed=21)
+    sr = tsr.SpecRingBatcher(pipe.llama, cfg, lanes=RING_LANES, cache_len=PROMPT_REGION + RING_LEN,
+                             prompt_len=PROMPT_REGION,
+                             dp=te.DecodeParams(max_new_tokens=RING_NEW, eos_token_id=-1),
+                             lora=pipe.lora, policy=pipe.policy, steps_per_call=RING_CHUNK,
+                             spec_k=RING_K, device="cuda")
+    with _VerifyRecorder(tsr) as rec_r:
+        done, ring_s = main_path(lambda: [sr.submit(i, img_embs=e) for i, e in reqs] and sr.run())
+    ring_sess = [done[s] for s in sorted(done)]
+    spec_launches = dict(launches)
+
+    # ---- the bar: teacher forcing, int8 then bf16
+    t0 = time.time()
+    n = SPEC_TF_N
+    tf8 = _tf_logits(torch, te, pipe, [(ids, emb, runs[True]["gen"][:n])]
+                     + [(s.prompt_ids, rc["embs"][i:i + 1], s.tokens[:n])
+                        for i, s in enumerate(sess)], kv_int8=True)
+    tf16 = _tf_logits(torch, te, pipe, [(ids, emb, runs[False]["gen"][:n])]
+                      + [(s.prompt_ids, e, s.tokens[:n]) for s, (_, e) in zip(ring_sess, reqs)],
+                      kv_int8=False)
+    tf_s = time.time() - t0
+    for kv_int8, tf in ((True, tf8[0]), (False, tf16[0])):
+        r = runs[kv_int8]
+        lane = (ids + r["gen"], len(ids))
+        err = _verify_err(torch, r["rec"].calls, [lane + (tf,)])
+        t0 = time.time()
+        args = (torch, te, pipe, ids, emb, r["gen"], kv_int8, r["cache_len"], SPEC_K)
+        exact = _verify_err(torch, r["rec"].calls, [lane + (_tf_verify(*args),)])
+        one = _tf_verify(*args, n=ONE_ROW_N + 1, one_row=True)
+        rowwise = _verify_err(torch, r["rec"].calls, [lane + (one,)])
+        faulted = _tf_verify(*args, n=ONE_ROW_N + 1, drop_own=True)
+        control = {"vs_one_row": _rows_err(faulted, one),
+                   "vs_plain_steps": _rows_err(faulted, tf)}
+        control["caught_by_one_row"] = control["vs_one_row"]["max"] > 0
+        control["caught_by_spec_tol"] = not _within(control["vs_plain_steps"])
+        verify_tf_s = time.time() - t0
+        n = len(r["gen"])
+        line = {"cache": "int8" if kv_int8 else "bf16", "k": SPEC_K, "prompt_tokens": len(ids),
+                "new_tokens": n, "verifies": r["iters"],
+                "tokens_per_verify": (n - 1) / max(r["iters"], 1), "seconds": r["seconds"],
+                "stream_waits": r["waits"], "stream_waits_per_verify": r["waits"] / max(r["iters"], 1),
+                "stream_wait_sites": r["sites"],
+                "first_parting_from_plain_steps_argmax": _first_parting(
+                    r["gen"], tf.argmax(-1).tolist()),
+                "vs_plain_steps": err, "vs_plain_steps_within_logit_tol": _within(err, LOGIT_TOL),
+                "vs_verify_forward": exact, "vs_one_row": rowwise,
+                "control_missing_own_row": control, "verify_teacher_forcing_s": verify_tf_s,
+                "ok": (_within(err) and exact["rows"] > 0 and exact["max"] == 0.0 and n > 0
+                       and rowwise["rows"] > 0 and rowwise["max"] == 0.0
+                       and control["caught_by_one_row"])}
+        if kv_int8:
+            line["batch1_loop_seconds"] = corr[0]["s"]
+            line["first_parting_from_batch1_loop"] = _first_parting(
+                [x for x in r["gen"] if x > 2], b1_loop)
+        emit("spec", part="generate_spec, batch 1", **line)
+        ok = ok and line["ok"]
+        r["rec"].calls.clear()
+    lanes = [(s.prompt_ids + s.tokens, len(s.prompt_ids), tf8[1 + i]) for i, s in enumerate(sess)]
+    per_lane = [_verify_err(torch, rec_c.calls, [lane if j == i else None for j in range(len(sess))])
+                for i, lane in enumerate(lanes)]
+    b1_ids = [_tok_ids(c["out"][0][len(c["prompts"][0]):]) for c in corr]
+    gen_tokens = sum(len(s.tokens) - 1 for s in sess)
+    line = {"argv": argv, "seconds": main_s, "correction_s": rc["s"],
+            "batch1_loop_correction_s": [c["s"] for c in corr], "lanes": rc["lanes"], "k": rc["k"],
+            "cache_len": rb.cache_len, "kv_int8": rb.kv_int8, "verifies": rb.verifies,
+            "tokens_per_verify": gen_tokens / max(rb.verifies, 1),
+            "new_tokens": [len(s.tokens) for s in sess],
+            "equal_share_to_batch1_loop": [_equal_share([x for x in s.tokens if x > 2], b)
+                                           for s, b in zip(sess, b1_ids)],
+            "vs_plain_steps_per_lane": per_lane,
+            "vs_plain_steps_within_logit_tol": [_within(e, LOGIT_TOL) for e in per_lane],
+            "metrics": results, **files}
+    line["ok"] = (files_ok and len(sess) == EVAL_STUDIES and rb.kv_int8
+                  and all(_within(e) for e in per_lane)
+                  and [c["prompts"][0] for c in corr] == rc["prompts"])
+    emit("spec", part="SpecCompactBatcher, eval --corr_spec", **line)
+    ok = ok and line["ok"]
+    rec_c.calls.clear()
+    per_lane = [_verify_err(torch, rec_r.calls, [
+        (s.prompt_ids + s.tokens, len(s.prompt_ids), tf16[1 + i]) if j == i else None
+        for j in range(RING_LANES)]) for i, s in enumerate(ring_sess)]
+    line = {"lanes": RING_LANES, "sessions": len(ring_sess), "new_tokens": RING_NEW, "k": RING_K,
+            "steps_per_call": RING_CHUNK, "cache_len": sr.cache_len, "seconds": ring_s,
+            "verifies": sr.verifies,
+            "tokens_per_verify": sum(len(s.tokens) - 1 for s in ring_sess) / max(sr.verifies, 1),
+            "prompt_tokens": [len(i) for i, _ in reqs], "vs_plain_steps_per_lane": per_lane,
+            "vs_plain_steps_within_logit_tol": [_within(e, LOGIT_TOL) for e in per_lane],
+            "ok": all(_within(e) for e in per_lane) and all(len(s.tokens) == RING_NEW
+                                                            for s in ring_sess)}
+    emit("spec", part="SpecRingBatcher, bf16 ring", **line)
+    ok = ok and line["ok"]
+    rec_r.calls.clear()
+    emit("spec", part="summary", launches=spec_launches, teacher_forcing_s=tf_s,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, ok=ok)
+    if not ok or spec_launches["q8_matmul"] == 0 or spec_launches["flash_attention"] == 0:
+        raise AssertionError("the speculative phase failed a check")
+    return spec_launches
+
+
+def _copy_session(session):
+    """A second InteractiveSession in the same state, with its own cache."""
+    twin = type(session).__new__(type(session))
+    for name in ("params", "cfg", "lora", "policy", "cache_len", "device", "cur_len",
+                 "_last_logits"):
+        setattr(twin, name, getattr(session, name))
+    twin.cache = type(session.cache)(session.cache.k.clone(), session.cache.v.clone())
+    twin.token_ids, twin._pending_tail = list(session.token_ids), list(session._pending_tail)
+    return twin
+
+
+def phase_chat(torch, te, tq8, tfd, tfa, sl):
+    """The chat app at Vicuna-7B width on the slice's W8A8 pipeline:
+    ChatSession(speculative=True, spec_k=CHAT_K) over the session's bf16
+    cache, with a tokenizer whose replies re-tokenize to their own ids (so
+    turns prefill incrementally). First the image's / 255 on the card
+    against the CPU for all 256 uint8 values (expand_cxr_u8, preprocess_cxr;
+    the old form x / 255.0 beside them). The image turn on the slice's first
+    synthetic X-ray writes a 300-token report; then, CHAT_NEW tokens a
+    turn: a follow-up whose incremental-prefill logits are held against a
+    full re-prefill of the whole conversation (SPEC_TOL: other block
+    shapes over the bf16 cache; LOGIT_TOL printed beside); a speculative
+    turn teacher-forced through the plain session on the same history
+    (decode steps fed its tokens; SPEC_TOL); an ask_stream turn whose tokens
+    must equal ask's on the same history (a plain session). Seconds per
+    turn, to the first streamed chunk, verifies, tokens per verify, peak
+    memory; K1/K2/K3 launches over the chat's own turns (each counted from
+    0 just before it; the full re-prefill, the plain session and ask's twin
+    run outside those windows). Then the demo's command line
+    (python -m radialog_tpu_torch.apps.demo --cli --mock) with two turns on
+    stdin."""
+    import copy
+    from radialog_tpu_torch.apps.chat import ChatSession
+    from radialog_tpu_torch.decode import speculative as tsp
+    from radialog_tpu_torch.decode.session import InteractiveSession
+    from radialog_tpu_torch.ops import image as timage
+    pipe = sl["pipe"]
+    cfg = pipe.llama_cfg
+    torch.cuda.reset_peak_memory_stats()
+    # ---- the image's division by 255, card against CPU
+    u8 = torch.arange(256, dtype=torch.uint8).reshape(16, 16)
+    big = u8.repeat(28, 28)                 # 448 x 448: resize and crop are the identity
+    audit = {"expand_cxr_u8_bitwise": bool(torch.equal(
+                 timage.expand_cxr_u8(u8.cuda()[None]).cpu(), timage.expand_cxr_u8(u8[None]))),
+             "preprocess_cxr_bitwise": bool(torch.equal(
+                 timage.preprocess_cxr(big.cuda(), 448, 448).cpu(),
+                 timage.preprocess_cxr(big, 448, 448))),
+             "old_form_values_differing": int((u8.cuda().float() / 255.0).cpu().ne(
+                 u8.float() / 255.0).sum())}
+    emit("chat", part="image / 255, card vs CPU, all 256 uint8 values", **audit,
+         ok=audit["expand_cxr_u8_bitwise"] and audit["preprocess_cxr_bitwise"])
+    ok = audit["expand_cxr_u8_bitwise"] and audit["preprocess_cxr_bitwise"]
+    counted = {"q8_matmul": tq8.q8_matmul_int32, "flash_decode_int8": tfd.flash_decode_int8_kernel,
+               "flash_attention": tfa.flash_attention_kernel}
+    chat_launches = dict.fromkeys(counted, 0)
+    real_tok, real_new = pipe.tokenizer, pipe.cfg.max_new_tokens
+    pipe.tokenizer = _RoundTrip(real_tok)
+    try:
+        g = torch.Generator(device="cuda").manual_seed(3)    # the report batch's first X-ray
+        x448 = torch.randint(0, 256, (BATCH, 448, 448), generator=g, device="cuda",
+                             dtype=torch.uint8)[:1]
+        x488 = torch.randint(0, 256, (BATCH, 488, 488), generator=g, device="cuda",
+                             dtype=torch.uint8)[:1]
+        cs = ChatSession(pipe, speculative=True, spec_k=CHAT_K)
+        replies = {}
+        real_spec = cs.session.generate_spec
+
+        def spec(dp, k=4, m=3):
+            replies["ids"] = real_spec(dp, k=k, m=m)
+            return replies["ids"]
+        cs.session.generate_spec = spec
+
+        def turn(fn, chat=True):
+            """fn's result, seconds and verify calls; the launches of a
+            chat turn (not of a reference run) are counted."""
+            torch.cuda.synchronize()
+            for f in counted.values():
+                f.launches = 0
+            t0 = time.time()
+            with _VerifyRecorder(tsp) as rec:
+                out = fn()
+            torch.cuda.synchronize()
+            secs = time.time() - t0
+            if chat:
+                for name, f in counted.items():
+                    chat_launches[name] += f.launches
+            return out, secs, rec
+        pipe.cfg.max_new_tokens = 300
+        (report, findings), image_s, rec = turn(lambda: cs.image_turn(
+            timage.expand_cxr_u8(x448)[0], timage.expand_cxr_u8(x488)[0], "chip-xray-0"))
+        n = len(replies["ids"])
+        emit("chat", part="image turn", findings=findings, report_tokens=n, seconds=image_s,
+             verifies=len(rec.calls), tokens_per_verify=(n - 1) / max(len(rec.calls), 1),
+             ok=n == 300 or replies["ids"][-1] == real_tok.eos_token_id)
+        ok = ok and n > 0
+        rec.calls.clear()
+        pipe.cfg.max_new_tokens = CHAT_NEW
+
+        # ---- follow-up: incremental prefill against a full re-prefill
+        seen = {}
+        real_append = cs.session.append_tokens      # bound before the stand-in is set
+
+        def append(delta, img_embs=None):
+            seen["cur_len"] = cs.session.cur_len
+            real_append(delta, img_embs=img_embs)
+            seen["logits"], seen["ids"] = cs.session._last_logits.clone(), list(cs.session.token_ids)
+        cs.session.append_tokens = append
+        q1 = "Are there any signs of pneumonia or of a pleural effusion in this image?"
+        reply1, s1, rec = turn(lambda: cs.ask(q1))
+        del cs.session.append_tokens
+        full = InteractiveSession(pipe.llama, cfg, lora=pipe.lora, policy=pipe.policy,
+                                  cache_len=cs.session.cache_len, device="cuda")
+        with torch.no_grad():
+            full.append_tokens(seen["ids"], img_embs=cs.img_embs)
+        d = (seen["logits"] - full._last_logits).abs()
+        err = {"max": float(d.max()), "mean": float(d.mean()), "rows": 1}
+        del full
+        line = {"incremental_from": seen["cur_len"], "conversation_tokens": len(seen["ids"]),
+                "reply_tokens": len(replies["ids"]), "seconds": s1, "verifies": len(rec.calls),
+                "incremental_vs_full_prefill": err,
+                "within_logit_tol": _within(err, LOGIT_TOL),
+                "ok": seen["cur_len"] > 0 and _within(err)}
+        emit("chat", part="follow-up turn", **line)
+        ok = ok and line["ok"]
+        rec.calls.clear()
+
+        # ---- speculative turn, teacher-forced through the plain session
+        plain = _copy_session(cs.session)
+        conv = cs.conv.copy()
+        q2 = "Please rewrite the report in plain words for the patient, sentence by sentence."
+        reply2, s2, rec = turn(lambda: cs.ask(q2))
+        got = replies["ids"]
+        conv.append_user(q2)
+        conv.append_assistant(None)
+        full_ids = pipe.tokenizer(conv.get_prompt())["input_ids"]
+        prev = plain.token_ids + plain._pending_tail
+        assert full_ids[:len(prev)] == prev
+        with torch.no_grad():
+            plain.append_tokens(full_ids[len(prev):])
+            t = plain.cur_len
+            lens = torch.tensor([t], device="cuda")
+            tf = [plain._last_logits[0]]
+            for step, tk in enumerate(got[:-1]):
+                tf.append(te.decode_step(pipe.llama, cfg, plain.cache,
+                                         torch.tensor([tk], device="cuda"), lens, t, step,
+                                         lora=pipe.lora, policy=pipe.policy)[0])
+        err = _verify_err(torch, rec.calls, [(plain.token_ids + got, t, torch.stack(tf))])
+        line = {"reply_tokens": len(got), "seconds": s2, "verifies": len(rec.calls),
+                "tokens_per_verify": (len(got) - 1) / max(len(rec.calls), 1),
+                "first_parting_from_plain_steps_argmax": _first_parting(
+                    got, torch.stack(tf).argmax(-1).tolist()),
+                "vs_plain_steps": err, "vs_plain_steps_within_logit_tol": _within(err, LOGIT_TOL),
+                "ok": _within(err)}
+        emit("chat", part="speculative turn", **line)
+        ok = ok and line["ok"]
+        rec.calls.clear()
+        del plain, tf
+
+        # ---- ask_stream against ask on the same history
+        twin = copy.copy(cs)
+        twin.session, twin.conv, twin.speculative = _copy_session(cs.session), \
+            cs.conv.copy(), False
+        q3 = "Is the heart size normal?"
+        first = []
+
+        def stream():
+            t0 = time.time()
+            out = []
+            for part in cs.ask_stream(q3, chunk_size=CHAT_CHUNK):
+                if not out:
+                    torch.cuda.synchronize()
+                    first.append(time.time() - t0)
+                out.append(part)
+            return out
+        partials, stream_s, _ = turn(stream)
+        first_s = first[0] if first else None
+        want, ask_s, _ = turn(lambda: twin.ask(q3), chat=False)
+        del twin
+        line = {"chunks": len(partials), "chunk": CHAT_CHUNK, "seconds": stream_s,
+                "first_chunk_s": first_s, "ask_seconds": ask_s,
+                "reply_words": len(want.split()), "equal_to_ask": partials[-1] == want,
+                "ok": bool(partials) and partials[-1] == want}
+        emit("chat", part="ask_stream turn", **line)
+        ok = ok and line["ok"]
+    finally:
+        pipe.tokenizer, pipe.cfg.max_new_tokens = real_tok, real_new
+    peak = torch.cuda.max_memory_allocated() / 1e9
+
+    # ---- the demo's command line on the card
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-m", "radialog_tpu_torch.apps.demo", "--cli", "--mock"],
+                          input="Hello, what can you see in this scan?\nIs there any pneumonia?\n"
+                                "quit\n", capture_output=True, text=True, timeout=300)
+    demo_ok = proc.returncode == 0 and proc.stdout.count("ASSISTANT:") == 2
+    emit("chat", part="demo --cli --mock", rc=proc.returncode, seconds=time.time() - t0,
+         stdout_tail=proc.stdout[-600:], stderr_tail=proc.stderr[-600:], ok=demo_ok)
+    emit("chat", part="summary", launches=chat_launches, peak_mem_gb=peak, ok=ok and demo_ok)
+    if not (ok and demo_ok) or chat_launches["q8_matmul"] == 0:
+        raise AssertionError("the chat phase failed a check")
+    return chat_launches
 
 
 def _serve_requests(pipe, embs, n, seed):
@@ -3300,8 +4011,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches, defer_launches, sl = phase_slice(torch, te, pipeline_mod, tq8, tfd)
     qa_launches = phase_qa(torch, tq8, tfd, tfa, sl)
-    eval_launches = phase_eval(torch, pipeline_mod, tq8, tfd, tfa)
+    eval_launches, ev_state = phase_eval(torch, pipeline_mod, tq8, tfd, tfa)
+    gc.collect()
+    torch.cuda.empty_cache()
+    spec_launches = phase_spec(torch, te, tq8, tfd, tfa, ev_state)
+    del ev_state
     gc.collect()                            # the eval run's pipeline
+    torch.cuda.empty_cache()
+    chat_launches = phase_chat(torch, te, tq8, tfd, tfa, sl)
+    gc.collect()
     torch.cuda.empty_cache()
     serve_launches, serve4_launches = phase_serve(torch, tq8, tfd, tfa, tq4, sl)
     del sl                                  # the W8A8 weights make room for the float ones
@@ -3325,15 +4043,20 @@ def main() -> int:
          "library_refused_m16": k1["library_refused_m16"], "ms_prefill": k1["ms_prefill"],
          "library_ms_prefill": k1["library_ms_prefill"],
          "bound_ms_prefill": k1["bound_ms_prefill"],
-         **{k: v for k, v in k1.items() if k.endswith(("_m1", "_correction_prefill"))},
+         **{k: v for k, v in k1.items()
+            if k.endswith(("_m1", "_correction_prefill", "_m5", "_m6", "_m48"))},
          "launches_eval": eval_launches["q8_matmul"], "launches_ckpt": ckpt["q8_matmul"],
+         "launches_spec": spec_launches["q8_matmul"], "launches_chat": chat_launches["q8_matmul"],
          "work": "one decoder layer's 4 projections at decode, M=56 (report batch); "
                  "*_m16: the same at the serve phase's 16 lanes; library_refused_*: "
                  "torch._int_mm's refusal at those rows; "
                  "*_prefill: the same at the report prefill's M=4480; *_m1: at batch-1 "
                  "decode; *_correction_prefill: at the correction prefill's M=440; "
                  "launches_eval: the eval phase's; launches_ckpt: the ckpt phase's report "
-                 "batch and beam run on the W8A8 weights loaded from files"},
+                 "batch and beam run on the W8A8 weights loaded from files; *_m5, *_m6, "
+                 "*_m48: the speculative verify blocks (batch 1 at k = 4 and 5, 8 compact "
+                 "lanes at k = 5); launches_spec, launches_chat: the spec phase's "
+                 "speculative runs and the chat phase's turns"},
         {"name": "flash_decode_int8", "route": "cuda",
          "source": "radialog_tpu_torch/csrc/flash_decode.cu",
          "replaces": "radialog_tpu/ops/flash_decode.py:128",
@@ -3373,6 +4096,8 @@ def main() -> int:
          "library_ms_train": k3["library_ms_train"], "bound_ms_train": k3["bound_ms_train"],
          **{k: v for k, v in k3.items() if k.endswith(("_correction", "_float_qa"))},
          "launches_eval": eval_launches["flash_attention"],
+         "launches_spec": spec_launches["flash_attention"],
+         "launches_chat": chat_launches["flash_attention"],
          "launches_float": sum(float_launches.values()),
          "launches_float_by_part": float_launches,
          "work": "one layer's binary-QA prefix attention, B=1, T=S=431, H=32, D=128, bf16, "
@@ -3381,6 +4106,9 @@ def main() -> int:
                  "*_correction: the correction prefill's, B=1, T=S=440, length 437; "
                  "launches_eval: the eval phase's; launches_ckpt: the ckpt phase's eval "
                  "command line from files; launches_ckpt_train: its trainer from files; "
+                 "launches_spec: the spec phase's prefills and admissions of 256+ tokens; "
+                 "launches_chat: the chat phase's turns (the session prefills through "
+                 "verify, never K3); "
                  "*_float_qa: the float path's binary-QA "
                  "batch, B=14, T=S=440, lengths 431-440, q/k/v contiguous; "
                  "*_float_correction: its correction prefill, B=1, T=S=440, length 437, "

@@ -12,8 +12,9 @@ prefix) and the all-QA pass (one question a study in batches of 5, 30 new
 tokens).
 
 With ``num_beams > 1`` the report pass runs beam search (decode/beam.py).
-Not ported yet: the batched speculative correction pass (``corr_spec > 0``,
-ROADMAP.md queue 1 item 5), which raises.
+With ``corr_spec > 0`` every correction goes through one batched speculative
+decoder of 8 lanes (``generate_texts_ring(spec_k=corr_spec)``,
+decode/spec_ring.py ``SpecCompactBatcher``) instead of the batch-1 loop.
 
 Run: ``python -m radialog_tpu_torch.apps.evaluate --mock --device cpu
 --fixture-dir tests/fixtures --truncate 2 --max_new_tokens 6 --do_corr``
@@ -52,6 +53,7 @@ from .pipeline import PipelineConfig, RaDialogPipeline
 EVAL_BATCH = 12
 ALL_QA_BATCH = 5
 CORRECTION_NEW = 256
+CORRECTION_LANES = 8    # lanes of the batched speculative correction pass
 EmbProvider = Callable[[Sequence[str]], object]   # dicoms -> (N, 32, qformer_dim) embeddings
 
 
@@ -62,20 +64,13 @@ class EvalOptions:
     temperature: float = 1.0
     num_beams: int = 1
     do_corr: bool = False
-    corr_spec: int = 0      # > 0: the correction pass batched through speculation (not ported)
+    corr_spec: int = 0      # > 0: the correction pass batched through speculation, k = corr_spec
     do_cp_bin_qa: bool = False
     do_cp_all_qa: bool = False
     batch_size: int = EVAL_BATCH
     max_new_tokens: int = 300
     exp_name: str = "eval"
     output_dir: str = "vicuna_results"
-
-
-def _check_options(opts: EvalOptions) -> None:
-    if opts.corr_spec > 0:
-        raise NotImplementedError("corr_spec > 0: the batched speculative correction pass "
-                                  "(SpecCompactBatcher, decode/spec_ring.py) is not ported yet "
-                                  "(ROADMAP.md queue 1 item 5)")
 
 
 def _embs(pipe: RaDialogPipeline, opts: EvalOptions, emb_provider: Optional[EmbProvider],
@@ -89,7 +84,6 @@ def run_eval(pipe: RaDialogPipeline, records: List[Dict], opts: EvalOptions,
              emb_provider: Optional[EmbProvider] = None) -> Dict[str, float]:
     """records: ReportGenData records. Returns the metrics dict and writes
     predictions_/labels_ CSVs and results_{exp}.txt under opts.output_dir."""
-    _check_options(opts)
     out_dir = Path(opts.output_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
 
@@ -164,16 +158,23 @@ def _write_results_txt(path: Path, prompt: str, results: Dict[str, float]) -> No
 def run_correction_pass(pipe: RaDialogPipeline, records: List[Dict], preds_history: List[str],
                         pred_labels: np.ndarray, gt_labels: np.ndarray, opts: EvalOptions,
                         emb_provider: Optional[EmbProvider]) -> Dict[str, float]:
-    """Automated correction, batch 1, 256 new tokens a study: each report is
-    rewritten from its false-positive and false-negative findings, written
-    to predictions_{exp}_after_corrections.csv and scored again."""
+    """Automated correction, batch 1, 256 new tokens a study (or, with
+    ``corr_spec``, all studies through one batched speculative decoder of
+    CORRECTION_LANES lanes): each report is rewritten from its
+    false-positive and false-negative findings, written to
+    predictions_{exp}_after_corrections.csv and scored again."""
     prompts = correction_prompts(list(preds_history), CHEXPERT_COLS, pred_labels, gt_labels)
-    corrected: List[str] = []
-    for i, prompt in enumerate(prompts):
-        embs = _embs(pipe, opts, emb_provider, [records[i]["dicom"]])
-        decoded = pipe.generate_texts([prompt], img_embs=embs,
-                                      max_new_tokens=CORRECTION_NEW)[0]
-        corrected.append(correction_extract(decoded, prompt))
+    if opts.corr_spec > 0:
+        decoded = pipe.generate_texts_ring(
+            prompts, max_new_tokens=CORRECTION_NEW, lanes=CORRECTION_LANES,
+            img_embs=_embs(pipe, opts, emb_provider, [r["dicom"] for r in records]),
+            spec_k=opts.corr_spec)
+    else:
+        decoded = [pipe.generate_texts([prompt], img_embs=_embs(pipe, opts, emb_provider,
+                                                                [records[i]["dicom"]]),
+                                       max_new_tokens=CORRECTION_NEW)[0]
+                   for i, prompt in enumerate(prompts)]
+    corrected = [correction_extract(d, p) for d, p in zip(decoded, prompts)]
 
     out_dir = Path(opts.output_dir)
     write_predictions_csv(corrected,
@@ -303,7 +304,6 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
         batch_size=args.batch_size, max_new_tokens=args.max_new_tokens,
         exp_name=args.exp_name or f"{args.prompt}_{'embs' if args.use_embs else 'noembs'}",
         output_dir=args.output_dir)
-    _check_options(opts)    # before the pipeline is built
     random.seed(42)
     np.random.seed(42)
 

@@ -19,8 +19,9 @@ for the mock and bf16 otherwise, over the bf16 cache, with no prefix
 sharing). ``embed_images`` (cache hits first), ``classify_findings``,
 ``label_reports``, the shared-prefix rule, ``generate_texts`` (greedy,
 sampled, or beam search with ``num_beams > 1``, decode/beam.py) and
-``generate_texts_ring`` through the continuous-batching ring. The
-speculative ring is not ported yet.
+``generate_texts_ring`` through the continuous-batching ring, or with
+``spec_k`` through batched speculation (decode/spec_ring.py
+``SpecCompactBatcher``).
 """
 from __future__ import annotations
 
@@ -391,23 +392,32 @@ class RaDialogPipeline:
         greedy numerics; outputs in the order of ``prompts``. img_embs:
         (len(prompts), n_img, qformer_dim), spliced at each prompt's <IMG>
         run at admission. The cache dtype follows ``cfg.use_kv_int8``; the
-        float path runs the bf16 ring on its stacked params."""
-        if spec_k is not None:
-            raise NotImplementedError("batched speculation (decode/spec_ring.py) is not "
-                                      "ported yet")
+        float path runs the bf16 ring on its stacked params. ``spec_k``:
+        batched speculation instead (decode/spec_ring.SpecCompactBatcher,
+        prompt-lookup drafts verified k+1 wide, accepted rows moved to each
+        lane's frontier), the same greedy tokens in fewer forwards where the
+        outputs quote their prompts (the correction pass), in a cache of the
+        plain decode's size plus k+1 slots, with either cache."""
         from ..decode.continuous import RingBatcher
+        from ..decode.spec_ring import SpecCompactBatcher
         ids = [self.tokenizer(p)["input_ids"] for p in prompts]
         max_new = max_new_tokens or self.cfg.max_new_tokens
         tpad = max(-(-max(len(x) for x in ids) // 32) * 32, 32)
         nv = -(-max(max_new - 1, 1) // steps_per_call) * steps_per_call + steps_per_call
         dp = DecodeParams(max_new_tokens=max_new, eos_token_id=self.tokenizer.eos_token_id,
                           seed=self.cfg.seed)
-        # the ring must exceed a session's chunk-rounded span
-        ring = max(-(-nv // 32) * 32, 64)
-        rb = RingBatcher(self.llama, self.llama_cfg, lanes=min(lanes, len(ids)),
-                         cache_len=tpad + ring, prompt_len=tpad, dp=dp, lora=self.lora,
-                         policy=self.policy, steps_per_call=steps_per_call,
-                         kv_int8=self.cfg.use_kv_int8(), device=self.device)
+        kw = dict(lanes=min(lanes, len(ids)), prompt_len=tpad, dp=dp, lora=self.lora,
+                  policy=self.policy, steps_per_call=steps_per_call,
+                  kv_int8=self.cfg.use_kv_int8(), device=self.device)
+        if spec_k is not None:
+            # the plain decode's cache and k+1 window slots, in multiples of 32
+            gen = -(-max(max_new + spec_k + 1, nv + 32) // 32) * 32
+            rb = SpecCompactBatcher(self.llama, self.llama_cfg, cache_len=tpad + gen,
+                                    spec_k=spec_k, **kw)
+        else:
+            # the ring must exceed a session's chunk-rounded span
+            ring = max(-(-nv // 32) * 32, 64)
+            rb = RingBatcher(self.llama, self.llama_cfg, cache_len=tpad + ring, **kw)
         embs = None
         if img_embs is not None:
             e = img_embs.to(self.device)

@@ -1,7 +1,7 @@
 """Autoregressive generation: prefill + decode over the int8 or the bf16
 KV cache, greedy or sampled (port of radialog_tpu/decode/engine.py:
 ``prefill``, ``generate_shared_prefix``, ``prefix_kv``, ``generate``,
-``decode_loop`` and ``_select_token``).
+``generate_two_phase``, ``decode_loop`` and ``_select_token``).
 
 The JAX ``lax.while_loop`` becomes a Python loop with the same early exit:
 it stops once every lane has emitted EOS. ``DecodeParams.unroll`` is kept
@@ -242,6 +242,13 @@ def generate(params: Dict, cfg: LlamaConfig, tokens: torch.Tensor, lengths: torc
                        prompt_pad=tokens.shape[1])
 
 
+# JAX's generate_two_phase dispatches the prefill and the decode as two jitted
+# programs with the cache donated between them. Here every call is dispatched
+# apart and the decode writes the prefill's cache in place, which is what
+# generate runs: the same function.
+generate_two_phase = generate
+
+
 def decode_step(params: Dict, cfg: LlamaConfig, cache: KVCache, last_tok: torch.Tensor,
                 prompt_lengths: torch.Tensor, prompt_pad: int, step: int,
                 lora=None, policy: DTypePolicy = FP32, shared_kv=None,
@@ -268,7 +275,12 @@ def decode_loop(params: Dict, cfg: LlamaConfig, cache: KVCache, first_logits: to
                 shared_p0: Optional[int] = None) -> GenerationResult:
     """Greedy or sampled decode with static-slot KV writes: step s writes
     every lane's K/V at slot prompt_pad + s; positions and masks stay per
-    lane. A lane that emitted EOS keeps emitting it."""
+    lane. A lane that emitted EOS keeps emitting it.
+
+    The cache is written in place, so this is also the JAX package's
+    ``_decode_loop_with_cache`` (the decode that hands the cache back):
+    the interactive session (decode/session.py) calls it with
+    prompt_lengths = prompt_pad = its current length and keeps its cache."""
     if prompt_pad is None:
         raise ValueError("decode_loop requires prompt_pad (padded prompt length)")
     b = first_logits.shape[0]

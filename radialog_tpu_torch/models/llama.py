@@ -16,6 +16,16 @@ decode as ``mha`` over the layer's cache rows with the caller's bias,
 merged with a shared prefix in one softmax where the engine shares one).
 Layer projections are W8A8 (K1) or W4A8 (K4) leaves.
 
+``verify`` (speculative decoding, decode/speculative.py and
+decode/spec_ring.py, and the interactive session's incremental prefill,
+decode/session.py): a block of t query tokens writes its rows at
+``write_pos`` and attends the whole layer cache under the caller's bias,
+never the direct prefill. Over the bf16 cache that is ``mha`` over the
+layer's rows; over the int8 cache it is the JAX package's non-kernel int8
+attention (``_attention_int8_verify``): int8 q . k and int8 p . v, each an
+exact integer sum, never the flash-decode kernel. No verify block reaches a
+kernel of its own; its projections are K1's.
+
 The stacked layout (``llama_init``'s tree, float or with the
 ``{"w_q", "scale"}`` leaves of ops/quant.quantize_llama): ``params["layers"]``
 is a dict of leaves with a leading layer axis and separate wq/wk/wv/gate/up;
@@ -31,7 +41,9 @@ or a (B,) vector, rows ``write_pos[b] + arange(t)`` of each lane in one
 indexed write), then attends the whole layer cache, cast to the compute
 dtype, under the caller's bias, for any t (``mha``; no kernel). The int8
 cache and a shared prefix need the unrolled serving params and raise.
-Speculative ``verify`` and tensor parallelism are not ported yet.
+The stacked layout accepts ``verify`` and ignores it, as in JAX: it
+attends the whole cache for any t already. Tensor parallelism is not ported
+yet.
 
 The KV cache is updated IN PLACE (a PyTorch tensor is mutable; the JAX
 package returns a new cache from dynamic_update_slice): ``llama_apply``
@@ -285,7 +297,8 @@ def _write_rows(cache: KVCache, layer_idx: int, write_pos, k, v) -> None:
 def _attention_block(lp: Dict, lora_layer, lora_scale, cfg: LlamaConfig, x, positions,
                      rope, bias, cache: Optional[KVCache], layer_idx: int, write_pos,
                      policy: DTypePolicy, lengths=None, slot_info=None, shared_layer=None,
-                     flash: bool = True, defer: bool = False, stacked: bool = False):
+                     flash: bool = True, defer: bool = False, stacked: bool = False,
+                     verify: bool = False):
     b, t, _ = x.shape
     nh, hd = cfg.num_heads, cfg.head_dim
     q, k, v = qkv_proj(lp, lora_layer, lora_scale, cfg, x, policy)
@@ -314,9 +327,9 @@ def _attention_block(lp: Dict, lora_layer, lora_scale, cfg: LlamaConfig, x, posi
     if not cache.quantized:
         cache.k[layer_idx, :, rows] = k.to(cache.k.dtype)
         cache.v[layer_idx, :, rows] = v.to(cache.v.dtype)
-        if t > 1:   # direct prefill: this layer's own compute-dtype K/V
+        if t > 1 and not verify:   # direct prefill: this layer's own compute-dtype K/V
             k_all, v_all, bias = k, v, bias[..., :t]
-        else:       # decode over the layer's cache rows, masked by the caller's bias
+        else:       # decode or verify over the layer's cache rows, under the caller's bias
             k_all, v_all = cache.k[layer_idx].to(x.dtype), cache.v[layer_idx].to(x.dtype)
         k_all, v_all = _gqa(k_all, nh, 2), _gqa(v_all, nh, 2)
         if shared_layer is not None:
@@ -336,7 +349,9 @@ def _attention_block(lp: Dict, lora_layer, lora_scale, cfg: LlamaConfig, x, posi
         cache.v[layer_idx, :, rows] = v8.reshape(b, t, nh * hd)
         cache.k_scale[layer_idx, :, rows] = ks
         cache.v_scale[layer_idx, :, rows] = vs
-    if t > 1:
+    if verify:
+        o = _attention_int8_verify(q, cache, layer_idx, bias, hd)
+    elif t > 1:
         # prefill attends this layer's compute-dtype K/V (the int8 rounding
         # only affects decode reads), merged with the compute-dtype prefix
         if shared_layer is not None:
@@ -368,6 +383,41 @@ def _attention_block(lp: Dict, lora_layer, lora_scale, cfg: LlamaConfig, x, posi
     return _proj(lp, lora_layer, "wo", o, lora_scale, policy), cache
 
 
+def int8_dot_exact(a8: torch.Tensor, b8: torch.Tensor) -> torch.Tensor:
+    """``a8 @ b8`` of int8 tensors (batched matmul) as exact integers, held
+    in float64. CUDA has no integer matmul for batched 4-D operands (and
+    ``torch._int_mm`` is 2-D and refuses 16 rows or fewer), and an f32
+    product is not exact once the sum passes 2^24: 127^2 x 1041 terms of a
+    p . v row do. Every product of two int8 values and every sum of up to
+    2^38 of them is exact in float64 (2^53), in any order, so the CPU and
+    the card give the same integers, those of the JAX package's int32
+    ``dot_general``."""
+    return torch.matmul(a8.double(), b8.double())
+
+
+def _attention_int8_verify(q, cache: KVCache, layer_idx: int, bias, hd: int):
+    """Attention of a (B, T, H, D) query block over layer ``layer_idx`` of
+    the int8 cache under ``bias`` (B|1, 1, T, S): the JAX package's
+    non-kernel branch of ``_attention_int8_kv``. q is quantized per (head,
+    row) with f32 scales; scores = (q8 . k8) * qs * k_scale * D^-0.5 + bias;
+    the softmax weights times v_scale are quantized again per row (f32
+    scales) and o = (p8 . v8) * ps. Both integer sums are exact
+    (``int8_dot_exact``)."""
+    b, t, nh, _ = q.shape
+    s = cache.k.shape[2]
+    k8 = cache.k[layer_idx].view(b, s, nh, hd)
+    v8 = cache.v[layer_idx].view(b, s, nh, hd)
+    ks = cache.k_scale[layer_idx].float().transpose(1, 2)      # (B, H, S)
+    vs = cache.v_scale[layer_idx].float().transpose(1, 2)
+    q8, qs = quantize_kv(q.transpose(1, 2), torch.float32)     # (B, H, T, D), (B, H, T)
+    scores = int8_dot_exact(q8, k8.permute(0, 2, 3, 1)).float()   # (B, H, T, S)
+    sc = scores * qs[..., None] * ks[:, :, None, :] * hd ** -0.5 + bias.float()
+    p = torch.softmax(sc, dim=-1)
+    p8, ps = quantize_kv(p * vs[:, :, None, :], torch.float32)
+    o = int8_dot_exact(p8, v8.permute(0, 2, 1, 3)).float() * ps[..., None]   # (B, H, T, D)
+    return o.transpose(1, 2).to(q.dtype)
+
+
 def _mlp(lp: Dict, x, policy: DTypePolicy):
     if "gateup" in lp:   # fused serving layout
         g, u = torch.chunk(linear(lp["gateup"], x, policy), 2, dim=-1)
@@ -393,7 +443,7 @@ def llama_apply(params: Dict, cfg: LlamaConfig, tokens: torch.Tensor,
                 last_pos: Optional[torch.Tensor] = None,
                 shared_kv=None, shared_p0: Optional[int] = None,
                 remat: bool = False, flash: bool = True,
-                defer_kv: Optional[bool] = None):
+                defer_kv: Optional[bool] = None, verify: bool = False):
     """The forward, over the unrolled serving layout (``params["layers"]`` a
     list) or the stacked layout (a dict of leaves with a leading layer axis;
     no cache, or the bf16 cache). Returns (logits, cache): logits (B,T,V) or,
@@ -424,8 +474,19 @@ def llama_apply(params: Dict, cfg: LlamaConfig, tokens: torch.Tensor,
     prompt_pad + step in place of the four row copies. None reads
     RADIALOG_DEFER_KV ("1" is on), default off, as in the JAX package. As
     there, the write slot comes from slot_info, so ``write_pos`` must equal
-    prompt_pad + step; anything else raises. Other calls ignore it."""
+    prompt_pad + step; anything else raises. Other calls ignore it.
+
+    ``verify``: the block of t tokens attends the whole cache under ``bias``
+    (B|1, 1, T, S) instead of being a prefill (module docstring); it needs
+    a cache and refuses a shared prefix on the unrolled layout, as in JAX,
+    and never takes the flash-decode kernel or ``defer_kv``."""
     stacked = not isinstance(params["layers"], (list, tuple))
+    if verify and not stacked and shared_kv is not None:
+        raise ValueError("speculative verification does not compose with prefix sharing "
+                         "(the shared-region merge is single-query)")
+    if verify and not stacked and cache is None:
+        raise ValueError("verify=True needs a pre-allocated cache: a verification block "
+                         "attends prior context")
     if stacked and shared_kv is not None:
         raise ValueError("shared_kv (prefix sharing) is a serving feature of the unrolled "
                          "weight layout; the stacked layout has no per-layer merge point")
@@ -435,7 +496,7 @@ def llama_apply(params: Dict, cfg: LlamaConfig, tokens: torch.Tensor,
     num_layers = cfg.num_layers if stacked else len(params["layers"])
     if defer_kv is None:
         defer_kv = os.environ.get("RADIALOG_DEFER_KV", "0") == "1"
-    defer_kv = bool(defer_kv and cache is not None and cache.quantized
+    defer_kv = bool(defer_kv and cache is not None and cache.quantized and not verify
                     and tokens.shape[1] == 1 and slot_info is not None
                     and len(slot_info) == 2 and lengths is not None)
     if defer_kv and int(write_pos) != int(slot_info[0]) + int(slot_info[1]):
@@ -469,7 +530,8 @@ def llama_apply(params: Dict, cfg: LlamaConfig, tokens: torch.Tensor,
         attn_out, out = _attention_block(lp, ll, lora_scale, cfg, h, positions, rope, bias,
                                          cache, i, write_pos, policy, lengths=lengths,
                                          slot_info=slot_info, shared_layer=shared_layer,
-                                         flash=flash, defer=defer_kv, stacked=stacked)
+                                         flash=flash, defer=defer_kv, stacked=stacked,
+                                         verify=verify)
         if keep_kv:
             fresh_k.append(out[0])
             fresh_v.append(out[1])

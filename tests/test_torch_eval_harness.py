@@ -54,6 +54,7 @@ from radialog_tpu_torch.apps.pipeline import PipelineConfig, RaDialogPipeline
 from radialog_tpu_torch.apps.tokenization import pad_batch_right
 from radialog_tpu_torch.data.datasets import MimicPaths, ReportGenData
 from radialog_tpu_torch.decode import engine as te
+from radialog_tpu_torch.models import llama as tl
 
 import test_torch_llama as tll
 
@@ -177,9 +178,58 @@ def test_run_eval_calls_the_pipeline_as_jax(runs):
             assert o == c[4]                 # the port's own greedy texts
 
 
+def _forced_margins(tp, prompt, embs, forced):
+    """JAX's tokens ``forced`` of a correction turn fed through the port's
+    batch-1 prefill and decode steps: at each step, how far the port's
+    largest logit lies above the logit of JAX's token."""
+    cfg = tp.llama_cfg
+    ids = tp.tokenizer(prompt)["input_ids"]
+    tok, lens = (torch.from_numpy(x) for x in pad_batch_right([ids], 0))
+    dp = tp.decode_params(max_new_tokens=tev.CORRECTION_NEW)
+    with torch.no_grad():
+        cache, logits = te.prefill(tp.llama, cfg, tok, lens,
+                                   te.default_cache_len(tok.shape[1], dp),
+                                   img_embs=torch.from_numpy(embs), lora=tp.lora,
+                                   policy=tp.policy)
+        margins = []
+        for step, t in enumerate(forced):
+            margins.append(float(logits[0].max() - logits[0, t]))
+            logits = te.decode_step(tp.llama, cfg, cache, torch.tensor([t]), lens,
+                                    tok.shape[1], step, lora=tp.lora, policy=tp.policy)
+    return margins
+
+
+def _forced_verify_margins(tp, prompt, embs, forced, k=4):
+    """``_forced_margins`` through the speculative decoder's forward: the
+    prompt prefilled into the int8 cache, then JAX's tokens fed in verify
+    blocks of k + 1 (``llama_apply(verify=True)``, the int8 verify
+    attention), each row's logits against the next forced token."""
+    from radialog_tpu_torch.ops.attention import causal_mask_bias
+    cfg = tp.llama_cfg
+    ids = tp.tokenizer(prompt)["input_ids"]
+    t, n = len(ids), len(forced)
+    hist = torch.tensor(ids + list(forced), dtype=torch.int32)
+    with torch.no_grad():
+        cache, first = te.prefill(tp.llama, cfg, hist[None, :t], torch.tensor([t]),
+                                  t + n + k + 1, img_embs=torch.from_numpy(embs),
+                                  lora=tp.lora, policy=tp.policy)
+        margins = [float(first[0].max() - first[0, forced[0]])]
+        for base in range(t, t + n - 1, k + 1):
+            block = hist[base:base + k + 1][None]
+            logits, _ = tl.llama_apply(
+                tp.llama, cfg, block, base + torch.arange(block.shape[1])[None],
+                causal_mask_bias(block.shape[1], cache.max_len, offset=base), cache=cache,
+                write_pos=base, lora=tp.lora, policy=tp.policy, verify=True)
+            for j in range(block.shape[1]):
+                if base + j + 1 - t < n:
+                    nxt = int(hist[base + j + 1])
+                    margins.append(float(logits[0, j].max() - logits[0, j, nxt]))
+    assert len(margins) == n
+    return margins
+
+
 def test_correction_turns_differ_from_jax_only_at_near_ties(runs, pipelines):
     _, tp = pipelines
-    cfg = tp.llama_cfg
     equal, worst = 0, 0.0
     for c, own in zip(runs["calls"], runs["own"]):
         if c[2] != tev.CORRECTION_NEW:
@@ -187,19 +237,7 @@ def test_correction_turns_differ_from_jax_only_at_near_ties(runs, pipelines):
         (prompt,), embs, (forced,) = c[0], c[1], c[5]
         equal += own == c[4]
         assert len(forced) > 200
-        ids = tp.tokenizer(prompt)["input_ids"]
-        tok, lens = (torch.from_numpy(x) for x in pad_batch_right([ids], 0))
-        dp = tp.decode_params(max_new_tokens=tev.CORRECTION_NEW)
-        with torch.no_grad():
-            cache, logits = te.prefill(tp.llama, cfg, tok, lens,
-                                       te.default_cache_len(tok.shape[1], dp),
-                                       img_embs=torch.from_numpy(embs), lora=tp.lora,
-                                       policy=tp.policy)
-            margins = []
-            for step, t in enumerate(forced):
-                margins.append(float(logits[0].max() - logits[0, t]))
-                logits = te.decode_step(tp.llama, cfg, cache, torch.tensor([t]), lens,
-                                        tok.shape[1], step, lora=tp.lora, policy=tp.policy)
+        margins = _forced_margins(tp, prompt, embs, forced)
         worst = max(worst, max(margins))
         assert max(margins) < TIE, (int(np.argmax(margins)), max(margins))
     assert equal >= 2, equal
@@ -264,11 +302,88 @@ def test_run_eval_refuses_beams(pipelines, tmp_path, monkeypatch):
     assert seen == [(NEW, 2), (30, 1)]
 
 
-def test_run_eval_refuses_batched_speculative_corrections(pipelines, tmp_path):
-    _, tp = pipelines
-    opts = tev.EvalOptions(corr_spec=4, do_corr=True, output_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tev.run_eval(tp, [], opts)
+def test_run_eval_refuses_batched_speculative_corrections(pipelines, runs, tmp_path):
+    """corr_spec was refused until decode/spec_ring.py was ported: now every
+    correction goes through one SpecCompactBatcher (8 lanes, k = 4) on both
+    sides, over the int8 cache. The report pass answers from this file's JAX
+    run on both sides (the same arguments, asserted; the port's own reports
+    equal them, test_run_eval_calls_the_pipeline_as_jax). As in the batch-1
+    pass, a correction of 256 greedy tokens may part from JAX's at a near-tie
+    (at seed 0 the third, as there): the port's own corrections equal JAX's
+    for two of three, and each of JAX's is held by teacher forcing its tokens
+    through the port's verify forward (``_forced_verify_margins``: every token
+    within TIE of the port's argmax; the batch-1 steps are another function,
+    K2's, whose argmax lies 0.076 below one of these tokens); with
+    JAX's texts passed on, the metrics and the files equal JAX's. The port's
+    own corrections are then scored by both packages' run_eval: the metrics
+    and files equal each other's, and against the run on JAX's texts only
+    the corrected rows of the corrections that parted differ."""
+    jp, tp = pipelines
+    opts = dict(use_embs=True, do_corr=True, corr_spec=4, max_new_tokens=NEW, exp_name="spec")
+    records = [JReportGenData(_paths(JMimicPaths), truncate=STUDIES).records(),
+               ReportGenData(_paths(MimicPaths), truncate=STUDIES).records()]
+    calls = []
+
+    def jax_ring(prompts, **kw):
+        ids, decode = [], jp.tokenizer.decode
+        jp.tokenizer.decode = lambda toks, **dkw: ids.append([int(t) for t in toks]) or \
+            decode(toks, **dkw)
+        try:
+            out = jring(prompts, **kw)
+        finally:
+            del jp.tokenizer.decode
+        calls.append((list(prompts), _np(kw["img_embs"]), kw["lanes"], kw["spec_k"], out, ids))
+        return out
+
+    def port_ring(prompts, **kw):
+        want = calls[0]
+        assert (list(prompts), kw["lanes"], kw["spec_k"]) == (want[0],) + want[2:4]
+        np.testing.assert_array_equal(_np(kw["img_embs"]), want[1])
+        calls.append(tring(prompts, **kw))
+        return want[4]
+
+    jring, tring = jp.generate_texts_ring, tp.generate_texts_ring
+    results = []
+    for pipe, mod, rec, side, ring in ((jp, jev, records[0], "jax", jax_ring),
+                                       (tp, tev, records[1], "port", port_ring)):
+        pipe.generate_texts = _Recording(jp, runs["calls"][:1])
+        pipe.generate_texts_ring = ring
+        try:
+            results.append(mod.run_eval(pipe, rec, mod.EvalOptions(
+                output_dir=str(tmp_path / side), **opts), emb_provider=runs["provider"]))
+        finally:
+            del pipe.generate_texts, pipe.generate_texts_ring
+    (prompts, embs, lanes, k, want, forced), own = calls
+    assert (lanes, k, len(own)) == (8, 4, STUDIES)
+    assert sum(o == w for o, w in zip(own, want)) >= 2
+    for i, prompt in enumerate(prompts):
+        margins = _forced_verify_margins(tp, prompt, embs[i:i + 1], forced[i])
+        assert max(margins) < TIE, (i, int(np.argmax(margins)), max(margins))
+    assert results[1] == results[0]
+    assert {k for k in results[1] if k.startswith("corr_")}
+    for name in FILES[:3]:
+        f = name.format("spec")
+        assert (tmp_path / "port" / f).read_bytes() == (tmp_path / "jax" / f).read_bytes()
+
+    # the port's own corrections, scored by both packages
+    for pipe, mod, rec, side in ((jp, jev, records[0], "jax_own"), (tp, tev, records[1], "own")):
+        pipe.generate_texts = _Recording(jp, runs["calls"][:1])
+        pipe.generate_texts_ring = lambda prompts, **kw: own
+        try:
+            results.append(mod.run_eval(pipe, rec, mod.EvalOptions(
+                output_dir=str(tmp_path / side), **opts), emb_provider=runs["provider"]))
+        finally:
+            del pipe.generate_texts, pipe.generate_texts_ring
+    assert results[3] == results[2]
+    for name in FILES[:3]:
+        f = name.format("spec")
+        assert (tmp_path / "own" / f).read_bytes() == (tmp_path / "jax_own" / f).read_bytes()
+    assert {k: v for k, v in results[3].items() if not k.startswith("corr_")} == \
+        {k: v for k, v in results[0].items() if not k.startswith("corr_")}
+    f = FILES[1].format("spec")
+    rows = [(tmp_path / side / f).read_text().splitlines() for side in ("own", "jax")]
+    assert len(rows[0]) == len(rows[1]) == STUDIES
+    assert [a == b for a, b in zip(*rows)] == [o == w for o, w in zip(own, want)]
 
 
 class _Built(Exception):
@@ -321,17 +436,14 @@ def test_cli_refuses_the_float_pipeline(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("argv", [["--num_beams", "2"], ["--corr_spec", "3"]])
 def test_cli_refuses_beams_and_batched_speculation(argv, tmp_path, monkeypatch):
-    """--corr_spec still raises; --num_beams, refused until beams were
-    ported, reaches EvalOptions (a beam run against the root test.py:
-    tests/test_torch_ckpt_pipeline.py)."""
-    if "--corr_spec" in argv:
-        with pytest.raises(NotImplementedError):
-            tev.main([*CLI, *argv, "--device", "cpu", "--output_dir", str(tmp_path)])
-        return
+    """--num_beams and --corr_spec, refused until beams and the speculative
+    batchers were ported, reach EvalOptions (a beam run against the root
+    test.py: tests/test_torch_ckpt_pipeline.py; corr_spec against JAX's
+    run_eval: test_run_eval_refuses_batched_speculative_corrections)."""
     seen = []
     monkeypatch.setattr(tev, "run_eval", lambda pipe, records, opts, **kw: seen.append(opts) or {})
     tev.main([*CLI, *argv, "--device", "cpu", "--output_dir", str(tmp_path)])
-    assert seen[0].num_beams == 2
+    assert (seen[0].num_beams, seen[0].corr_spec) == ((2, 0) if "--num_beams" in argv else (1, 3))
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="checks the run without a card")

@@ -56,7 +56,10 @@ VICUNA_KN = [(4096, 12288), (4096, 4096), (4096, 22016), (11008, 4096), (4096, 3
                          # the eval's batch-1 decode and its correction prefills
                          # (440 and 448 rows: a partial last 64-row tile)
                          + [(1, k, n) for k, n in VICUNA_KN[2:]]
-                         + [(m, k, n) for m in (440, 448) for k, n in VICUNA_KN])
+                         + [(m, k, n) for m in (440, 448) for k, n in VICUNA_KN]
+                         # speculative verify blocks: batch 1 at k = 4 and 5,
+                         # 8 compact lanes x (5 + 1)
+                         + [(m, k, n) for m in (5, 6, 48) for k, n in VICUNA_KN])
 def test_q8_kernel_matches_plain(card, m, k, n):
     g = torch.Generator(device=card).manual_seed(m + n)
     x8 = torch.randint(-127, 128, (m, k), generator=g, device=card, dtype=torch.int8)
@@ -752,3 +755,33 @@ def test_w4_colscale_kernels_refuse_what_they_do_not_take(card):
         tw.w4_int32(torch.zeros((4, 64), dtype=torch.int8, device=card),
                     torch.zeros((8, 16), dtype=torch.int8, device=card))
 
+
+
+@pytest.mark.parametrize("s,b,t", [(1280, 1, 5), (2048, 1, 16), (736, 8, 6)])
+def test_int8_verify_attention_on_the_card_matches_the_cpu(card, s, b, t):
+    """The speculative verify's int8 attention (models/llama.py
+    ``_attention_int8_verify``, plain PyTorch, no kernel of its own) on the
+    card against the same function on the CPU: its integer sums bitwise
+    (float64 products, exact on both devices) where near-uniform weights put
+    a p . v sum past 2^24, f32's exact range; the output within 1e-4 (the
+    softmax's exp and sums round per device, and a weight on a rounding edge
+    moves its p code by one, ~0.03 / S of the output, a few times over)."""
+    from radialog_tpu_torch.models import llama as tl
+    g = torch.Generator().manual_seed(s)
+    h, d = 32, 128
+    q = torch.randn(b, t, h, d, generator=g) * 0.01          # near-uniform attention
+    k8 = torch.randint(-127, 128, (1, b, s, h * d), generator=g, dtype=torch.int8)
+    v8 = torch.randint(100, 128, (1, b, s, h * d), generator=g, dtype=torch.int8)
+    ks = (torch.rand(1, b, s, h, generator=g) * 0.02 + 0.005).bfloat16()
+    cache = tl.KVCache(k8, v8, ks, ks.clone())
+    bias = torch.zeros(b, 1, t, s)
+    p8 = torch.full((b, h, t, s), 127, dtype=torch.int8)
+    vv = v8[0].view(b, s, h, d).permute(0, 2, 1, 3)
+    want = tl.int8_dot_exact(p8, vv)
+    got = tl.int8_dot_exact(p8.to(card), vv.to(card))
+    assert float(want.abs().max()) > 2 ** 24
+    assert torch.equal(got.cpu(), want)
+    ref = tl._attention_int8_verify(q, cache, 0, bias, d)
+    out = tl._attention_int8_verify(q.to(card), tl.KVCache(*(x.to(card) for x in (
+        k8, v8, ks, ks))), 0, bias.to(card), d)
+    torch.testing.assert_close(out.cpu(), ref, atol=1e-4, rtol=0)

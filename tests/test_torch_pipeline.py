@@ -209,10 +209,13 @@ def test_entry_points_default_to_the_card():
     from radialog_tpu_torch.models import chexbert as tcb
     from radialog_tpu_torch.apps.serve import RaDialogServer
     from radialog_tpu_torch.decode.continuous import RingBatcher
+    from radialog_tpu_torch.decode.session import InteractiveSession
+    from radialog_tpu_torch.decode.spec_ring import SpecCompactBatcher, SpecRingBatcher
     from radialog_tpu_torch.ops import quant as tquant
     fns = [tl.llama_init, tl.lora_init, tl.init_cache, tcb.chexbert_init, bridge.to_torch,
            bridge.packed_q8, bridge.packed_q4, tquant.quantize_llama_host,
            tquant.random_serving_params, RingBatcher.__init__, RaDialogServer.__init__,
+           SpecRingBatcher.__init__, SpecCompactBatcher.__init__, InteractiveSession.__init__,
            bridge.llama_serving, bridge.llama, bridge.lora, bridge.biovil_t,
            bridge.qformer, bridge.chexpert, bridge.chexbert]
     for fn in fns:
@@ -235,7 +238,9 @@ def test_port_imports_no_jax():
             "profile_torch_slice.py", "time_prefill_paths.py", "microbench_kvfused_torch.py",
             "microbench_w4_torch.py", "time_k4_phase.py", "conversation.py", "prompts.py",
             "downstream.py", "ce_metrics.py", "nlg.py", "_treebank.py", "_porter.py",
-            "evaluate.py", "hf_weights.py", "beam.py"} <= {f.name for f in files}
+            "evaluate.py", "hf_weights.py", "beam.py", "speculative.py", "spec_ring.py",
+            "session.py", "streaming.py", "chat.py", "config.py", "demo.py"} <= \
+        {f.name for f in files}
     for f in files:
         for node in ast.walk(ast.parse(f.read_text())):
             names = []

@@ -231,7 +231,9 @@ def test_pipeline_config_checks_and_the_bf16_ring():
     prompts = ["a b c d", "e f " + "g " * 20]
     texts = p.generate_texts(prompts)       # the batch engine's bf16 cache
     assert [t.startswith(q) and len(t) > len(q) for t, q in zip(texts, prompts)] == [True] * 2
-    with pytest.raises(NotImplementedError, match="spec_ring"):
-        p.generate_texts_ring(prompts, spec_k=3)
     texts = p.generate_texts_ring(prompts, lanes=2)
     assert [t.startswith(q) and len(t) > len(q) for t, q in zip(texts, prompts)] == [True] * 2
+    # spec_k (refused until decode/spec_ring.py was ported): the bf16
+    # SpecCompactBatcher, the bf16 ring's greedy texts (against JAX:
+    # tests/test_torch_spec_ring.py)
+    assert p.generate_texts_ring(prompts, lanes=2, spec_k=3) == texts
