@@ -205,6 +205,31 @@ each; any failing phase exits non-zero:
           not counted, over the whole timed span), the mean and the median
           ms/step and peak memory of both
 
+  stage1  Q-Former stage-1 training from raw JPEGs (the fixtures under
+          tests/fixtures/cxr): at the mock's size (TINY_QFORMER, BioViL-T at
+          64 px) the loader's uint8 batches through DevicePrefetcher onto the
+          card (bitwise the host's, pinned staging), their f32 form card
+          against CPU (bitwise), one raw train step card against CPU from the
+          same weights and negatives (the four losses and every gradient leaf
+          within STAGE1_SMALL_TOL) and the greedy captions (equal); then full
+          width: Blip2Config() (BERT-base Q-Former, 32 queries, encoder width
+          1408, max_txt_len 256) over BioViL-T at 448, batch 32, captions of
+          40-120 words, the fixtures cycled to 64 paths through
+          CxrLoader(threads=4, emit_u8=True) -> stage1_raw_batches ->
+          DevicePrefetcher(depth=2) -> make_stage1_raw_train_step: from the
+          initial weights on the first batch BF16 with itm_chunks 1 and 3
+          (losses within STAGE1_CHUNK_TOL, peak memory of each), FP32 against
+          float64 (both at itm_chunks 3; losses and the gradients of
+          ln_vision, query_tokens and itm_head within STAGE1_F64_TOL); then 8
+          BF16 steps (finite losses; s/step, samples/s, prefetch waits, peak
+          memory) and 2 under torch.profiler (the device's busy share); the
+          loader's batches/s alone and its route (never "pil" where g++ and
+          jpeglib.h exist); precompute_embeddings over the fixtures into an
+          npz that a pipeline built with emb_cache= returns row for row,
+          equal to blip2_forward_image; python -m
+          radialog_tpu_torch.apps.pretrain --mock --raw on the card. No
+          kernel of K1-K5 or T1-T3 launches in the phase
+
   ckpt    checkpoints on disk at full size, loaded back through the port's
           loaders (ROADMAP queue 1 item 3) with both tokenizer loaders
           replaced by the WhitespaceTokenizer at the Vicuna layout: Vicuna-7B
@@ -3391,6 +3416,402 @@ def phase_train(torch, tfa):
     return out[True]["launches"]
 
 
+# the stage1 phase: full width (configs/stage1_pretrain.yaml: batch 32 at 448 px,
+# captions padded to max_txt_len 256), the fixtures cycled to 64 paths, 8 BF16 steps;
+# the small part's batch, trunk size and caption length (pretrain.py run_mock_raw's)
+STAGE1_BATCH, STAGE1_PATHS, STAGE1_STEPS, STAGE1_PROFILED = 32, 64, 8, 2
+STAGE1_SMALL_B, STAGE1_SMALL_RESIZE, STAGE1_SMALL_CROP, STAGE1_SMALL_TXT = 4, 72, 64, 16
+# card against CPU (tiny model, FP32, TF32 off): sums in another order, ~1e-6 of
+# a loss and of a gradient leaf's largest entry; FP32 against float64 at full width
+# (losses relative, gradients over the leaf's largest entry): f32 rounding through
+# BERT-base and ResNet-50 stays near 1e-5, where TF32's 10-bit mantissa or a lost
+# upcast gives 1e-3 or more; itm_chunks 3 against 1 in BF16: the same math, GEMMs of
+# other row counts may round apart in the ITM loss; ITC and LM do not see the
+# chunks and must be bitwise equal
+STAGE1_SMALL_TOL = {"loss": 1e-4, "grad": 1e-3}
+STAGE1_F64_TOL = {"loss": 1e-4, "grad": 1e-3}
+STAGE1_CHUNK_TOL = {"loss_itm": 2e-2}
+CXR_DIR = os.path.join("tests", "fixtures", "cxr")
+
+
+class _Negatives:
+    """Stands in for models/blip2.py sample_negatives: the first call draws
+    with the real one and keeps what it drew; every later call hands that
+    back, so that each run trains on the same hard negatives."""
+
+    def __init__(self, real):
+        self.real, self.drawn = real, None
+
+    def __call__(self, w_t2i, w_i2t, gen):
+        if self.drawn is None:
+            out = self.real(w_t2i, w_i2t, gen)
+            self.drawn = tuple(x.cpu() for x in out)
+            return out
+        return tuple(x.to(w_t2i.device) for x in self.drawn)
+
+
+def _grad_step(torch, steps, cfg, gen, params, visual, vstate, batch, policy, chunks):
+    """One raw stage-1 step whose optimizer only keeps the gradients: (the
+    four losses as floats, the gradient tree)."""
+    from radialog_tpu_torch.train.optim import GradientTransformation, tree_map
+    kept = []
+
+    def update(grads, state, p):
+        kept.append(grads)
+        return tree_map(torch.zeros_like, grads), state
+    tx = GradientTransformation(lambda p: {}, update)
+    step = steps.make_stage1_raw_train_step(tx, cfg, policy=policy, itm_chunks=chunks)
+    _, m = step(steps.TrainState.create(params, tx), visual, vstate, batch, gen)
+    return {k: float(v) for k, v in m.items()}, kept[0]
+
+
+def _leaf_err(torch, got, want, names=None):
+    """{leaf: largest |got - want| over want's largest |entry|} of two trees,
+    the scale floored at 1e-4 of the largest entry of the whole tree: the
+    attention key biases' gradient is 0 in exact arithmetic (softmax ignores
+    a shift of every score), so both sides hold rounding noise there."""
+    from radialog_tpu_torch.train.optim import tree_leaves
+
+    def paths(tree, prefix=""):
+        if isinstance(tree, dict):
+            return [x for k in tree for x in paths(tree[k], f"{prefix}/{k}")]
+        if isinstance(tree, (list, tuple)):
+            return [x for i, v in enumerate(tree) for x in paths(v, f"{prefix}/{i}")]
+        return [prefix]
+    floor = 1e-4 * max(float(b.abs().max()) for b in tree_leaves(want))
+    out = {}
+    for name, a, b in zip(paths(want), tree_leaves(got), tree_leaves(want)):
+        if names is None or any(name.startswith(n) for n in names):
+            a, b = a.double().cpu(), b.double().cpu()
+            out[name] = float((a - b).abs().max()) / max(float(b.abs().max()), floor)
+    return out
+
+
+def _stage1_small(torch, tb, steps):
+    """Card against CPU at the mock's size (TINY_QFORMER, BioViL-T at 64 px)
+    from the same weights and negatives: the loader's uint8 batches through
+    DevicePrefetcher, their f32 form, one raw train step (the four losses and
+    every gradient leaf) and the greedy captions."""
+    import glob
+    from radialog_tpu_torch.apps.tokenization import WhitespaceTokenizer
+    from radialog_tpu_torch.data.prefetch import DevicePrefetcher, pad_text_batch
+    from radialog_tpu_torch.models.biovil_t import biovil_t_init
+    from radialog_tpu_torch.models.qformer import TINY_QFORMER
+    from radialog_tpu_torch.native import loader as nl
+    from radialog_tpu_torch.ops.image import expand_cxr_u8
+    from radialog_tpu_torch.ops.layers import FP32, layernorm
+    from radialog_tpu_torch.train.optim import tree_map
+    paths = sorted(glob.glob(os.path.join(CXR_DIR, "*.jpg")))
+    with nl.CxrLoader(paths, batch=STAGE1_SMALL_B, resize=STAGE1_SMALL_RESIZE,
+                      crop=STAGE1_SMALL_CROP, threads=1, emit_u8=True) as ld:
+        host = list(ld.epoch(seed=0))
+    route = ld.route
+    src = [{"images": imgs, "idx": idx} for imgs, idx in host]
+    with DevicePrefetcher(iter(src), depth=2, device="cuda") as pf:
+        staged = [b for b in pf]
+    staged_equal = all(torch.equal(b["images"].cpu(), torch.from_numpy(h["images"]))
+                       and torch.equal(b["idx"].cpu(), torch.from_numpy(h["idx"]))
+                       for b, h in zip(staged, src))
+    on_card = all(b["images"].is_cuda and b["images"].dtype == torch.uint8 for b in staged)
+    f32_equal = all(torch.equal(expand_cxr_u8(b["images"]).cpu(),
+                                expand_cxr_u8(torch.from_numpy(h["images"])))
+                    for b, h in zip(staged, src))
+
+    bcfg = tb.Blip2Config(qformer=TINY_QFORMER, max_txt_len=STAGE1_SMALL_TXT)
+    gen = torch.Generator().manual_seed(3)
+    params, _ = tb.blip2_init(gen, bcfg, "cpu", with_vision=False)
+    visual, vstate = biovil_t_init(gen, "cpu", joint_feature_size=TINY_QFORMER.encoder_width)
+    tok = WhitespaceTokenizer(vocab_size=TINY_QFORMER.bert.vocab_size)
+    words = ["lungs", "clear", "no", "effusion", "mild", "cardiomegaly", "right", "base"]
+    caps = [" ".join(words[(i + j) % 8] for j in range(5 + 3 * i)) for i in range(STAGE1_SMALL_B)]
+    ids, mask = pad_text_batch([tok(c, max_length=STAGE1_SMALL_TXT)["input_ids"] for c in caps],
+                               STAGE1_SMALL_TXT)
+    batch = {"images": src[0]["images"], "text_ids": ids, "text_mask": mask}
+    real, tb.sample_negatives = tb.sample_negatives, _Negatives(tb.sample_negatives)
+    try:
+        out = {}
+        for dev in ("cuda", "cpu"):               # the card draws, the CPU replays
+            mv = lambda t: t.to(dev)  # noqa: E731
+            out[dev] = _grad_step(torch, steps, bcfg, torch.Generator(device=dev).manual_seed(5),
+                                  tree_map(mv, params), tree_map(mv, visual),
+                                  tree_map(mv, vstate), batch, FP32, 1)
+    finally:
+        tb.sample_negatives = real
+    loss_err = max(abs(out["cuda"][0][k] - out["cpu"][0][k]) for k in out["cpu"][0])
+    grad_err = _leaf_err(torch, out["cuda"][1], out["cpu"][1])
+    with torch.no_grad():
+        tokens = tb.blip2_trunk_tokens(visual, vstate, expand_cxr_u8(torch.from_numpy(
+            src[0]["images"])))
+        embeds = layernorm(params["ln_vision"], tokens)
+        cap_cpu = tb.blip2_generate_caption(params, bcfg, embeds, max_length=12, min_length=4)
+        cap_card = tb.blip2_generate_caption(tree_map(lambda t: t.cuda(), params), bcfg,
+                                             embeds.cuda(), max_length=12, min_length=4)
+    captions_equal = torch.equal(cap_card.cpu(), cap_cpu)
+    ok = (staged_equal and on_card and f32_equal and pf.all_pinned and pf.staged == len(src)
+          and loss_err <= STAGE1_SMALL_TOL["loss"]
+          and max(grad_err.values()) <= STAGE1_SMALL_TOL["grad"] and captions_equal)
+    emit("stage1", part="small", ok=ok, route=route, batches=len(src),
+         staged_bitwise=staged_equal, staged_on_card=on_card, staged_pinned=pf.all_pinned,
+         f32_form_bitwise=f32_equal, losses_card=out["cuda"][0], losses_cpu=out["cpu"][0],
+         loss_max_abs_err=loss_err, grad_max_rel_err=max(grad_err.values()),
+         grad_worst_leaf=max(grad_err, key=grad_err.get),
+         grad_leaves=len(grad_err), tol=STAGE1_SMALL_TOL, captions_equal=captions_equal,
+         caption_tokens=cap_card[0].tolist())
+    return ok, route
+
+
+def _stage1_tree(root, n, seed):
+    """A MIMIC-like tree under ``root``: n image paths cycling the fixture
+    JPEGs (links), and split and sectioned CSVs whose findings are captions
+    of 40-120 words. Returns MimicPaths."""
+    import glob
+    import numpy as np
+    from radialog_tpu_torch.data.datasets import MimicPaths
+    fixtures = sorted(os.path.abspath(p) for p in glob.glob(os.path.join(CXR_DIR, "*.jpg")))
+    rng = np.random.default_rng(seed)
+    split, sect = ["dicom_id,split"], ["findings,dicom_id,Img_Folder,Img_Filename,Note_file"]
+    for i in range(n):
+        folder = f"files/p10/p10{i:06d}/s5{i:07d}"
+        os.makedirs(os.path.join(root, "images", folder))
+        os.symlink(fixtures[i % len(fixtures)], os.path.join(root, "images", folder, f"d{i}.jpg"))
+        words = " ".join(f"w{int(w)}" for w in rng.integers(0, 5000, int(rng.integers(40, 121))))
+        split.append(f"d{i},train")
+        sect.append(f"{words},d{i},{folder},d{i}.jpg,s5{i:07d}.txt")
+    for name, rows in (("split.csv", split), ("sectioned.csv", sect)):
+        with open(os.path.join(root, name), "w") as f:
+            f.write("\n".join(rows) + "\n")
+    return MimicPaths(split_csv=os.path.join(root, "split.csv"),
+                      sectioned_csv=os.path.join(root, "sectioned.csv"), chexpert_csv="",
+                      image_root=os.path.join(root, "images"))
+
+
+def _stage1_full(torch, tb, steps, root):
+    """Stage 1 at full width: Blip2Config() (BERT-base Q-Former, 32 queries,
+    encoder width 1408, max_txt_len 256) over BioViL-T at 448, random weights
+    from a seeded generator on the card, batch 32 from the fixture JPEGs
+    cycled to 64 paths through CxrLoader(threads=4, emit_u8=True) ->
+    stage1_raw_batches -> DevicePrefetcher(depth=2) ->
+    make_stage1_raw_train_step. Returns (numbers, ok, params, visual, vstate)."""
+    import itertools
+    from radialog_tpu_torch.apps.tokenization import WhitespaceTokenizer
+    from radialog_tpu_torch.data.datasets import Stage1Data
+    from radialog_tpu_torch.data.prefetch import DevicePrefetcher, stage1_raw_batches
+    from radialog_tpu_torch.native.loader import native_available
+    from radialog_tpu_torch.ops.layers import BF16, DTypePolicy, FP32
+    from radialog_tpu_torch.train.optim import make_adamw, tree_map
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    cfg = tb.Blip2Config()
+    data = Stage1Data(_stage1_tree(root, STAGE1_PATHS, seed=1), split="train",
+                      custom_epochs_per_epoch=1)
+    tok = WhitespaceTokenizer(vocab_size=cfg.qformer.bert.vocab_size)
+
+    def batches(epochs, first=0):
+        return itertools.chain.from_iterable(
+            stage1_raw_batches(data, tok, cfg.max_txt_len, batch=STAGE1_BATCH, sub_epoch=0,
+                               threads=4, seed=e) for e in range(first, first + epochs))
+
+    route = "native" if native_available() else "pil"
+    t0 = time.time()
+    n = sum(1 for _ in batches(2, first=100))                   # the loader alone
+    loader_bps = n / (time.time() - t0)
+    first = next(iter(batches(1)))
+    t0 = time.time()
+    params, state = tb.blip2_init(torch.Generator(device="cuda").manual_seed(0), cfg, "cuda")
+    visual, vstate = params.pop("visual"), state["visual"]
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    card = {k: torch.as_tensor(v, device="cuda") for k, v in first.items()}
+
+    # checks from the initial weights on the first batch, all with the negatives
+    # that the first run draws
+    f64 = DTypePolicy(torch.float64, torch.float64, torch.float64)
+    real, tb.sample_negatives = tb.sample_negatives, _Negatives(tb.sample_negatives)
+    runs, mem = {}, {}
+    try:
+        for name, policy, chunks in (("bf16_chunks1", BF16, 1), ("bf16_chunks3", BF16, 3),
+                                     ("fp32", FP32, 3), ("f64", f64, 3)):
+            trees = (params, visual, vstate)
+            if policy is f64:
+                trees = tuple(tree_map(lambda t: t.double(), x) for x in trees)
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            gen = torch.Generator(device="cuda").manual_seed(5)
+            runs[name] = _grad_step(torch, steps, cfg, gen, *trees, card, policy, chunks)
+            torch.cuda.synchronize()
+            mem[name] = torch.cuda.max_memory_allocated() / 1e9
+            del trees
+    finally:
+        tb.sample_negatives = real
+    (l1, _), (l3, _) = runs["bf16_chunks1"], runs["bf16_chunks3"]
+    chunk_err = {k: abs(l1[k] - l3[k]) for k in l1}
+    (l32, g32), (l64, g64) = runs["fp32"], runs["f64"]
+    f64_loss_err = {k: abs(l32[k] - l64[k]) / max(abs(l64[k]), 1e-30) for k in l64}
+    f64_grad_err = _leaf_err(torch, g32, g64, ("/ln_vision", "/qformer/query_tokens", "/itm_head"))
+    all_grad_err = max(_leaf_err(torch, g32, g64).values())
+    del runs, g32, g64
+
+    # the timed run: 8 BF16 steps, then 2 under the profiler
+    tx = make_adamw(1e-4, weight_decay=0.05)
+    train_state = steps.TrainState.create(params, tx)
+    step = steps.make_stage1_raw_train_step(tx, cfg, policy=BF16, itm_chunks=1)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    stamps, losses, on_card = [], [], True
+    torch.cuda.synchronize()
+    stamps.append(time.time())
+    with DevicePrefetcher(batches(STAGE1_STEPS // 2), depth=2, device="cuda") as pf:
+        for batch in pf:
+            on_card &= all(t.is_cuda for t in batch.values())
+            train_state, m = step(train_state, visual, vstate, batch, gen)
+            losses.append(m)
+            torch.cuda.synchronize()
+            stamps.append(time.time())
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [{k: float(v) for k, v in m.items()} for m in losses]
+    step_s = [b - a for a, b in zip(stamps, stamps[1:])]
+    timed = step_s[1:]                                  # the first step warms up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        for _ in range(STAGE1_PROFILED):
+            train_state, _ = step(train_state, visual, vstate, batch, gen)
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    by_name = {}
+    for e in kernels:
+        by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + e.time_range.elapsed_us() / 1e3
+    top = {n: ms / STAGE1_PROFILED for n, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]}
+    finite = all(v == v and abs(v) != float("inf") for m in losses for v in m.values())
+    ok = (len(losses) == STAGE1_STEPS and finite and on_card and pf.all_pinned
+          and train_state.step == STAGE1_STEPS + STAGE1_PROFILED and bool(kernels)
+          and max(f64_loss_err.values()) <= STAGE1_F64_TOL["loss"]
+          and max(f64_grad_err.values()) <= STAGE1_F64_TOL["grad"]
+          and chunk_err["loss_itm"] <= STAGE1_CHUNK_TOL["loss_itm"]
+          and chunk_err["loss_itc"] == chunk_err["loss_lm"] == 0.0)
+    numbers = {"batch": STAGE1_BATCH, "image": 448, "max_txt_len": cfg.max_txt_len,
+               "steps": STAGE1_STEPS, "policy": "bf16", "itm_chunks": 1, "route": route,
+               "init_s": init_s, "s_per_step_mean": sum(timed) / len(timed),
+               "s_per_step_median": statistics.median(timed), "s_per_step_all": step_s,
+               "samples_per_s": STAGE1_BATCH * len(timed) / sum(timed),
+               "device_busy_share": busy_ms / wall_ms,
+               # the profiler slows the host: the busy time against the unprofiled step
+               "device_busy_share_unprofiled": busy_ms / STAGE1_PROFILED / 1e3 / (
+                   sum(timed) / len(timed)),
+               "device_busy_ms_per_step":
+               busy_ms / STAGE1_PROFILED, "profiled_wall_ms_per_step": wall_ms / STAGE1_PROFILED,
+               "kernel_launches_per_step": len(kernels) / STAGE1_PROFILED,
+               "top_kernels_ms_per_step": top,
+               "loader_batches_per_s": loader_bps,
+               "prefetch_wait_s_per_step": pf.waits_s, "peak_mem_gb": peak_gb,
+               "peak_mem_gb_one_step": mem, "staged_pinned": pf.all_pinned,
+               "staged_on_card": on_card, "losses": losses,
+               "fp32_vs_f64_loss_rel_err": f64_loss_err,
+               "fp32_vs_f64_grad_rel_err": f64_grad_err,
+               "fp32_vs_f64_grad_rel_err_every_leaf": all_grad_err,
+               "losses_fp32": l32, "losses_f64": l64, "f64_tol": STAGE1_F64_TOL,
+               "chunks3_vs_chunks1_abs_err": chunk_err, "losses_chunks1": l1,
+               "losses_chunks3": l3, "chunk_tol": STAGE1_CHUNK_TOL, "ok": ok}
+    return numbers, ok, train_state.params, visual, vstate
+
+
+def _stage1_embeddings(torch, tb, pipeline_mod, params, visual, vstate, root):
+    """precompute_embeddings at full width over the fixture JPEGs into an
+    npz; a pipeline built with emb_cache= that npz returns its rows, and
+    those rows equal blip2_forward_image on the same images."""
+    import glob
+    import numpy as np
+    from radialog_tpu_torch.models.qformer import QFormerConfig
+    from radialog_tpu_torch.native.loader import CxrLoader
+    from radialog_tpu_torch.ops.image import expand_cxr_u8
+    from radialog_tpu_torch.train.runner import precompute_embeddings
+    cfg = tb.Blip2Config()
+    paths = sorted(glob.glob(os.path.join(CXR_DIR, "*.jpg")))
+    dicoms = [os.path.basename(p)[:-4] for p in paths]
+    with CxrLoader(paths, batch=4, shuffle=False, emit_u8=True) as ld:
+        host = list(ld.epoch())
+    order = np.argsort(np.concatenate([idx for _, idx in host]))   # workers finish in any order
+    images = expand_cxr_u8(torch.from_numpy(np.concatenate([h for h, _ in host])[order]).cuda())
+    full = dict(params, visual=visual)
+
+    def forward(imgs):
+        with torch.no_grad():
+            return tb.blip2_forward_image(params, cfg,
+                                          tb.blip2_encode_image(full, {"visual": vstate}, imgs))
+
+    npz = os.path.join(root, "embs.npz")
+    n = precompute_embeddings(forward, ((
+        [dicoms[i] for i in idx], expand_cxr_u8(torch.from_numpy(h).cuda())) for h, idx in host),
+        npz)
+    pipe = pipeline_mod.RaDialogPipeline(pipeline_mod.PipelineConfig(mock=True, emb_cache=npz,
+                                                                     device="cuda"))
+    pipe.blip2 = {"qformer": params["qformer"], "ln_vision": params["ln_vision"]}
+    pipe.visual, pipe.visual_state, pipe.qformer_cfg = visual, vstate, QFormerConfig()
+    stored = np.load(npz)
+    rows = np.stack([stored[d] for d in dicoms])
+    cached = pipe.embed_images(images, dicoms).cpu().numpy()
+    direct = forward(images).cpu().numpy()
+    computed = pipe.embed_images(images).cpu().numpy()
+    err = float(np.abs(rows - direct).max())
+    ok = (n == len(paths) and rows.shape == (len(paths), 32, 768) and np.array_equal(cached, rows)
+          and err <= 2e-4 and float(np.abs(computed - direct).max()) <= 2e-4)
+    emit("stage1", part="embeddings", ok=ok, written=n, shape=list(rows.shape),
+         pipeline_rows_bitwise=bool(np.array_equal(cached, rows)),
+         npz_vs_forward_max_abs_err=err,
+         pipeline_computed_vs_forward_max_abs_err=float(np.abs(computed - direct).max()),
+         tol=2e-4)
+    return ok
+
+
+def phase_stage1(torch, pipeline_mod, counted):
+    """Q-Former stage-1 training from raw JPEGs: card against CPU at the
+    mock's size, the full-width BF16 run with its checks and numbers, the
+    embeddings' npz read back through the pipeline, and the pretrain command
+    line on the card. K1-K5 and T1-T3 launch no time in the phase."""
+    import shutil
+    import tempfile
+    from radialog_tpu_torch.models import blip2 as tb
+    from radialog_tpu_torch.train import steps
+    _zero(counted)
+    has_gxx = shutil.which("g++") is not None
+    has_jpeglib = os.path.exists("/usr/include/jpeglib.h")
+    ok_small, route = _stage1_small(torch, tb, steps)
+    if not ok_small:
+        raise AssertionError("the stage1 phase's small card-vs-CPU part failed a check")
+    os.makedirs("build", exist_ok=True)
+    root = tempfile.mkdtemp(prefix="stage1-", dir="build")
+    try:
+        numbers, ok_full, params, visual, vstate = _stage1_full(torch, tb, steps, root)
+        emit("stage1", part="full", card=smi(), gxx=has_gxx, jpeglib_h=has_jpeglib, **numbers)
+        ok_emb = _stage1_embeddings(torch, tb, pipeline_mod, params, visual, vstate, root)
+        del params, visual, vstate
+        gc.collect()
+        torch.cuda.empty_cache()
+        proc = subprocess.run([sys.executable, "-m", "radialog_tpu_torch.apps.pretrain",
+                               "--mock", "--raw", "--max-epoch", "1", "--steps-per-epoch", "2"],
+                              capture_output=True, text=True, timeout=300)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    lines = proc.stdout.strip().splitlines()
+    ok_cli = (proc.returncode == 0 and len(lines) == 5 and lines[0].startswith("epoch 0.0 it 0:")
+              and lines[-1].startswith("raw-image stage-1 mock done"))
+    emit("stage1", part="cli", ok=ok_cli, rc=proc.returncode, lines=lines,
+         stderr_tail=proc.stderr[-1500:] if proc.returncode else "")
+    launches = _read(counted)
+    # the loader never falls back to PIL where it could have built
+    route_ok = route == "native" or not (has_gxx and has_jpeglib)
+    emit("stage1", part="kernels", ok=not any(launches.values()) and route_ok,
+         launches=launches, route=route, gxx=has_gxx, jpeglib_h=has_jpeglib)
+    if not (ok_full and ok_emb and ok_cli and route_ok) or any(launches.values()):
+        raise AssertionError("the stage1 phase failed a check")
+    return launches
+
+
 # the ckpt phase: Vicuna-7B v1.3's published shapes (32,000 embedding rows, one
 # short of the port's vocab 32,001 with <IMG> = 32,000), the adapter's rank
 # and alpha, the beam run, the trainer's steps; bytes of free disk it needs
@@ -4031,6 +4452,18 @@ def main() -> int:
     train_launches = phase_train(torch, tfa)
     gc.collect()
     torch.cuda.empty_cache()
+    every_kernel = {"q8_matmul": tq8.q8_matmul_int32,
+                    "flash_decode_int8": tfd.flash_decode_int8_kernel,
+                    "flash_decode_int8_current": tfd.flash_decode_int8_current_kernel,
+                    "flash_decode_int8_fused": tfd.flash_decode_int8_fused_kernel,
+                    "flash_attention": tfa.flash_attention_kernel,
+                    "flash_attention_dq": tfa.flash_attention_dq_kernel,
+                    "flash_attention_dkv": tfa.flash_attention_dkv_kernel,
+                    "q4_matmul": tq4.q4_matmul_acc, "w4_int32_split": tw.w4_int32_split,
+                    "w4_int32": tw.w4_int32}
+    stage1_launches = phase_stage1(torch, pipeline_mod, every_kernel)
+    gc.collect()
+    torch.cuda.empty_cache()
     ckpt = phase_ckpt(torch, pipeline_mod, tq8, tfd, tfa)
 
     kernels = [
@@ -4167,6 +4600,9 @@ def main() -> int:
          "replaces": "tools/microbench_w4.py:153", **t3,
          "work": "as w4_int32_split with whole activation rows"},
     ]
+    for k in kernels:       # the stage1 phase's launches (the intervals mode is K2's counter)
+        k["launches_stage1"] = stage1_launches[{"flash_decode_int8_intervals":
+                                                "flash_decode_int8"}.get(k["name"], k["name"])]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -132,6 +132,13 @@ def qformer(qformer_params: Dict, ln_vision: Dict, device="cuda") -> Dict:
             "ln_vision": to_torch(ln_vision, device)}
 
 
+def blip2(params: Dict, state: Dict, device="cuda") -> Tuple[Dict, Dict]:
+    """blip2_init's (params, state): the whole tree (the Q-Former with its
+    text branch and LM head, ln_vision, the ITC projections, itm_head,
+    temp, and the BioViL-T trunk under "visual" where present)."""
+    return to_torch(params, device), to_torch(state, device)
+
+
 def chexpert(params: Dict, state: Dict, device="cuda") -> Tuple[Dict, Dict]:
     """chexpert_classifier_init's (params, state)."""
     return to_torch(params, device), to_torch(state, device)

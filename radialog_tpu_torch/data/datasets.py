@@ -1,6 +1,7 @@
 """Dataset assembly (port of radialog_tpu/data/datasets.py, numpy and the
 ``csv`` module only): the MIMIC-CXR CSV joins of the evaluation
-(``MimicPaths``, ``ReportGenData``, ``stratified_indices``) and the
+(``MimicPaths``, ``ReportGenData``, ``stratified_indices``), the
+stage-1 trainer's image and caption records (``Stage1Data``) and the
 instruct-dataset helpers of the finetune path (the balanced report/instruct
 sampler, the report/instruct split and the JSON loader).
 
@@ -69,6 +70,34 @@ def _float(v) -> object:
         return v
 
 
+def _split_annotation(paths: "MimicPaths", split: str,
+                      truncate: Optional[int]) -> Tuple[List[Row], List[Row]]:
+    """(reports with findings, the split's rows cut to ``truncate`` in file
+    order, findings with their newlines removed)."""
+    _, split_rows = _read_csv_rows(paths.split_csv)
+    _, reports = _read_csv_rows(paths.sectioned_csv)
+    reports = [r for r in reports if not _isnan(r["findings"])]
+    split_ids = {r["dicom_id"] for r in split_rows if r["split"] == split}
+    ann = [dict(r) for r in reports if r["dicom_id"] in split_ids]
+    if truncate is not None:
+        ann = ann[:truncate]
+    for r in ann:
+        r["findings"] = r["findings"].replace("\n", "")
+    return reports, ann
+
+
+def _left_merge(ann: List[Row], chexpert_csv: str) -> List[Row]:
+    """pandas' left merge on dicom_id: every chexpert row of a study, or one
+    row of NaN labels where it has none."""
+    chex_header, chex_rows = _read_csv_rows(chexpert_csv)
+    label_cols = [c for c in chex_header if c != "dicom_id"]
+    by_dicom: Dict[object, List[Row]] = {}
+    for r in chex_rows:
+        by_dicom.setdefault(r["dicom_id"], []).append(r)
+    return [{**r, **{c: math.nan if m is None else _float(m[c]) for c in label_cols}}
+            for r in ann for m in by_dicom.get(r["dicom_id"], [None])]
+
+
 @dataclasses.dataclass
 class MimicPaths:
     """File inputs of the evaluation's data."""
@@ -92,29 +121,12 @@ class ReportGenData:
     def __init__(self, paths: MimicPaths, split: str = "test",
                  prompt_type: str = "img_matching_examples_ig2_noexamples_IMG_findings",
                  truncate: Optional[int] = None, system: str = RADIALOG_SYSTEM):
-        _, split_rows = _read_csv_rows(paths.split_csv)
-        _, reports = _read_csv_rows(paths.sectioned_csv)
-        reports = [r for r in reports if not _isnan(r["findings"])]
+        reports, ann = _split_annotation(paths, split, truncate)
         self.img_ids = {r["dicom_id"]: i for i, r in enumerate(reports)}
-
-        split_ids = {r["dicom_id"] for r in split_rows if r["split"] == split}
-        ann = [dict(r) for r in reports if r["dicom_id"] in split_ids]
-        if truncate is not None:
-            ann = ann[:truncate]
         for r in ann:
-            r["findings"] = r["findings"].replace("\n", "")
             r["subject_id"] = int(r["Img_Folder"].split("/")[2].lstrip("p"))
             r["study_id"] = int(r["Note_file"].lstrip("s").rstrip(".txt"))
-        chex_header, chex_rows = _read_csv_rows(paths.chexpert_csv)
-        label_cols = [c for c in chex_header if c != "dicom_id"]
-        by_dicom: Dict[object, List[Row]] = {}
-        for r in chex_rows:
-            by_dicom.setdefault(r["dicom_id"], []).append(r)
-        self.annotation: List[Row] = []
-        for r in ann:             # the left merge: every match, or one row of NaN
-            for m in by_dicom.get(r["dicom_id"], [None]):
-                self.annotation.append({**r, **{c: math.nan if m is None else _float(m[c])
-                                                for c in label_cols}})
+        self.annotation: List[Row] = _left_merge(ann, paths.chexpert_csv)
 
         self.pred_findings: Dict[str, List[str]] = {}
         if paths.predicted_findings_json:
@@ -155,6 +167,42 @@ class ReportGenData:
 
     def records(self) -> List[Dict]:
         return [self[i] for i in range(len(self))]
+
+
+class Stage1Data:
+    """Image and caption records of Q-Former stage-1 training: the split,
+    sectioned and (where given) chexpert CSV joins, the findings with their
+    newlines removed as the caption, and the custom-epoch subsets: the rows
+    fall into ``custom_epochs_per_epoch`` contiguous subsets, one per
+    sub-epoch (2 for the whole train split, else 1)."""
+
+    def __init__(self, paths: MimicPaths, split: str = "train",
+                 truncate: Optional[int] = None,
+                 custom_epochs_per_epoch: Optional[int] = None):
+        reports, ann = _split_annotation(paths, split, truncate)
+        self.img_ids = {r["dicom_id"]: i for i, r in enumerate(reports)}
+        self.annotation: List[Row] = (_left_merge(ann, paths.chexpert_csv)
+                                      if paths.chexpert_csv else ann)
+        if custom_epochs_per_epoch is None:
+            custom_epochs_per_epoch = 2 if split == "train" and truncate is None else 1
+        self.custom_epochs_per_epoch = custom_epochs_per_epoch
+        self.current_custom_epoch = 0
+        self.image_root = paths.image_root
+
+    def set_custom_epoch(self, custom_epoch: int) -> None:
+        self.current_custom_epoch = custom_epoch % self.custom_epochs_per_epoch
+
+    def __len__(self) -> int:
+        return len(self.annotation) // self.custom_epochs_per_epoch
+
+    def __getitem__(self, index: int) -> Dict:
+        subset_size = len(self.annotation) // self.custom_epochs_per_epoch
+        ann = self.annotation[self.current_custom_epoch * subset_size + index]
+        img_path = f"{ann['Img_Folder']}/{ann['Img_Filename']}"
+        if self.image_root:
+            img_path = f"{self.image_root}/{img_path}"
+        return {"img_path": img_path, "text_output": ann["findings"].strip(),
+                "image_id": self.img_ids[ann["dicom_id"]], "dicom": ann["dicom_id"]}
 
 
 def stratified_indices(annotation: Sequence[Row],

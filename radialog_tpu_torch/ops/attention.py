@@ -9,20 +9,22 @@ from typing import Optional
 
 import torch
 
+from .layers import upcast
+
 NEG_INF = -1e9  # large negative, safe in bf16/fp32 softmax
 
 
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         bias: Optional[torch.Tensor] = None,
         scale: Optional[float] = None) -> torch.Tensor:
-    """Returns (B, T, H, D) in q.dtype."""
+    """Returns (B, T, H, D) in q.dtype (f64 inputs are computed in f64)."""
     d = q.shape[-1]
     scale = scale if scale is not None else d ** -0.5
-    scores = torch.einsum("bthd,bshd->bhts", q.float(), k.float()) * scale
+    scores = torch.einsum("bthd,bshd->bhts", upcast(q), upcast(k)) * scale
     if bias is not None:
-        scores = scores + bias.float()
+        scores = scores + bias.to(scores.dtype)
     probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhts,bshd->bthd", probs.to(v.dtype).float(), v.float())
+    out = torch.einsum("bhts,bshd->bthd", upcast(probs.to(v.dtype)), upcast(v))
     return out.to(q.dtype)
 
 

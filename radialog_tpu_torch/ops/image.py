@@ -63,8 +63,8 @@ def load_image_grayscale(path) -> np.ndarray:
 
 def preprocess_file(path, resize: int = 512, crop: int = 448) -> np.ndarray:
     """One image file -> (crop, crop, 3) float32 in [0,1]: PIL decode, remap,
-    then ``preprocess_cxr_np`` (the PIL route of the JAX package's loader;
-    its native C++ decoder is not ported)."""
+    then ``preprocess_cxr_np`` (the loader's PIL route; native/loader.py
+    ``preprocess_file`` takes the C++ decoder where it builds)."""
     return preprocess_cxr_np(load_image_grayscale(path), resize, crop)
 
 
@@ -89,6 +89,23 @@ def preprocess_cxr(img_u8: torch.Tensor, resize: int = 512, crop: int = 448) -> 
         x = F.pad(x, (0, crop - x.shape[1], 0, crop - x.shape[0]))
     x = torch.clamp(div255(x), 0.0, 1.0)
     return x[..., None].repeat(1, 1, 3)
+
+
+def preprocess_cxr_batch(imgs_u8: torch.Tensor, resize: int = 512,
+                         crop: int = 448) -> torch.Tensor:
+    """(B, H, W) uint8 of one shape -> (B, crop, crop, 3) float32 in [0,1]:
+    ``preprocess_cxr`` of each image, in one batched resize."""
+    _, h, w = imgs_u8.shape
+    nh, nw = resize_short_side(h, w, resize)
+    x = F.interpolate(imgs_u8.float()[:, None], size=(nh, nw), mode="bilinear",
+                      align_corners=False, antialias=True)[:, 0]
+    top = max((nh - crop) // 2, 0)
+    left = max((nw - crop) // 2, 0)
+    x = x[:, top:top + crop, left:left + crop]
+    if nh < crop or nw < crop:
+        x = F.pad(x, (0, crop - x.shape[2], 0, crop - x.shape[1]))
+    x = torch.clamp(div255(x), 0.0, 1.0)
+    return x[..., None].repeat(1, 1, 1, 3)
 
 
 def expand_cxr_u8(imgs_u8: torch.Tensor) -> torch.Tensor:

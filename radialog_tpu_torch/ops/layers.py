@@ -42,6 +42,12 @@ FP32 = DTypePolicy(param=torch.float32, compute=torch.float32, output=torch.floa
 BF16 = DTypePolicy()
 
 
+def upcast(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in f32 for the f32 math of norms, softmax and losses; an f64
+    tensor stays f64, so that a float64 run of a path is float64 through."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 # --------------------------------------------------------------------- init
 def normal(gen: torch.Generator, shape: Sequence[int], std: float,
            device, dtype=torch.float32) -> torch.Tensor:
@@ -135,19 +141,19 @@ def conv2d(p: dict, x: torch.Tensor, stride=1, padding="SAME", dilation: int = 1
 # -------------------------------------------------------------------- norms
 def batchnorm(p: dict, s: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """Eval-mode BatchNorm over all axes but the last (running stats)."""
-    xf = x.float()
-    inv = torch.rsqrt(s["var"].float() + eps)
-    y = (xf - s["mean"].float()) * inv * p["scale"].float() + p["bias"].float()
+    xf = upcast(x)
+    inv = torch.rsqrt(s["var"].to(xf.dtype) + eps)
+    y = (xf - s["mean"].to(xf.dtype)) * inv * p["scale"].to(xf.dtype) + p["bias"].to(xf.dtype)
     return y.to(x.dtype)
 
 
 def layernorm(p: dict, x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
-    """LayerNorm in fp32, cast back to the input dtype."""
-    xf = x.float()
+    """LayerNorm in fp32 (f64 input: in f64), cast back to the input dtype."""
+    xf = upcast(x)
     mu = xf.mean(-1, keepdim=True)
     var = xf.var(-1, keepdim=True, unbiased=False)
     y = (xf - mu) * torch.rsqrt(var + eps)
-    y = y * p["scale"].float() + p["bias"].float()
+    y = y * p["scale"].to(xf.dtype) + p["bias"].to(xf.dtype)
     return y.to(x.dtype)
 
 

@@ -232,6 +232,7 @@ def test_port_imports_no_jax():
              + [REPO / "tools" / f"{name}.py" for name in ("time_prefill_paths", "time_k2_phase",
                                                           "time_k4_phase")])
     assert len(files) > 15
+    assert REPO / "radialog_tpu_torch" / "native" / "loader.py" in files
     assert {"continuous.py", "serve.py", "q4_matmul.py", "quant.py", "bridge.py",
             "chip_smoke.py", "finetune_lora.py", "optim.py", "steps.py", "checkpoint.py",
             "datasets.py", "flash_attention.py", "tokenization.py", "w4_colscale.py", "prng.py",
@@ -239,7 +240,9 @@ def test_port_imports_no_jax():
             "microbench_w4_torch.py", "time_k4_phase.py", "conversation.py", "prompts.py",
             "downstream.py", "ce_metrics.py", "nlg.py", "_treebank.py", "_porter.py",
             "evaluate.py", "hf_weights.py", "beam.py", "speculative.py", "spec_ring.py",
-            "session.py", "streaming.py", "chat.py", "config.py", "demo.py"} <= \
+            "session.py", "streaming.py", "chat.py", "config.py", "demo.py", "blip2.py",
+            "qformer.py", "augment.py", "image.py", "loader.py", "prefetch.py", "runner.py",
+            "logging.py", "pretrain.py"} <= \
         {f.name for f in files}
     for f in files:
         for node in ast.walk(ast.parse(f.read_text())):
