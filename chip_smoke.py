@@ -132,7 +132,7 @@ each; any failing phase exits non-zero:
   eval    the evaluation harness at full width through the eval command
           line (apps/evaluate.py main, the root test.py's counterpart):
           --synthetic --int8 --use_embs --do_corr --do_cp_bin_qa
-          --do_cp_all_qa over the first 3 test studies of tests/fixtures,
+          --do_cp_all_qa over the first 2 test studies of tests/fixtures,
           batch 12, 300 new tokens, files under build/chip_eval/: the report
           pass, the batch-1 correction pass (256 tokens a study), binary QA,
           all-QA, CheXbert labels; seconds per pass, launches of K1, K2 and
@@ -140,7 +140,7 @@ each; any failing phase exits non-zero:
           prompts that reached the pipeline), the four files and finite
           metrics; K1 (bitwise), K2 and K3 held against their plain
           versions on the inputs the run gave them in the first and the
-          last correction; cut from the test split in depth only (3 studies)
+          last correction; cut from the test split in depth only (2 studies)
   spec    speculative decoding at full width on the eval phase's pipeline
           and prompts: the int8 verify attention card against CPU at S=1280
           (integer sums bitwise past 2^24, where an f32 product misses);
@@ -175,6 +175,18 @@ each; any failing phase exits non-zero:
           is checked; aggregate tokens/s, seconds to the first token, peak
           memory. Then 16 sessions x 32 tokens with W4A8 layers (K4 128
           times and K1 once per forward)
+  datatools  the data tools, after serve, on the slice's weights:
+          create_sections over a report tree the phase writes (its rows
+          checked against the tree), create_data --mode RG over
+          tests/fixtures, and --mode INS --mock over those fixtures with
+          each train study repeated 18 times (teacher calls of 12, 12, 12
+          and 3 prompts) and the slice's W8A8 pipeline as the teacher, 64
+          new tokens (the mock's cut of the CLI's 256), once through
+          generate_texts_ring (12 lanes, the int8 ring: K1, and K2 only
+          under per-lane intervals, K2') and once with --teacher batch
+          through generate_texts (K1, K2); the teacher's tokens/s and
+          seconds a call, launches, the fused JSON's task counts equal to
+          a CPU run's with a stub teacher
   float   the float path at full width (PipelineConfig(quantize=False), the
           JAX package's default): Vicuna-7B bf16 in the stacked layout over
           the bf16 cache, random from a seed, with the slice's vision models.
@@ -229,6 +241,26 @@ each; any failing phase exits non-zero:
           equal to blip2_forward_image; python -m
           radialog_tpu_torch.apps.pretrain --mock --raw on the card. No
           kernel of K1-K5 or T1-T3 launches in the phase
+  trainers  the findings-classifier and CheXbert trainers (after stage1):
+          card against CPU at the CPU tests' sizes from host-drawn weights
+          (3 FP32 classifier steps, BioViL-T with a (1,1,1,1) basic trunk at
+          488 px, batch 2, without and with the augmentation, the card's
+          draws replayed on the CPU: losses, the parameters' 99th
+          percentile and largest difference, the BatchNorm running stats
+          within CLS_SMALL_TOL; 3 CheXbert steps of the mock's tiny BERT
+          with the card's dropout masks replayed on the CPU, within
+          BERT_SMALL_TOL); the norms audit (train-mode BatchNorm's batch
+          mean and variance at ResNet-50 widths, LayerNorm at 768, RMSNorm
+          at 4096: ulps card against CPU, the card's own mean against an
+          IEEE division of its sum, recorded; the outputs within NORM_Y_TOL
+          and dropout's division bitwise, held); full width: the
+          classifier (ResNet-50 trunk, 488 px, batch 32, FP32) and CheXbert
+          (BERT-base, 16 x 512, FP32, dropout on), 2 warm and 5 timed steps
+          and 1 profiled on one batch each (s/step, images or reports/s,
+          busy share, launches a step, peak memory; finite losses that
+          fall); the chexpert_train, run_chexbert train and run_chexbert
+          label command lines as processes on the card. No kernel of K1-K5
+          or T1-T3 launches in the phase
 
   ckpt    checkpoints on disk at full size, loaded back through the port's
           loaders (ROADMAP queue 1 item 3) with both tokenizer loaders
@@ -243,13 +275,14 @@ each; any failing phase exits non-zero:
           peak host RSS, device memory; layers 0 and 31, lm_head, embed, the
           LoRA and every BLIP-2, BioViL-T, classifier and CheXbert leaf
           bitwise against the same tensors converted and packed on the host;
-          the report batch (56 x 300; logits finite with the image, NaN
-          without it, as JAX's jnp.take gives them) and a 4-beam run (2
+          the report batch (56 x CKPT_NEW = 64; logits finite with the image,
+          NaN without it, as JAX's jnp.take gives them) and a 4-beam run (2
           prompts x 64 tokens: K1, never K2); the bf16 pipeline (layers 0
           and 31 bitwise); apps/evaluate.py main with every checkpoint flag,
           --num_beams 4, --do_corr, --do_cp_bin_qa over 1 fixture study (K3);
           the trainer from the files (int8 base, the adapter, flash, 2
-          micro-steps: K3, K5a, K5b); pack_q4's seconds for one layer
+          micro-steps: K3, K5a, K5b); pack_q4's seconds for the o_proj and by
+          weights for a layer
 
 ``python3 chip_smoke.py --time-report ROOT [ROOT ...]`` runs only the slice
 phase's report batch, of each checkout at ROOT in turn (its own package and
@@ -301,14 +334,23 @@ K3_TOL = {"bfloat16": dict(atol=1e-2, rtol=1e-2), "float32": dict(atol=1e-5, rto
 K5_TOL = {"bfloat16": 8e-3, "float32": 1e-5}
 QA_STUDIES, ALL_QA_STUDIES, LABELED, FOLLOW_UP_NEW = 2, 5, 16, 32
 # the eval phase's batch-1 correction turn at full width: 437, 442 and 445
-# prompt tokens (a 118-token report prompt, its 300 generated tokens, the
-# correction request; the eval phase prints them), padded to a multiple of
+# prompt tokens over the first three fixture studies (a 118-token report
+# prompt, its 300 generated tokens, the correction request; the eval phase
+# prints them; it runs the first two since PR 16), padded to a multiple of
 # 8 (apps/tokenization.py pad_batch_right): 440 and 448 rows, whose last
 # 64-row tile is partial; 256 new tokens in a cache of 768 slots
 # (decode/kvcache.py bucket_length). The eval phase also holds each kernel
 # against its plain version on the inputs the run itself gave it there
 CORR_T, CORR_T2, CORR_LEN, CORR_LEN2, CORR_NEW, CORR_S = 440, 448, 437, 445, 256, 768
-EVAL_STUDIES = 3
+# test studies of the eval phase (and so of spec's --corr_spec): 2, cut from
+# 3 in PR 16 for the script's time on a slow host (a third correction added
+# ~25 s and no new shape: the k phases hold the third study's 445/448 rows)
+EVAL_STUDIES = 2
+# new tokens of the ckpt phase's report batch (the slice phase's 300, cut in
+# PR 16 for the script's time: it checks the weights loaded from files, the
+# slice phase times the pass; the eval command line keeps 300, which makes
+# the 256+-token correction prompts that K3 serves)
+CKPT_NEW = 64
 # the speculative phases: K1's rows in a verify block (batch 1 at k = 4 and
 # 5; 8 compact lanes at k = 5); batch-1 drafts and new tokens (the
 # correction turn's 256); the chat's drafts, reply tokens after its 300-token
@@ -369,8 +411,13 @@ MICRO, CUTOFF, ACCUM, TRAIN_STEPS = 2, 600, 2, 9
 SMALL_TRAIN_TOL = {"fp32": {"loss": 1e-4, "tree": 2e-4}, "bf16": {"loss": 5e-2, "tree": 1.5e-3}}
 
 
+_START = time.time()
+
+
 def emit(phase: str, **kw) -> None:
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One JSON line; ``elapsed_s``: seconds since the script's start."""
+    print(json.dumps({"phase": phase, **kw, "elapsed_s": round(time.time() - _START, 1)}),
+          flush=True)
 
 
 @contextlib.contextmanager
@@ -3812,6 +3859,693 @@ def phase_stage1(torch, pipeline_mod, counted):
     return launches
 
 
+# the trainers phase: the classifier's full-width batch and crop (the CLI's
+# FP32 policy), the labeler's batch of 16 reports cut at 512 tokens, warm and
+# timed steps; the card-against-CPU part at the CPU tests' sizes (3 steps,
+# batch 2 at 488 px, a (1,1,1,1) basic trunk; the CLI mock's tiny BERT at
+# batch 4 x 12 tokens) and its bars: 4x the largest card-against-CPU reading
+# of four runs of these functions on an H100 80GB HBM3 at 700 W (PERF.md
+# section 4), to two figures. The card's cuDNN convolutions sum in another
+# order than the CPU's, and a ReLU on a rounding edge spreads through the
+# BatchNorms (tests/test_torch_classifier_train.py); the largest entry's
+# bar stays below lr (1e-4) augmented and near it plain, where one AdamW
+# step moves an entry by about lr.
+CLS_BATCH, CLS_CROP, BERT_BATCH, BERT_T, TRAINER_WARM, TRAINER_TIMED = 32, 488, 16, 512, 2, 5
+TRAINER_LR, TRAINER_EPS, SMALL_STEPS = 1e-4, 1e-3, 3
+CLS_SMALL_TOL = {False: {"loss": 8.4e-6, "q99": 6.3e-6, "max": 1.3e-4,
+                         "mean": 2.0e-4, "var": 2.0e-5},
+                 True: {"loss": 1.1e-6, "q99": 7.8e-7, "max": 2.7e-5,
+                        "mean": 3.0e-5, "var": 5.8e-6}}
+BERT_SMALL_TOL = {"loss": 3.6e-7, "param": 7.6e-7}
+# the norms audit's inputs: BatchNorm at ResNet-50 widths of the classifier's
+# batch (the stem, a layer1 output, layer4), LayerNorm at BERT-base's 768
+# (the labeler's batch), RMSNorm at Vicuna-7B's 4096 (the report prefill)
+NORM_BN_SHAPES = ((CLS_BATCH, 244, 244, 64), (CLS_BATCH, 122, 122, 256), (CLS_BATCH, 16, 16, 2048))
+NORM_LN_SHAPE, NORM_RMS_SHAPE = (BERT_BATCH, BERT_T, 768), (56, 128, 4096)
+# the norms' outputs card against CPU: 5x the largest of PR 16's readings,
+# 1.9e-6 (LayerNorm) and 1.4e-6 (BatchNorm), as the card-only tests hold them
+NORM_Y_TOL = 1e-5
+REPORTS_LABELED = 16
+
+
+def _flat_np(tree, prefix=""):
+    if isinstance(tree, dict):
+        return {p: v for k in tree for p, v in _flat_np(tree[k], f"{prefix}/{k}").items()}
+    if isinstance(tree, (list, tuple)):
+        return {p: v for i, x in enumerate(tree) for p, v in _flat_np(x, f"{prefix}/{i}").items()}
+    return {prefix: tree.detach().double().cpu().numpy()}
+
+
+def _tree_gap(a, b):
+    """(99th percentile, largest) |a - b| over every entry of two trees."""
+    import numpy as np
+    fa, fb = _flat_np(a), _flat_np(b)
+    d = np.concatenate([np.abs(fa[k] - fb[k]).ravel() for k in fa])
+    return float(np.quantile(d, 0.99)), float(d.max())
+
+
+def _state_gap(a, b):
+    """Largest |a - b| of the BatchNorm running means, variances, counts."""
+    fa, fb = _flat_np(a), _flat_np(b)
+    out = {}
+    for k in fa:
+        kind = k.rsplit("/", 1)[1]
+        out[kind] = max(out.get(kind, 0.0), float(abs(fa[k] - fb[k]).max()))
+    return out
+
+
+def _classifier_small(torch, dev="cuda"):
+    """Three FP32 steps of make_classifier_train_step on the card and on the
+    CPU from the same host-drawn weights and batches, without and with the
+    augmentation (the card's draws handed to the CPU run)."""
+    import numpy as np
+    from radialog_tpu_torch.models.biovil_t import biovil_t_init
+    from radialog_tpu_torch.ops import augment as ta
+    from radialog_tpu_torch.ops.layers import linear_init
+    from radialog_tpu_torch.train import classifier as tcl
+    from radialog_tpu_torch.train import steps
+    from radialog_tpu_torch.train.optim import make_adamw, tree_map
+    host = torch.Generator().manual_seed(3)
+    params = {}
+    params["biovil"], vstate = biovil_t_init(host, "cpu", 128, (1, 1, 1, 1), False)
+    params["fc1"] = linear_init(host, 128 * 4 * 4, 512, "cpu")
+    params["fc2"] = linear_init(host, 512, 14, "cpu")
+    rng = np.random.default_rng(7)
+    images = rng.random((SMALL_STEPS, 2, CLS_CROP, CLS_CROP, 3)).astype(np.float32)
+    labels = rng.integers(0, 2, (SMALL_STEPS, 2, 14)).astype(np.float32)
+    pw = tcl.class_weights(rng.integers(0, 2, (16, 14)), "log")
+    real = ta.augment_draws
+    out = {}
+    for augment in (False, True):
+        drawn = []
+
+        def record(n, gen, *a, **kw):
+            d = real(n, gen, *a, **kw)
+            drawn.append({k: v.cpu() for k, v in d.items()})
+            return d
+
+        runs = {}
+        for on, draws in ((dev, record), ("cpu", lambda n, gen, *a, **kw: drawn.pop(0))):
+            ta.augment_draws = draws
+            try:
+                tx = make_adamw(TRAINER_LR, weight_decay=0.0, eps=TRAINER_EPS)
+                state = steps.TrainState.create(tree_map(lambda t: t.to(on), params), tx)
+                ms = {"biovil": tree_map(lambda t: t.to(on), vstate)}
+                step = tcl.make_classifier_train_step(tx, pw, augment=augment)
+                gen = torch.Generator(device=on).manual_seed(9)
+                losses = []
+                for i in range(SMALL_STEPS):
+                    state, ms, m = step(state, ms, {"images": images[i], "labels": labels[i]},
+                                        gen)
+                    losses.append(float(m["loss"]))
+                runs[draws is record] = (losses, state.params, ms)
+            finally:
+                ta.augment_draws = real
+        (lc, pc, sc), (lh, ph, sh) = runs[True], runs[False]
+        q99, mx = _tree_gap(pc, ph)
+        sg = _state_gap(sc, sh)
+        bar = CLS_SMALL_TOL[augment]
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(lc, lh))
+        ok = (loss_err <= bar["loss"] and q99 <= bar["q99"] and mx <= bar["max"]
+              and sg["mean"] <= bar["mean"] and sg["var"] <= bar["var"] and sg["count"] == 0
+              and not drawn)
+        out["augment" if augment else "plain"] = {
+            "losses_card": lc, "losses_cpu": lh, "loss_rel_err": loss_err, "param_q99": q99,
+            "param_max": mx, "state_gap": sg, "tol": bar, "ok": ok}
+    return out
+
+
+def _chexbert_small(torch, dev="cuda"):
+    """Three FP32 CheXbert steps (the run_chexbert mock's tiny BERT) on the
+    card and on the CPU with the same dropout masks: the card's, drawn as
+    ops/layers.py dropout draws them, recorded and applied again on the CPU
+    through ``apply_dropout_mask``."""
+    import numpy as np
+    from radialog_tpu_torch.models import bert as tbert
+    from radialog_tpu_torch.models import chexbert as tcb
+    from radialog_tpu_torch.ops.layers import apply_dropout_mask
+    from radialog_tpu_torch.train import chexbert_train as tct
+    from radialog_tpu_torch.train import steps
+    from radialog_tpu_torch.train.optim import make_adamw, tree_map
+    cfg = tbert.BertConfig(vocab_size=256, hidden_size=32, num_layers=2, num_heads=4,
+                           intermediate_size=64, max_position=64)
+    params = tcb.chexbert_init(torch.Generator().manual_seed(11), cfg, "cpu")
+    rng = np.random.default_rng(12)
+    ids = rng.integers(4, 250, (SMALL_STEPS, 4, 12)).astype(np.int32)
+    mask = np.ones_like(ids)
+    mask[:, 1, 9:] = 0
+    labels = np.concatenate([rng.integers(0, 4, (SMALL_STEPS, 4, 13)),
+                             rng.integers(0, 2, (SMALL_STEPS, 4, 1))], axis=2)
+    masks = []
+
+    def record(x, rate, train, gen):
+        if not train or rate <= 0.0 or gen is None:
+            return x
+        keep = torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - rate
+        masks.append(keep.cpu())
+        return apply_dropout_mask(x, keep, rate)
+
+    def replay(x, rate, train, gen):
+        if not train or rate <= 0.0 or gen is None:
+            return x
+        return apply_dropout_mask(x, masks.pop(0), rate)
+
+    real = tbert.dropout, tcb.dropout
+    runs = {}
+    for on, fn in ((dev, record), ("cpu", replay)):
+        tbert.dropout = tcb.dropout = fn
+        try:
+            tx = make_adamw(1e-3, weight_decay=0.0, eps=TRAINER_EPS)
+            state = steps.TrainState.create(tree_map(lambda t: t.to(on), params), tx)
+            step = tct.make_chexbert_train_step(tx, cfg)
+            gen = torch.Generator(device=on).manual_seed(1)
+            losses = []
+            for i in range(SMALL_STEPS):
+                state, m = step(state, {"input_ids": ids[i], "attention_mask": mask[i],
+                                        "labels": labels[i]}, gen)
+                losses.append(float(m["loss"]))
+            runs[fn is record] = (losses, state.params)
+        finally:
+            tbert.dropout, tcb.dropout = real
+    (lc, pc), (lh, ph) = runs[True], runs[False]
+    _, mx = _tree_gap(pc, ph)
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(lc, lh))
+    ok = loss_err <= BERT_SMALL_TOL["loss"] and mx <= BERT_SMALL_TOL["param"] and not masks
+    return {"losses_card": lc, "losses_cpu": lh, "loss_rel_err": loss_err, "param_max": mx,
+            "masks": SMALL_STEPS * (2 * cfg.num_layers + 2), "tol": BERT_SMALL_TOL, "ok": ok}
+
+
+def _ulps(torch, a, b) -> int:
+    """Largest distance in f32 ulps between two f32 tensors on the CPU."""
+    def ordered(x):
+        i = x.contiguous().view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return int((ordered(a) - ordered(b)).abs().max())
+
+
+def _norms_audit(torch, dev="cuda"):
+    """The norms' reductions on the card against the CPU (ROADMAP queue 3):
+    train-mode BatchNorm's batch mean and variance at ResNet-50 widths,
+    LayerNorm's mean at 768, RMSNorm's mean square at 4096, in f32 ulps
+    (the outputs, many near 0, by their largest absolute error), and how
+    many of the card's means differ from its own sums divided by n (CUDA's
+    mean multiplies by 1/n; the CPU's divides): recorded, not held, since
+    a reduction's mean cannot be bitwise across devices. Held: the outputs
+    within NORM_Y_TOL, and the one elementwise division by a Python scalar
+    on the training path, dropout's ``x / (1 - rate)`` (``apply_dropout_mask``
+    through ``div_scalar``), bitwise the CPU's."""
+    from radialog_tpu_torch.ops import layers as tl
+    g = torch.Generator().manual_seed(21)
+    out, held = {}, True
+
+    def division(xc, dims):
+        n = 1
+        for d in dims:
+            n *= xc.shape[d]
+        return {"n": n, "native_mean_entries_apart": int(
+            (xc.mean(dims) != tl.div_scalar(xc.sum(dims), n)).sum())}
+
+    for shape in NORM_BN_SHAPES:
+        x = torch.randn(shape, generator=g) * 2 + 0.5
+        c = shape[-1]
+        p = {"scale": torch.ones(c), "bias": torch.zeros(c)}
+        s = {"mean": torch.zeros(c), "var": torch.zeros(c), "count": torch.zeros(())}
+        y, st = tl.batchnorm(p, s, x, train=True, momentum=1.0)
+        xc = x.to(dev)
+        yc, stc = tl.batchnorm({k: v.to(dev) for k, v in p.items()},
+                               {k: v.to(dev) for k, v in s.items()}, xc, train=True, momentum=1.0)
+        err = float((yc.cpu() - y).abs().max())
+        held &= err <= NORM_Y_TOL
+        out[f"batchnorm_{'x'.join(map(str, shape))}"] = {
+            "mean_ulps": _ulps(torch, stc["mean"].cpu(), st["mean"]),
+            "var_ulps": _ulps(torch, stc["var"].cpu(), st["var"]),
+            "y_max_abs_err": err, **division(xc, tuple(range(len(shape) - 1)))}
+        del x, xc, y, yc
+    x = torch.randn(NORM_LN_SHAPE, generator=g) * 3 + 1
+    p = {"scale": torch.randn(768, generator=g), "bias": torch.randn(768, generator=g)}
+    y = tl.layernorm(p, x)
+    yc = tl.layernorm({k: v.to(dev) for k, v in p.items()}, x.to(dev))
+    err = float((yc.cpu() - y).abs().max())
+    held &= err <= NORM_Y_TOL
+    out["layernorm_768"] = {"y_max_abs_err": err, "mean_ulps": _ulps(
+        torch, x.to(dev).mean(-1).cpu(), x.mean(-1)), **division(x.to(dev), (2,))}
+    x = torch.randn(NORM_RMS_SHAPE, generator=g).bfloat16()
+    scale = (torch.randn(4096, generator=g) * 0.1 + 1).bfloat16()
+    y = tl.rmsnorm(scale, x)
+    yc = tl.rmsnorm(scale.to(dev), x.to(dev))
+    sq = x.float() * x.float()
+    # 4096 is a power of two: 1/n is exact, so the card's product is its division
+    out["rmsnorm_4096"] = {"y_bf16_entries_apart": int((yc.cpu() != y).sum()),
+                           "mean_square_ulps": _ulps(torch, sq.to(dev).mean(-1).cpu(),
+                                                     sq.mean(-1)),
+                           **division(sq.to(dev), (2,))}
+    x = torch.randn(NORM_LN_SHAPE, generator=g) * 3 + 1
+    keep = torch.rand(NORM_LN_SHAPE, generator=g) < 0.9
+    drop = torch.equal(tl.apply_dropout_mask(x.to(dev), keep.to(dev), 0.1).cpu(),
+                       tl.apply_dropout_mask(x, keep, 0.1))
+    # the card's own division by the Python scalar, for the record
+    native = int((torch.where(keep.to(dev), x.to(dev) / 0.9, 0.0).cpu()
+                  != tl.apply_dropout_mask(x, keep, 0.1)).sum())
+    held &= drop
+    out["dropout_division"] = {"bitwise": drop, "native_division_entries_apart": native}
+    return out, held
+
+
+def _timed_steps(torch, run_step, n_warm, n_timed):
+    """n_warm + n_timed steps of ``run_step() -> loss`` (synchronized), then
+    one under torch.profiler: (losses, seconds of each timed step, device
+    busy ms, kernel launches and wall ms of the profiled step)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    losses, secs = [], []
+    for i in range(n_warm + n_timed):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        losses.append(float(run_step()))
+        if i >= n_warm:
+            secs.append(time.time() - t0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        losses.append(float(run_step()))
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    return losses, secs, busy_ms, len(kernels), wall_ms
+
+
+def _trainer_numbers(batch, losses, secs, busy_ms, launches, wall_ms, peak_gb, unit):
+    mean_s = sum(secs) / len(secs)
+    finite = all(v == v and abs(v) != float("inf") for v in losses)
+    return {"batch": batch, "s_per_step_mean": mean_s, "s_per_step_median":
+            statistics.median(secs), "s_per_step_all": secs, f"{unit}_per_s": batch / mean_s,
+            "device_busy_ms_per_step": busy_ms, "profiled_wall_ms_per_step": wall_ms,
+            "device_busy_share": busy_ms / wall_ms,
+            "device_busy_share_unprofiled": busy_ms / 1e3 / mean_s,
+            "kernel_launches_per_step": launches, "peak_mem_gb": peak_gb, "losses": losses,
+            "ok": finite and losses[-1] < losses[0]}
+
+
+def _classifier_full(torch, dev="cuda"):
+    """The CheXpert classifier at full width: BioViL-T's ResNet-50 trunk at
+    488 px, batch 32, FP32, AdamW, every BatchNorm on batch statistics; one
+    batch of random images and labels, so the loss must fall."""
+    from radialog_tpu_torch.models.chexpert import chexpert_classifier_init
+    from radialog_tpu_torch.train import classifier as tcl
+    from radialog_tpu_torch.train import steps
+    from radialog_tpu_torch.train.optim import make_adamw
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params, ms = chexpert_classifier_init(gen, dev)
+    images = torch.rand((CLS_BATCH, CLS_CROP, CLS_CROP, 3), generator=gen, device=dev)
+    labels = (torch.rand((CLS_BATCH, 14), generator=gen, device=dev) < 0.3).float()
+    tx = make_adamw(TRAINER_LR, weight_decay=0.0)
+    step = tcl.make_classifier_train_step(tx, tcl.class_weights(labels.cpu().numpy(), "log"))
+    box = {"state": steps.TrainState.create(params, tx), "ms": ms}
+    del params, ms
+
+    def run_step():
+        box["state"], box["ms"], m = step(box["state"], box["ms"],
+                                          {"images": images, "labels": labels})
+        return m["loss"]
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    got = _timed_steps(torch, run_step, TRAINER_WARM, TRAINER_TIMED)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    counts = [float(v) for k, v in _flat_np(box["ms"]).items() if k.endswith("/count")]
+    numbers = _trainer_numbers(CLS_BATCH, *got, peak, "images")
+    numbers.update(crop=CLS_CROP, policy="fp32", trunk="resnet50",
+                   bn_counts_equal_steps=set(counts) == {float(len(got[0]))})
+    numbers["ok"] &= numbers["bn_counts_equal_steps"]
+    return numbers
+
+
+def _chexbert_full(torch, dev="cuda", cfg=None):
+    """CheXbert at full width: BERT-base, 16 reports cut at 512 tokens (rows
+    of 320-512 real tokens), FP32, dropout on, AdamW; one batch, so the
+    loss must fall."""
+    from radialog_tpu_torch.models.bert import BertConfig
+    from radialog_tpu_torch.models.chexbert import chexbert_init
+    from radialog_tpu_torch.train import chexbert_train as tct
+    from radialog_tpu_torch.train import steps
+    from radialog_tpu_torch.train.optim import make_adamw
+    cfg = cfg or BertConfig()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = chexbert_init(gen, cfg, dev)
+    ids = torch.randint(1000, cfg.vocab_size, (BERT_BATCH, BERT_T), generator=gen, device=dev)
+    lengths = torch.randint(BERT_T * 5 // 8, BERT_T + 1, (BERT_BATCH,), generator=gen, device=dev)
+    mask = (torch.arange(BERT_T, device=dev)[None] < lengths[:, None]).int()
+    labels = torch.cat([torch.randint(0, 4, (BERT_BATCH, 13), generator=gen, device=dev),
+                        torch.randint(0, 2, (BERT_BATCH, 1), generator=gen, device=dev)], 1)
+    tx = make_adamw(TRAINER_LR, weight_decay=0.0)
+    step = tct.make_chexbert_train_step(tx, cfg)
+    box = {"state": steps.TrainState.create(params, tx)}
+    del params
+
+    def run_step():
+        box["state"], m = step(box["state"], {"input_ids": ids, "attention_mask": mask,
+                                              "labels": labels}, gen)
+        return m["loss"]
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    got = _timed_steps(torch, run_step, TRAINER_WARM, TRAINER_TIMED)
+    numbers = _trainer_numbers(BERT_BATCH, *got, torch.cuda.max_memory_allocated() / 1e9,
+                               "reports")
+    numbers.update(tokens=BERT_T, policy="fp32", model="bert-base",
+                   real_tokens=int(lengths.sum()))
+    return numbers
+
+
+def _trainer_clis(torch, out_dir, dev="cuda"):
+    """The three command lines on the card, started together as processes:
+    chexpert_train (ResNet-50, the JPEG mock), run_chexbert train and
+    run_chexbert label over a CSV of 16 reports."""
+    import csv
+    os.makedirs(out_dir, exist_ok=True)
+    reports = [f"the lungs are clear , study {i} . {'mild edema .' if i % 3 else 'no effusion .'}"
+               for i in range(REPORTS_LABELED)]
+    with open(os.path.join(out_dir, "reports.csv"), "w", newline="") as f:
+        csv.writer(f).writerows([r] for r in reports)
+    labels_csv = os.path.join(out_dir, "labels.csv")
+    cmds = {
+        "chexpert_train": ["radialog_tpu_torch.apps.chexpert_train", "--mock", "--epochs", "1",
+                           "--steps", "3", "--train", "--save_preds", "--output_dir",
+                           os.path.join(out_dir, "classifier"), "--run_name", "card"],
+        "chexbert_train": ["radialog_tpu_torch.apps.run_chexbert", "train", "--mock",
+                           "--output_dir", os.path.join(out_dir, "chexbert")],
+        "chexbert_label": ["radialog_tpu_torch.apps.run_chexbert", "label", "--mock",
+                           "--reports_path", os.path.join(out_dir, "reports.csv"),
+                           "--output_path", labels_csv]}
+    t0 = time.time()
+    procs = {k: subprocess.Popen([sys.executable, "-m"] + v + ["--device", dev],
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True) for k, v in cmds.items()}
+    res = {}
+    for k, p in procs.items():
+        try:
+            so, se = p.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            so, se = p.communicate()
+        res[k] = (p.returncode, so.strip().splitlines(), se)
+    seconds = time.time() - t0
+    rc, lines, _ = res["chexpert_train"]
+    cls_dir = os.path.join(out_dir, "classifier")
+    preds_path = os.path.join(cls_dir, "structured_preds_card.json")
+    preds = {}
+    if os.path.exists(preds_path):
+        with open(preds_path) as f:
+            preds = json.load(f)
+    ok_cls = (rc == 0 and len(lines) == 3 and lines[0].startswith("class weights")
+              and sorted(json.loads(lines[1])) == ["epoch", "loss", "val_acc", "val_f1"]
+              and lines[2].startswith("wrote 8 structured predictions") and len(preds) == 8
+              and all(os.path.exists(os.path.join(cls_dir, n, "tree.pt")) for n in ("best", "last")))
+    rc, lines, _ = res["chexbert_train"]
+    ok_cbt = (rc == 0 and [ln.split(":")[0] for ln in lines] == ["step 1", "step 3", "step 5"]
+              and os.path.exists(os.path.join(out_dir, "chexbert", "best", "tree.pt")))
+    rc, lines, _ = res["chexbert_label"]
+    rows = []
+    if os.path.exists(labels_csv):
+        with open(labels_csv, newline="") as f:
+            rows = list(csv.reader(f))
+    ok_lab = (rc == 0 and lines == [f"labeled {REPORTS_LABELED} reports -> {labels_csv}"]
+              and len(rows) == REPORTS_LABELED + 1 and [r[0] for r in rows[1:]] == reports)
+    return {"seconds": seconds, "ok": {"chexpert_train": ok_cls, "chexbert_train": ok_cbt,
+                                       "chexbert_label": ok_lab},
+            "stdout": {k: v[1] for k, v in res.items()},
+            "stderr_tail": {k: v[2][-1500:] for k, v in res.items() if v[0] != 0}}
+
+
+def phase_trainers(torch, counted):
+    """The findings-classifier and CheXbert trainers: card against CPU at
+    the CPU tests' sizes, the norms audit, both at full width (timed), and
+    their three command lines on the card. No hand-written kernel runs:
+    convolutions are cuDNN's (``lax.conv`` in the JAX package), BERT's
+    attention is ``mha``."""
+    import shutil
+    _zero(counted)
+    t0 = time.time()
+    small = {"classifier": _classifier_small(torch), "chexbert": _chexbert_small(torch)}
+    ok_small = small["classifier"]["plain"]["ok"] and small["classifier"]["augment"]["ok"] \
+        and small["chexbert"]["ok"]
+    emit("trainers", part="card_vs_cpu", seconds=time.time() - t0, **small, ok=ok_small)
+    t0 = time.time()
+    audit, held = _norms_audit(torch)
+    emit("trainers", part="norms_audit", seconds=time.time() - t0, **audit, ok=held)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cls = _classifier_full(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cbt = _chexbert_full(torch)
+    emit("trainers", part="full", card=smi(), classifier=cls, chexbert=cbt,
+         ok=cls["ok"] and cbt["ok"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    out_dir = os.path.join("build", "chip_trainers")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    clis = _trainer_clis(torch, out_dir)
+    launches = _read(counted)
+    emit("trainers", part="clis", **clis, launches=launches)
+    if not (ok_small and held and cls["ok"] and cbt["ok"] and all(clis["ok"].values())) \
+            or any(launches.values()):
+        raise AssertionError("the trainers phase failed a check")
+    return launches
+
+
+# the datatools phase: tests/fixtures' 4 train studies each repeated
+# INS_REPS times, so that each of create_data's teacher calls for EL, SU and
+# RQA (its chunks of 12 prompts) fills the 12-lane ring, as the calls of a
+# run over thousands of studies do; the mock's 3 correction prompts follow
+INS_REPS = 18
+
+
+class _TimedTeacher:
+    """A pipeline's two teacher calls, timed (a synchronize after each), with
+    the tokens each generated (up to and including an EOS, as the pipeline
+    cuts them: the ring's sessions, the batch's ``lengths``) and the K2
+    launches by mask (models/llama.py's ``flash_decode_int8`` calls on the
+    card: per-lane intervals, K2', or the static-slot mask, K2)."""
+
+    def __init__(self, torch, pipe):
+        self.torch, self.pipe, self.calls, self.tokens = torch, pipe, [], 0
+        self.k2_modes = {"intervals": 0, "static": 0}
+
+    def _timed(self, kind, fn, prompts, **kw):
+        from radialog_tpu_torch.decode import continuous
+        from radialog_tpu_torch.models import llama
+        real_run, real_fd, real_ids = continuous.RingBatcher.run, llama.flash_decode_int8, \
+            self.pipe.generate_ids
+        eos, before = self.pipe.tokenizer.eos_token_id, self.tokens
+
+        def run(rb, *a, **k):
+            done = real_run(rb, *a, **k)
+            for sess in done.values():
+                toks = list(sess.tokens)
+                self.tokens += toks.index(eos) + 1 if eos in toks else len(toks)
+            return done
+
+        def flash_decode_int8(q, *a, **k):
+            if q.is_cuda and k.get("current") is None:
+                self.k2_modes["intervals" if k.get("gen_intervals") is not None
+                              else "static"] += 1
+            return real_fd(q, *a, **k)
+
+        def generate_ids(*a, **k):
+            res = real_ids(*a, **k)
+            self.tokens += int(res.lengths.sum())
+            return res
+
+        continuous.RingBatcher.run, llama.flash_decode_int8 = run, flash_decode_int8
+        self.pipe.generate_ids = generate_ids
+        try:
+            self.torch.cuda.synchronize()
+            t0 = time.time()
+            out = fn(prompts, **kw)
+            self.torch.cuda.synchronize()
+            seconds = time.time() - t0
+        finally:
+            continuous.RingBatcher.run, llama.flash_decode_int8 = real_run, real_fd
+            del self.pipe.generate_ids
+        self.calls.append({"kind": kind, "prompts": len(prompts), "seconds": seconds,
+                           "tokens": self.tokens - before,
+                           "max_new_tokens": kw.get("max_new_tokens")})
+        return out
+
+    def generate_texts_ring(self, prompts, **kw):
+        return self._timed("ring", self.pipe.generate_texts_ring, prompts, **kw)
+
+    def generate_texts(self, prompts, **kw):
+        return self._timed("batch", self.pipe.generate_texts, prompts, **kw)
+
+
+class _StubTeacher:
+    """The CPU run's teacher: the prompt and a fixed reply."""
+
+    def generate_texts_ring(self, prompts, **kw):
+        return [p + " stub reply." for p in prompts]
+
+    generate_texts = generate_texts_ring
+
+
+def _report_tree(root):
+    """A miniature MIMIC-CXR report tree (two p-groups, 9 studies in three
+    formats, 0-3 dicoms each) and its JPEG tree (empty files): the reports'
+    root, the JPEGs' root and each study's dicom ids in the walk's order."""
+    import random
+    head = "                                 FINAL REPORT\n"
+    texts = [head + " EXAMINATION:  CHEST (PA AND LAT)\n \n INDICATION:  Cough.\n \n "
+             "COMPARISON:  None.\n \n FINDINGS: \n \n The lungs are clear.\n \n IMPRESSION: "
+             "\n \n No acute process.\n",
+             " The heart is mildly enlarged.\n \n No acute cardiopulmonary process.\n",
+             head + " HISTORY:  Fever.\n \n FINDNGS:  Right effusion.\n \n IMPRESSON:  "
+             "Pneumonia.\n"]
+    r = random.Random(0)
+    n, studies = 0, []
+    for grp, patients in (("p11", ("p11000003", "p11000001")), ("p10", ("p10000002",))):
+        for patient in patients:
+            for _ in range(3):
+                stem = f"s5{n:07d}"
+                os.makedirs(os.path.join(root, "reports", grp, patient), exist_ok=True)
+                with open(os.path.join(root, "reports", grp, patient, stem + ".txt"), "w") as f:
+                    f.write(texts[n % 3])
+                img = os.path.join(root, "jpgs", grp, patient, stem)
+                os.makedirs(img)
+                dicoms = [f"{n:03d}-{d}" for d in range(r.randint(0, 3))]
+                for d in dicoms:
+                    open(os.path.join(img, d + ".jpg"), "wb").close()
+                studies.append((grp, patient, stem, dicoms))
+                n += 1
+    return os.path.join(root, "reports"), os.path.join(root, "jpgs"), studies
+
+
+def _replicated_fixtures(src, dst, reps):
+    """tests/fixtures with each train study's rows repeated ``reps`` times
+    under new dicom ids (``dcm008_00`` ...) in split.csv, sectioned.csv,
+    chexpert.csv and preds.json, the other splits' rows once. Returns the
+    number of train studies written."""
+    import csv
+    os.makedirs(dst, exist_ok=True)
+    with open(os.path.join(src, "split.csv"), newline="") as f:
+        train = {r["dicom_id"] for r in csv.DictReader(f) if r["split"] == "train"}
+
+    def ids(d):
+        return [f"{d}_{k:02d}" for k in range(reps)] if d in train else [d]
+
+    for name in ("split.csv", "sectioned.csv", "chexpert.csv"):
+        with open(os.path.join(src, name), newline="") as f:
+            rows = list(csv.reader(f))
+        col = rows[0].index("dicom_id")
+        with open(os.path.join(dst, name), "w", newline="") as f:
+            w = csv.writer(f)
+            w.writerow(rows[0])
+            w.writerows(r[:col] + [d] + r[col + 1:] for r in rows[1:] for d in ids(r[col]))
+    with open(os.path.join(src, "preds.json")) as f:
+        preds = json.load(f)
+    with open(os.path.join(dst, "preds.json"), "w") as f:
+        json.dump({d: v for k, v in preds.items() for d in ids(k)}, f)
+    return len(train) * reps
+
+
+def phase_datatools(torch, sl, counted):
+    """The data tools: create_sections over a report tree the phase writes
+    (one row per dicom, the walk's order, the header's columns, the sections
+    of the formatted reports), create_data --mode RG over tests/fixtures,
+    and --mode INS over those fixtures with each train study repeated
+    INS_REPS times, with the slice's Vicuna-7B-width W8A8 pipeline as the
+    teacher through generate_texts_ring (12 lanes, the int8 ring: K1, and
+    K2 only under per-lane intervals, K2') and with --teacher batch through
+    generate_texts (K1, and K2 only under the static-slot mask), 64 new
+    tokens (the mock's cut of the CLI's 256, for the script's time); the
+    fused JSON's tasks as many as a CPU run's with a stub teacher; the
+    teacher's tokens/s over all its calls."""
+    import csv
+    import io
+    import shutil
+    from radialog_tpu_torch.apps import create_data, create_sections
+    from radialog_tpu_torch.data.section_parser import SECTIONED_COLUMNS
+    root = os.path.join("build", "chip_datatools")
+    shutil.rmtree(root, ignore_errors=True)
+    reports, jpgs, studies = _report_tree(root)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        create_sections.main(["--reports_path", reports, "--mimic_cxr_jpg_path", jpgs,
+                              "--output_path", os.path.join(root, "sections")])
+    sections_csv = os.path.join(root, "sections", "mimic_cxr_sectioned.csv")
+    with open(sections_csv, newline="") as f:
+        rows = list(csv.DictReader(f))
+    # the walk is sorted by p-group, patient and study; a study's dicoms in
+    # the listing's order, compared as a set
+    walk = sorted(studies)
+    ok_sections = (
+        buf.getvalue().strip() == f"wrote {len(rows)} rows -> {sections_csv}"
+        and list(rows[0]) == list(SECTIONED_COLUMNS)
+        and [r["Note_file"] for r in rows] == [f"{st}.txt" for _, _, st, ds in walk for _ in ds]
+        and sorted(r["dicom_id"] for r in rows) == sorted(d for *_, ds in walk for d in ds)
+        and all(r["Img_Folder"] == f"files/{g}/{p}/{st}" and r["Img_Filename"] ==
+                r["dicom_id"] + ".jpg" for r in rows for g, p, st, _ in walk
+                if r["Note_file"] == f"{st}.txt")
+        and all(r["findings"] == "The lungs are clear." and r["impression"] == "No acute process."
+                for r in rows if int(r["Note_file"][2:-4]) % 3 == 0))
+    fixtures = os.path.join("tests", "fixtures")
+    with contextlib.redirect_stdout(io.StringIO()):
+        create_data.main(["--mode", "RG", "--fixture-dir", fixtures, "--output-dir",
+                          os.path.join(root, "rg")])
+    with open(os.path.join(root, "rg", "mimic_cxr_reports_stratified.json")) as f:
+        rg = json.load(f)
+    ok_rg = bool(rg) and all(r["task"] == "RG" and r["output"] for r in rg)
+    ins_fixtures = os.path.join(root, "ins_fixtures")
+    train_studies = _replicated_fixtures(fixtures, ins_fixtures, INS_REPS)
+
+    def ins(tag, teacher, extra=()):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            create_data.main(["--mode", "INS", "--mock", "--fixture-dir", ins_fixtures,
+                              "--output-dir", os.path.join(root, tag), *extra],
+                             teacher_pipeline=teacher)
+        with open(os.path.join(root, tag, "mimic_cxr_instruct_stratified.json")) as f:
+            fused = json.load(f)
+        counts = {}
+        for r in fused:
+            counts[r["task"]] = counts.get(r["task"], 0) + 1
+        return fused, counts, buf.getvalue().strip().splitlines()
+
+    runs = {}
+    for tag, extra in (("ring", ()), ("batch", ("--teacher", "batch"))):
+        teacher = _TimedTeacher(torch, sl["pipe"])
+        _zero(counted)
+        t0 = time.time()
+        fused, counts, lines = ins(tag, teacher, extra)
+        secs = sum(c["seconds"] for c in teacher.calls)
+        runs[tag] = {"seconds": time.time() - t0, "task_counts": counts, "lines": lines,
+                     "teacher_calls": teacher.calls, "teacher_seconds": secs,
+                     "teacher_tokens": teacher.tokens,
+                     "teacher_tokens_per_s": teacher.tokens / secs,
+                     "k2_calls_by_mask": teacher.k2_modes, "launches": _read(counted),
+                     "outputs_nonempty": all(r["output"] for r in fused)}
+    _, stub_counts, _ = ins("cpu_stub", _StubTeacher())
+    mode = {"ring": "intervals", "batch": "static"}
+    ok_ins = {tag: (r["task_counts"] == stub_counts and r["outputs_nonempty"]
+                    and r["launches"]["q8_matmul"] > 0
+                    and r["launches"]["flash_decode_int8"] > 0
+                    and r["k2_calls_by_mask"][mode[tag]] == r["launches"]["flash_decode_int8"]
+                    and sum(r["k2_calls_by_mask"].values()) == r["launches"]["flash_decode_int8"]
+                    and sum(c["prompts"] == 12 for c in r["teacher_calls"]) >= 3
+                    and all(c["kind"] == tag and c["max_new_tokens"] == 64 and c["tokens"] > 0
+                            for c in r["teacher_calls"]))
+              for tag, r in runs.items()}
+    emit("datatools", sections_rows=len(rows), rg_examples=len(rg),
+         ins_train_studies=train_studies, stub_task_counts=stub_counts, card=smi(), **runs,
+         ok={"sections": ok_sections, "rg": ok_rg, **ok_ins})
+    if not (ok_sections and ok_rg and all(ok_ins.values())):
+        raise AssertionError("the datatools phase failed a check")
+    return {tag: r["launches"] for tag, r in runs.items()}
+
+
 # the ckpt phase: Vicuna-7B v1.3's published shapes (32,000 embedding rows, one
 # short of the port's vocab 32,001 with <IMG> = 32,000), the adapter's rank
 # and alpha, the beam run, the trainer's steps; bytes of free disk it needs
@@ -4149,7 +4883,7 @@ def _ckpt_w8a8(torch, pipeline_mod, paths, small, counted):
     _zero(counted)
     torch.cuda.synchronize()
     t0 = time.time()
-    findings, embs, res = report_step(NEW)
+    findings, embs, res = report_step(CKPT_NEW)
     tokens = res.tokens.cpu()
     dt = time.time() - t0
     report_launches = _read(counted)
@@ -4162,13 +4896,14 @@ def _ckpt_w8a8(torch, pipeline_mod, paths, small, counted):
         _, no_img = te.prefill(pipe.llama, pipe.llama_cfg, torch.as_tensor(toks, device="cuda"),
                                torch.as_tensor(lens, device="cuda"), toks.shape[1] + 8,
                                lora=pipe.lora, policy=pipe.policy)
-    report = {"reports_per_s": BATCH / dt, "seconds": dt, "launches": report_launches,
+    report = {"reports_per_s": BATCH / dt, "seconds": dt, "new_tokens": CKPT_NEW,
+              "launches": report_launches,
               "logits_finite": bool(torch.isfinite(first).all()),
               # JAX's jnp.take fills the <IMG> row past the 32,000-row table with NaN
               "logits_without_image_nan": bool(torch.isnan(no_img).all()),
               "embs_finite": bool(torch.isfinite(embs).all()),
               "distinct_tokens": int(tokens.unique().numel())}
-    ok_report = (tokens.shape == (BATCH, NEW) and int(tokens.max()) < CKPT_VOCAB
+    ok_report = (tokens.shape == (BATCH, CKPT_NEW) and int(tokens.max()) < CKPT_VOCAB
                  and report["logits_finite"] and report["embs_finite"]
                  and report["logits_without_image_nan"] and len(findings) == BATCH
                  and report_launches["q8_matmul"] > 0 and report_launches["flash_decode_int8"] > 0)
@@ -4308,23 +5043,20 @@ def _ckpt_train(torch, tfa, root, paths):
 
 
 def _ckpt_w4_pack(torch):
-    """Seconds of pack_q4 (the host packer of --w4) for one full-width layer
-    of the written checkpoint, by projection; the 32-layer cost is 32 x."""
-    import numpy as np
+    """Seconds of pack_q4 (the host packer of --w4) for the o_proj of the
+    written checkpoint's layer 0 (4096 x 4096), and the layer's and the 32
+    layers' by its weights: the packer's cost grows with the weights (PR
+    13-15 timed every projection of a layer: 0.153-0.170 s a million
+    weights; one projection since PR 16, for the script's time)."""
     from radialog_tpu_torch.ops.q4_matmul import pack_q4
     sd = _vicuna_layer(torch, 0)
-    t = {k: v.float().T.numpy() for k, v in sd.items() if v.ndim == 2}
-    parts = {"wqkv": np.concatenate([t["self_attn.q_proj.weight"], t["self_attn.k_proj.weight"],
-                                     t["self_attn.v_proj.weight"]], -1),
-             "gateup": np.concatenate([t["mlp.gate_proj.weight"], t["mlp.up_proj.weight"]], -1),
-             "wo": t["self_attn.o_proj.weight"], "down": t["mlp.down_proj.weight"]}
-    seconds = {}
-    for name, w in parts.items():
-        t0 = time.time()
-        pack_q4(w)
-        seconds[name] = time.time() - t0
-    layer = sum(seconds.values())
-    emit("ckpt", part="w4_pack", seconds_per_projection=seconds, seconds_per_layer=layer,
+    w = sd["self_attn.o_proj.weight"].float().T.numpy()
+    per_layer = sum(v.numel() for v in sd.values() if v.ndim == 2)
+    t0 = time.time()
+    pack_q4(w)
+    wo = time.time() - t0
+    layer = wo * per_layer / w.size
+    emit("ckpt", part="w4_pack", seconds_wo=wo, seconds_per_layer_estimated=layer,
          seconds_32_layers_estimated=32 * layer, ok=True)
     return layer
 
@@ -4443,6 +5175,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     serve_launches, serve4_launches = phase_serve(torch, tq8, tfd, tfa, tq4, sl)
+    gc.collect()
+    torch.cuda.empty_cache()
+    datatools_launches = phase_datatools(torch, sl, {
+        "q8_matmul": tq8.q8_matmul_int32, "flash_decode_int8": tfd.flash_decode_int8_kernel,
+        "flash_attention": tfa.flash_attention_kernel})
     del sl                                  # the W8A8 weights make room for the float ones
     gc.collect()                            # the servers' reference cycles hold their params
     torch.cuda.empty_cache()
@@ -4462,6 +5199,9 @@ def main() -> int:
                     "q4_matmul": tq4.q4_matmul_acc, "w4_int32_split": tw.w4_int32_split,
                     "w4_int32": tw.w4_int32}
     stage1_launches = phase_stage1(torch, pipeline_mod, every_kernel)
+    gc.collect()
+    torch.cuda.empty_cache()
+    trainers_launches = phase_trainers(torch, every_kernel)
     gc.collect()
     torch.cuda.empty_cache()
     ckpt = phase_ckpt(torch, pipeline_mod, tq8, tfd, tfa)
@@ -4600,9 +5340,19 @@ def main() -> int:
          "replaces": "tools/microbench_w4.py:153", **t3,
          "work": "as w4_int32_split with whole activation rows"},
     ]
-    for k in kernels:       # the stage1 phase's launches (the intervals mode is K2's counter)
-        k["launches_stage1"] = stage1_launches[{"flash_decode_int8_intervals":
-                                                "flash_decode_int8"}.get(k["name"], k["name"])]
+    for k in kernels:       # the stage1 and trainers phases' launches (the intervals mode is K2's counter)
+        counter = {"flash_decode_int8_intervals": "flash_decode_int8"}.get(k["name"], k["name"])
+        k["launches_stage1"] = stage1_launches[counter]
+        k["launches_trainers"] = trainers_launches[counter]
+    # the datatools phase's teacher: the ring (K2' is K2's counter there, every
+    # launch checked to be under per-lane intervals) and the batch
+    by_name = {k["name"]: k for k in kernels}
+    for name, counter, runs in (("q8_matmul", "q8_matmul", ("ring", "batch")),
+                                ("flash_decode_int8_intervals", "flash_decode_int8", ("ring",)),
+                                ("flash_decode_int8", "flash_decode_int8", ("batch",)),
+                                ("flash_attention", "flash_attention", ("ring", "batch"))):
+        for run in runs:
+            by_name[name][f"launches_datatools_{run}"] = datatools_launches[run][counter]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -31,7 +31,7 @@ import torch
 from ..models.llama import LlamaConfig, find_img_start, init_cache, llama_apply
 from ..ops.attention import causal_mask_bias
 from ..ops.layers import DTypePolicy, FP32
-from .engine import DecodeParams, decode_loop
+from .engine import DecodeParams, decode_loop, decode_step
 from .speculative import spec_decode_loop
 
 
@@ -103,6 +103,28 @@ class InteractiveSession:
         self._last_logits = logits[:, 0]
         self.cur_len += tn
         self.token_ids.extend(ids)
+
+    @torch.no_grad()
+    def feed_pending(self) -> None:
+        """Feed the reply's pending last token through one decode step at
+        the current offset, as an uninterrupted decode feeds it (the same
+        position, mask and row count), so the next ``generate`` continues
+        bitwise that decode. ``append_tokens([])`` would feed it as a
+        16-row prefill block, whose bf16 GEMMs round apart from the decode
+        step's single row."""
+        if len(self._pending_tail) != 1:
+            self.append_tokens([])
+            return
+        tok = self._pending_tail.pop()
+        if self.cur_len + 1 > self.cache_len:
+            raise ValueError(f"conversation overflow: {self.cur_len}+1 > {self.cache_len}")
+        lens = torch.full((1,), self.cur_len, dtype=torch.int32, device=self.device)
+        self._last_logits = decode_step(
+            self.params, self.cfg, self.cache,
+            torch.tensor([tok], dtype=torch.int32, device=self.device), lens, self.cur_len, 0,
+            lora=self.lora, policy=self.policy)
+        self.cur_len += 1
+        self.token_ids.append(tok)
 
     def _commit(self, res, eos: int) -> List[int]:
         """Take a reply: KV is written for all its tokens but the last,

@@ -1,8 +1,12 @@
-"""BioViL-T image model, eval mode (port of radialog_tpu/models/biovil_t.py).
+"""BioViL-T image model (port of radialog_tpu/models/biovil_t.py).
 
   image (B,448,448,3) --resnet50--> (B,14,14,2048) --1x1--> patch_x (256)
   no prior: diff = broadcast missing_previous_emb; else vit_pooler
   patch_fused = [patch_x, diff] (512) -> projector 512 -> J -> J
+
+Eval (the default) reads the BatchNorm running stats; ``train=True`` uses
+batch statistics in the trunk and the projector's ``proj_bn`` and returns
+the new state beside the outputs.
 """
 from __future__ import annotations
 
@@ -44,25 +48,36 @@ def biovil_t_init(gen, device, joint_feature_size: int = 128,
 
 def biovil_t_apply(params: Dict, state: Dict, current: torch.Tensor,
                    previous: Optional[torch.Tensor] = None,
-                   policy: DTypePolicy = FP32) -> ImageModelOutput:
-    """current/previous (B,H,W,3) float in [0,1]."""
+                   policy: DTypePolicy = FP32, train: bool = False,
+                   gen: Optional[torch.Generator] = None):
+    """current/previous (B,H,W,3) float in [0,1] -> ImageModelOutput; with
+    ``train``, (outputs, new state). ``gen`` drives the ViT pooler's
+    dropout (a prior image in training only)."""
+    new_state: Dict = {}
+    both = current if previous is None else torch.cat([current, previous], dim=0)
+    feats = resnet_apply(params["resnet"], state["resnet"], both, policy, train=train)
+    if train:
+        feats, new_state["resnet"] = feats
+    feats = conv2d(params["backbone_to_vit"], feats, 1, "SAME", policy=policy)
     if previous is not None:
-        feats = resnet_apply(params["resnet"], state["resnet"],
-                             torch.cat([current, previous], dim=0), policy)
-        feats = conv2d(params["backbone_to_vit"], feats, 1, "SAME", policy=policy)
         b = current.shape[0]
         patch_x = feats[:b]
-        diff = vit_pooler_apply(params["vit_pooler"], patch_x, feats[b:], policy=policy)
+        diff = vit_pooler_apply(params["vit_pooler"], patch_x, feats[b:], policy=policy,
+                                train=train, gen=gen)
     else:
-        feats = resnet_apply(params["resnet"], state["resnet"], current, policy)
-        patch_x = conv2d(params["backbone_to_vit"], feats, 1, "SAME", policy=policy)
+        patch_x = feats
         diff = params["missing_previous_emb"].to(patch_x.dtype).expand(patch_x.shape)
     patch_fused = torch.cat([patch_x, diff], dim=-1)
     pooled = global_avg_pool(patch_fused)
     proj = conv2d(params["proj1"], patch_fused, 1, "SAME", policy=policy)
-    proj = torch.relu(batchnorm(params["proj_bn"], state["proj_bn"], proj))
-    proj = conv2d(params["proj2"], proj, 1, "SAME", policy=policy)
-    return ImageModelOutput(pooled, patch_fused, proj, proj.mean(dim=(1, 2)))
+    if train:
+        proj, new_state["proj_bn"] = batchnorm(params["proj_bn"], state["proj_bn"], proj,
+                                               train=True)
+    else:
+        proj = batchnorm(params["proj_bn"], state["proj_bn"], proj)
+    proj = conv2d(params["proj2"], torch.relu(proj), 1, "SAME", policy=policy)
+    out = ImageModelOutput(pooled, patch_fused, proj, proj.mean(dim=(1, 2)))
+    return (out, new_state) if train else out
 
 
 def patch_tokens_for_qformer(projected_patch: torch.Tensor) -> torch.Tensor:

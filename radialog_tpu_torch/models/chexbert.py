@@ -1,5 +1,6 @@
 """CheXbert report labeler: BERT-base + 14 classification heads on the CLS
-token (port of radialog_tpu/models/chexbert.py, inference).
+token (port of radialog_tpu/models/chexbert.py). In training the encoder
+drops out as models/bert.py says and the CLS row at 0.1.
 
 Heads: 13 x 4-class (blank / positive / negative / uncertain) + 1 x 2-class
 ("No Finding"), in CHEXBERT_CONDITIONS order. Labels: argmax 0 -> blank
@@ -8,13 +9,13 @@ Heads: 13 x 4-class (blank / positive / negative / uncertain) + 1 x 2-class
 """
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from ..eval.ce_metrics import CHEXBERT_CONDITIONS, map_labels_for_scoring
-from ..ops.layers import DTypePolicy, FP32, linear, linear_init
+from ..ops.layers import DTypePolicy, FP32, dropout, linear, linear_init
 from .bert import BertConfig, bert_apply, bert_init
 
 
@@ -24,10 +25,13 @@ def chexbert_init(gen: torch.Generator, cfg: BertConfig = BertConfig(), device="
 
 
 def chexbert_apply(p: Dict, cfg: BertConfig, input_ids: torch.Tensor,
-                   attention_mask: torch.Tensor, policy: DTypePolicy = FP32) -> List[torch.Tensor]:
+                   attention_mask: torch.Tensor, policy: DTypePolicy = FP32,
+                   train: bool = False,
+                   gen: Optional[torch.Generator] = None) -> List[torch.Tensor]:
     """14 logits tensors: 13 x (B,4) + 1 x (B,2), f32."""
-    hidden = bert_apply(p["bert"], cfg, input_ids, attention_mask, policy=policy)
-    cls = hidden[:, 0, :]
+    hidden = bert_apply(p["bert"], cfg, input_ids, attention_mask, policy=policy,
+                        train=train, gen=gen)
+    cls = dropout(hidden[:, 0, :], 0.1, train, gen)
     return [linear(hp, cls, policy).float() for hp in p["heads"]]
 
 

@@ -1,7 +1,9 @@
-"""ResNet-18/50 trunk, NHWC, eval mode (port of radialog_tpu/models/resnet.py).
+"""ResNet-18/50 trunk, NHWC (port of radialog_tpu/models/resnet.py).
 
 Returns the penultimate feature map: (B, H/32, W/32, C) — 14x14x2048 for a
-448 input to ResNet-50, 16x16 for the classifier's 488 crop.
+448 input to ResNet-50, 16x16 for the classifier's 488 crop. In eval (the
+default) BatchNorm reads the running stats; ``train=True`` normalizes with
+batch statistics and also returns the new BatchNorm state.
 """
 from __future__ import annotations
 
@@ -32,16 +34,25 @@ def _bottleneck_init(gen, in_ch: int, width: int, stride: int, device) -> Tuple[
     return p, s
 
 
-def _bottleneck(p, s, x, stride: int, policy: DTypePolicy):
-    y = torch.relu(batchnorm(p["bn1"], s["bn1"], conv2d(p["conv1"], x, 1, "SAME", policy=policy)))
-    y = torch.relu(batchnorm(p["bn2"], s["bn2"], conv2d(p["conv2"], y, stride, 1, policy=policy)))
-    y = batchnorm(p["bn3"], s["bn3"], conv2d(p["conv3"], y, 1, "SAME", policy=policy))
+def _bn(p, s, ns, name: str, y, train: bool):
+    """BatchNorm ``name`` of a block; in train mode its new state goes to ns."""
+    if not train:
+        return batchnorm(p[name], s[name], y)
+    y, ns[name] = batchnorm(p[name], s[name], y, train=True)
+    return y
+
+
+def _bottleneck(p, s, x, stride: int, policy: DTypePolicy, train: bool):
+    ns: Dict = {}
+    y = torch.relu(_bn(p, s, ns, "bn1", conv2d(p["conv1"], x, 1, "SAME", policy=policy), train))
+    y = torch.relu(_bn(p, s, ns, "bn2", conv2d(p["conv2"], y, stride, 1, policy=policy), train))
+    y = _bn(p, s, ns, "bn3", conv2d(p["conv3"], y, 1, "SAME", policy=policy), train)
     if "down_conv" in p:
-        idn = batchnorm(p["down_bn"], s["down_bn"],
-                        conv2d(p["down_conv"], x, stride, "SAME", policy=policy))
+        idn = _bn(p, s, ns, "down_bn",
+                  conv2d(p["down_conv"], x, stride, "SAME", policy=policy), train)
     else:
         idn = x
-    return torch.relu(y + idn)
+    return torch.relu(y + idn), ns
 
 
 def _basic_init(gen, in_ch: int, width: int, stride: int, device) -> Tuple[dict, dict]:
@@ -57,15 +68,16 @@ def _basic_init(gen, in_ch: int, width: int, stride: int, device) -> Tuple[dict,
     return p, s
 
 
-def _basic(p, s, x, stride: int, policy: DTypePolicy):
-    y = torch.relu(batchnorm(p["bn1"], s["bn1"], conv2d(p["conv1"], x, stride, 1, policy=policy)))
-    y = batchnorm(p["bn2"], s["bn2"], conv2d(p["conv2"], y, 1, 1, policy=policy))
+def _basic(p, s, x, stride: int, policy: DTypePolicy, train: bool):
+    ns: Dict = {}
+    y = torch.relu(_bn(p, s, ns, "bn1", conv2d(p["conv1"], x, stride, 1, policy=policy), train))
+    y = _bn(p, s, ns, "bn2", conv2d(p["conv2"], y, 1, 1, policy=policy), train)
     if "down_conv" in p:
-        idn = batchnorm(p["down_bn"], s["down_bn"],
-                        conv2d(p["down_conv"], x, stride, "SAME", policy=policy))
+        idn = _bn(p, s, ns, "down_bn",
+                  conv2d(p["down_conv"], x, stride, "SAME", policy=policy), train)
     else:
         idn = x
-    return torch.relu(y + idn)
+    return torch.relu(y + idn), ns
 
 
 def resnet_init(gen, device, layers: Tuple[int, ...] = RESNET50_LAYERS,
@@ -91,14 +103,20 @@ def resnet_init(gen, device, layers: Tuple[int, ...] = RESNET50_LAYERS,
     return p, s
 
 
-def resnet_apply(p: dict, s: dict, x: torch.Tensor, policy: DTypePolicy = FP32) -> torch.Tensor:
-    """x (B,H,W,3) -> x4 feature map (B,H/32,W/32,C). Block type is read
+def resnet_apply(p: dict, s: dict, x: torch.Tensor, policy: DTypePolicy = FP32,
+                 train: bool = False):
+    """x (B,H,W,3) -> x4 feature map (B,H/32,W/32,C); with ``train``,
+    (x4, new BatchNorm state) in the layout of ``s``. Block type is read
     from the parameter tree."""
     block_fn = _bottleneck if "conv3" in p["layer1"][0] else _basic
-    y = torch.relu(batchnorm(p["bn1"], s["bn1"], conv2d(p["conv1"], x, 2, 3, policy=policy)))
+    ns: Dict = {}
+    y = torch.relu(_bn(p, s, ns, "bn1", conv2d(p["conv1"], x, 2, 3, policy=policy), train))
     y = max_pool2d(y, 3, 2, 1)
     for stage in range(1, 5):
+        blocks_ns = []
         for b, (bp, bs) in enumerate(zip(p[f"layer{stage}"], s[f"layer{stage}"])):
             stride = 2 if (b == 0 and stage > 1) else 1
-            y = block_fn(bp, bs, y, stride, policy)
-    return y
+            y, bns = block_fn(bp, bs, y, stride, policy, train)
+            blocks_ns.append(bns)
+        ns[f"layer{stage}"] = blocks_ns
+    return (y, ns) if train else y

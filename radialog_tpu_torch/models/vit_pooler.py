@@ -1,7 +1,9 @@
 """Vision-transformer pooler fusing current + prior patch grids (port of
-radialog_tpu/models/vit_pooler.py, inference only). RaDialog never passes
-a prior image, so the main path does not run it; BioViL-T takes it when a
-prior is given."""
+radialog_tpu/models/vit_pooler.py). RaDialog never passes a prior image, so
+the main path does not run it; BioViL-T takes it when a prior is given. In
+training it drops out at 0.1 at three places (the tokens, each block's
+attention output and MLP output) when a generator is given, as the JAX
+package does when a key is given."""
 from __future__ import annotations
 
 import math
@@ -10,8 +12,10 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..ops.attention import mha
-from ..ops.layers import (DTypePolicy, FP32, gelu_exact, layernorm, layernorm_init,
-                          linear, linear_init, normal)
+from ..ops.layers import (DTypePolicy, FP32, dropout, gelu_exact, layernorm,
+                          layernorm_init, linear, linear_init, normal)
+
+DROPOUT = 0.10
 
 
 def sine_position_embedding(grid: Tuple[int, int], dim_per_axis: int = 128,
@@ -51,21 +55,25 @@ def vit_pooler_init(gen, device, dim: int = 256, grid: Tuple[int, int] = (14, 14
             "_pos": sine_position_embedding(grid, dim // 2, device=device)}
 
 
-def _block(p, x, emb, num_heads: int, policy: DTypePolicy) -> torch.Tensor:
+def _block(p, x, emb, num_heads: int, policy: DTypePolicy, train: bool,
+           gen: Optional[torch.Generator]) -> torch.Tensor:
     b, n, c = x.shape
     hd = c // num_heads
     xe = layernorm(p["norm1"], x, eps=1e-6) + emb
     q = linear(p["q"], xe, policy).reshape(b, n, num_heads, hd)
     k = linear(p["k"], xe, policy).reshape(b, n, num_heads, hd)
     v = linear(p["v"], xe, policy).reshape(b, n, num_heads, hd)
-    x = x + linear(p["proj"], mha(q, k, v).reshape(b, n, c), policy)
+    o = linear(p["proj"], mha(q, k, v).reshape(b, n, c), policy)
+    x = x + dropout(o, DROPOUT, train, gen)
     h = gelu_exact(linear(p["fc1"], layernorm(p["norm2"], x, eps=1e-6), policy))
-    return x + linear(p["fc2"], h, policy)
+    return x + dropout(linear(p["fc2"], h, policy), DROPOUT, train, gen)
 
 
 def vit_pooler_apply(p: Dict, current: torch.Tensor,
                      previous: Optional[torch.Tensor] = None,
-                     num_heads: int = 8, policy: DTypePolicy = FP32) -> torch.Tensor:
+                     num_heads: int = 8, policy: DTypePolicy = FP32,
+                     train: bool = False,
+                     gen: Optional[torch.Generator] = None) -> torch.Tensor:
     """current/previous (B,H,W,C) -> fused current grid (B,H,W,C)."""
     b, h, w, c = current.shape
     n = h * w
@@ -75,7 +83,8 @@ def vit_pooler_apply(p: Dict, current: torch.Tensor,
     if previous is not None:
         x = torch.cat([x, previous.reshape(b, n, c)], dim=1)
         emb = torch.cat([emb, pos + p["type_embed"][1][None, None, :]], dim=1)
+    x = dropout(x, DROPOUT, train, gen)
     for bp in p["blocks"]:
-        x = _block(bp, x, emb, num_heads, policy)
+        x = _block(bp, x, emb, num_heads, policy, train, gen)
     x = layernorm(p["norm_post"], x, eps=1e-6)
     return x[:, :n].reshape(b, h, w, c)

@@ -13,6 +13,7 @@ float32 policy computes in full float32 on the card as on the CPU.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional, Sequence, Tuple
 
@@ -48,6 +49,22 @@ def upcast(x: torch.Tensor) -> torch.Tensor:
     return x if x.dtype == torch.float64 else x.float()
 
 
+@functools.lru_cache(maxsize=256)
+def _scalar(value: float, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    with torch.inference_mode(False):   # usable in autograd whoever made it first
+        return torch.full((), value, dtype=dtype, device=device)
+
+
+def div_scalar(x: torch.Tensor, value: float) -> torch.Tensor:
+    """``x / value`` as an IEEE division, as numpy, JAX and PyTorch's CPU
+    divide, for an elementwise division whose result must agree bitwise
+    across devices (dropout's mask replay). PyTorch's CUDA division by a
+    Python scalar multiplies by the scalar's reciprocal, which rounds
+    differently; the divisor here is a 0-dim tensor of x's dtype kept on
+    each device, so no call copies it from the host."""
+    return x / _scalar(float(value), x.device, x.dtype)
+
+
 # --------------------------------------------------------------------- init
 def normal(gen: torch.Generator, shape: Sequence[int], std: float,
            device, dtype=torch.float32) -> torch.Tensor:
@@ -55,6 +72,26 @@ def normal(gen: torch.Generator, shape: Sequence[int], std: float,
     device), cast to ``dtype``."""
     x = torch.randn(tuple(shape), generator=gen, device=device, dtype=torch.float32)
     return (x * std).to(dtype)
+
+
+def normal_init(gen: torch.Generator, shape: Sequence[int], std: float = 1.0,
+                device="cpu", dtype=torch.float32) -> torch.Tensor:
+    """N(0, std^2) init draw, in the JAX package's argument order."""
+    return normal(gen, shape, std, device, dtype)
+
+
+def trunc_normal(gen: torch.Generator, shape: Sequence[int], std: float = 0.02,
+                 device="cpu", dtype=torch.float32) -> torch.Tensor:
+    """Normal draws truncated to (-2 std, 2 std) (timm's trunc_normal_
+    convention), by rejection as the JAX package draws them: standard normal
+    draws outside (-2, 2) are dropped and more are drawn until there are
+    enough."""
+    n = math.prod(shape)
+    kept = torch.empty(0, device=device)
+    while kept.numel() < n:     # ~4.6 % of draws fall outside
+        draw = torch.randn(int(n * 1.1) + 16, generator=gen, device=device)
+        kept = torch.cat([kept, draw[(draw > -2.0) & (draw < 2.0)]])
+    return (std * kept[:n].reshape(tuple(shape))).to(dtype)
 
 
 def linear_init(gen, in_dim: int, out_dim: int, device, bias: bool = True,
@@ -139,12 +176,32 @@ def conv2d(p: dict, x: torch.Tensor, stride=1, padding="SAME", dilation: int = 1
 
 
 # -------------------------------------------------------------------- norms
-def batchnorm(p: dict, s: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """Eval-mode BatchNorm over all axes but the last (running stats)."""
+def batchnorm(p: dict, s: dict, x: torch.Tensor, train: bool = False,
+              momentum: float = 0.1, eps: float = 1e-5):
+    """BatchNorm over all axes but the last.
+
+    Eval (the default) normalizes with the running stats and returns y.
+    ``train=True`` normalizes with the batch's mean and biased variance (in
+    f32; f64 stays f64) and returns (y, new_state): the running stats move
+    by ``run = (1 - m) * run + m * batch``, the variance's with the unbiased
+    factor n / (n - 1) (n = x.numel() / x.shape[-1]), and ``count`` by 1,
+    as torch's BatchNorm and the JAX package update them. The new state
+    carries no autograd history."""
     xf = upcast(x)
-    inv = torch.rsqrt(s["var"].to(xf.dtype) + eps)
-    y = (xf - s["mean"].to(xf.dtype)) * inv * p["scale"].to(xf.dtype) + p["bias"].to(xf.dtype)
-    return y.to(x.dtype)
+    if train:
+        dims = tuple(range(x.ndim - 1))
+        mu = xf.mean(dims)
+        var = xf.var(dims, unbiased=False)
+        n = x.numel() / x.shape[-1]
+        unbiased = var.detach() * (n / max(n - 1, 1))
+        new_s = {"mean": (1 - momentum) * s["mean"] + momentum * mu.detach(),
+                 "var": (1 - momentum) * s["var"] + momentum * unbiased,
+                 "count": s["count"] + 1.0}
+    else:
+        mu, var = s["mean"].to(xf.dtype), s["var"].to(xf.dtype)
+    inv = torch.rsqrt(var + eps)
+    y = ((xf - mu) * inv * p["scale"].to(xf.dtype) + p["bias"].to(xf.dtype)).to(x.dtype)
+    return (y, new_s) if train else y
 
 
 def layernorm(p: dict, x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -183,6 +240,23 @@ def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 def gelu_exact(x: torch.Tensor) -> torch.Tensor:
     """erf-based GELU."""
     return F.gelu(x, approximate="none")
+
+
+def dropout(x: torch.Tensor, rate: float, train: bool,
+            gen: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout with a Bernoulli(1 - rate) keep-mask drawn from
+    ``gen`` (on x's device). The identity unless training with a rate above
+    0 and a generator, as the JAX package's dropout without a key."""
+    if not train or rate <= 0.0 or gen is None:
+        return x
+    return apply_dropout_mask(x, torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - rate,
+                              rate)
+
+
+def apply_dropout_mask(x: torch.Tensor, keep_mask: torch.Tensor, rate: float) -> torch.Tensor:
+    """x divided by 1 - rate (``div_scalar``) where ``keep_mask``, else 0,
+    in x's dtype: the JAX package's arithmetic, for any mask."""
+    return torch.where(keep_mask, div_scalar(x, 1.0 - rate), torch.zeros_like(x)).to(x.dtype)
 
 
 def max_pool2d(x: torch.Tensor, window: int, stride: int, padding: int = 0) -> torch.Tensor:

@@ -16,8 +16,10 @@ def stream_chunks(session, dp, chunk_size: int = 16,
 
     Each chunk is one decode of up to ``chunk_size`` tokens; the cache
     persists between chunks, and the chunk's last token (pending, not yet
-    fed through the model) is fed by an incremental prefill that gives the
-    logits of the next chunk's first token."""
+    fed through the model) is fed by one decode step that gives the logits
+    of the next chunk's first token, so the chunks are bitwise one decode's
+    tokens (JAX feeds it by an incremental prefill, whose rows round apart
+    in bf16)."""
     produced = 0
     while produced < max_new_tokens:
         n = min(chunk_size, max_new_tokens - produced, max(1, session.remaining - 1))
@@ -28,7 +30,7 @@ def stream_chunks(session, dp, chunk_size: int = 16,
         produced += len(ids)
         if ids[-1] == dp.eos_token_id:
             return
-        session.append_tokens([])
+        session.feed_pending()
         if session._last_logits is None:
             return
 

@@ -785,3 +785,42 @@ def test_int8_verify_attention_on_the_card_matches_the_cpu(card, s, b, t):
     out = tl._attention_int8_verify(q.to(card), tl.KVCache(*(x.to(card) for x in (
         k8, v8, ks, ks))), 0, bias.to(card), d)
     torch.testing.assert_close(out.cpu(), ref, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("shape", [(32, 244, 244, 64), (32, 16, 16, 2048), (8, 3, 768)])
+def test_batchnorm_train_mode_on_the_card_matches_the_cpu(card, shape):
+    """Train-mode BatchNorm (ops/layers.py, plain PyTorch) on the card
+    against the same function on the CPU at ResNet-50 widths and the
+    classifier's batch: y within 1e-5, the batch statistics (the new running
+    stats with momentum 1) within 1e-5 relative (a reduction sums in another
+    order on each device, and CUDA's mean multiplies the sum by 1/n where
+    the CPU's divides: a mean is not bitwise across devices)."""
+    from radialog_tpu_torch.ops import layers as tl
+    g = torch.Generator().manual_seed(shape[-1])
+    c = shape[-1]
+    x = torch.randn(shape, generator=g) * 2 + 0.5
+    p = {"scale": torch.randn(c, generator=g), "bias": torch.randn(c, generator=g)}
+    s = {"mean": torch.zeros(c), "var": torch.ones(c), "count": torch.zeros(())}
+    want, want_s = tl.batchnorm(p, s, x, train=True, momentum=1.0)
+    on = {k: v.to(card) for k, v in p.items()}
+    got, got_s = tl.batchnorm(on, {k: v.to(card) for k, v in s.items()}, x.to(card),
+                              train=True, momentum=1.0)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-5)
+    for k in ("mean", "var"):
+        torch.testing.assert_close(got_s[k].cpu(), want_s[k], atol=1e-6, rtol=1e-5)
+    assert float(got_s["count"]) == 1.0
+
+
+def test_dropout_on_the_card(card):
+    """ops/layers.py dropout on the card over 1e6 entries: a kept share of
+    0.9 within 6 sigma (0.0018), every kept entry x / 0.9 as an IEEE
+    division (the CPU's), every other 0, and the same mask again from the
+    same generator state."""
+    from radialog_tpu_torch.ops import layers as tl
+    x = torch.randn(1_000_000, generator=torch.Generator().manual_seed(0)) + 3.0
+    y = tl.dropout(x.to(card), 0.1, True, torch.Generator(device=card).manual_seed(1))
+    kept = (y != 0).cpu()
+    assert abs(float(kept.float().mean()) - 0.9) < 0.0018
+    assert torch.equal(y.cpu()[kept], x[kept] / torch.tensor(0.9))
+    again = tl.dropout(x.to(card), 0.1, True, torch.Generator(device=card).manual_seed(1))
+    assert torch.equal(again, y)

@@ -145,3 +145,30 @@ def test_stream_chunks_equal_one_generate_and_iteratorize(weights):
         for c in chunks:
             callback(c)
     assert list(Iteratorize(producer, timeout=10)) == chunks
+
+
+@pytest.mark.parametrize("layout", ["unrolled", "stacked"])
+def test_stream_chunk_boundaries_are_bitwise_one_decode(weights, layout):
+    """stream_chunks feeds each chunk's last token through one decode step
+    (``feed_pending``), the step an uninterrupted decode takes there: the
+    cache's rows and the next logits are bitwise one generate's followed by
+    its own feed. (JAX's 16-row incremental prefill at the boundary rounds
+    apart in bf16 on a card, which parted ask_stream from ask.)"""
+    params = weights[2] if layout == "unrolled" else bridge.llama_stacked(
+        jax.tree_util.tree_map(np.asarray, weights[4]), "cpu")
+    turns, emb = _turns()
+    dp = te.DecodeParams(max_new_tokens=14, eos_token_id=-1)
+    runs = []
+    for chunked in (False, True):
+        s = InteractiveSession(params, CFG_T, lora=weights[3], cache_len=CACHE, device="cpu")
+        s.append_tokens(turns[0], img_embs=torch.from_numpy(emb))
+        if chunked:
+            ids = sum(stream_chunks(s, dp, chunk_size=4, max_new_tokens=14), [])
+        else:
+            ids = s.generate(dp)
+            s.feed_pending()
+        runs.append((ids, s))
+    (want, whole), (got, s) = runs
+    assert got == want and s.cur_len == whole.cur_len and not s._pending_tail
+    assert torch.equal(s._last_logits, whole._last_logits)
+    assert torch.equal(s.cache.k, whole.cache.k) and torch.equal(s.cache.v, whole.cache.v)
