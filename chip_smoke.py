@@ -132,20 +132,20 @@ each; any failing phase exits non-zero:
   eval    the evaluation harness at full width through the eval command
           line (apps/evaluate.py main, the root test.py's counterpart):
           --synthetic --int8 --use_embs --do_corr --do_cp_bin_qa
-          --do_cp_all_qa over the first 2 test studies of tests/fixtures,
+          --do_cp_all_qa over the first test study of tests/fixtures,
           batch 12, 300 new tokens, files under build/chip_eval/: the report
           pass, the batch-1 correction pass (256 tokens a study), binary QA,
           all-QA, CheXbert labels; seconds per pass, launches of K1, K2 and
           K3 (K3 exactly as models/llama.py _use_flash predicts from the
           prompts that reached the pipeline), the four files and finite
           metrics; K1 (bitwise), K2 and K3 held against their plain
-          versions on the inputs the run gave them in the first and the
-          last correction; cut from the test split in depth only (2 studies)
+          versions on the inputs the run gave them in the correction; cut
+          from the test split in depth only (1 study)
   spec    speculative decoding at full width on the eval phase's pipeline
           and prompts: the int8 verify attention card against CPU at S=1280
           (integer sums bitwise past 2^24, where an f32 product misses);
-          generate_spec (k 4) on the first correction prompt, 256 tokens
-          over the int8 cache and 128 over the bf16 one (verifies, tokens per verify,
+          generate_spec (k 4) on the first correction prompt, 128 tokens
+          over each cache (verifies, tokens per verify,
           seconds, stream waits per verify, where the tokens part from the
           eval phase's batch-1 loop); the eval command line with --corr_spec
           5 (one SpecCompactBatcher for the corrections, the report pass
@@ -195,7 +195,7 @@ each; any failing phase exits non-zero:
           its weights (the bf16 ring, 16 lanes, prompt region 256, ring 128,
           8 steps a chunk, 16 sessions x 32 tokens of 100-250-token image
           prompts from 4 client threads; tokens/s, first-token seconds);
-          ContinuousBatcher (4 lanes, 8 staggered sessions x 32 tokens, each
+          ContinuousBatcher (4 lanes, 8 staggered sessions x 16 tokens, each
           session's logits against the same session alone at batch 1,
           teacher-forced with its tokens, within CB_TOL); then the eval
           command line without --int8 (--synthetic --use_embs --do_corr
@@ -261,6 +261,32 @@ each; any failing phase exits non-zero:
           fall); the chexpert_train, run_chexbert train and run_chexbert
           label command lines as processes on the card. No kernel of K1-K5
           or T1-T3 launches in the phase
+  quality  the quantization-budget tools' functions (tools/measure_*_torch.py)
+          at Vicuna-7B width: the int8 cache's teacher-forced logit error
+          against the bf16 cache at the tool's defaults (3 seeds, 4 layers)
+          beside the W8A8 weights' own prefill error against FP32 at the
+          same depth; bf16, W8A8 and W4A8 (asymmetric) against FP32 at 1
+          layer and 1 seed (pack_q4's host cost); free-running agreement
+          of the int8 cache at 2 of 8 seeds; K1, K2 and K4 launched, every
+          figure finite
+  tp      tensor-parallel serving (parallel/tp_serving.py, tp_ring.py):
+          two rank processes of this script (``--tp-rank``) on the one card
+          over gloo, TP = 2, each with a Vicuna-7B-width shard (16 heads,
+          FFN 5,504), started before the quality phase and running beside
+          it; 2 layers (the 4-bit case 1): make_tp_generate over the int8
+          cache with a 272-token shared prefix (8 reports x 32 tokens: K1,
+          K2 at 16 heads, K3), W4A8 shards (K4: groups restarting at the
+          shard boundary), 2 beams over the bf16 cache, RaDialogServer over
+          TPRingBatcher from 4 clients (K3 in its 256-slot admissions); both
+          ranks' tokens and ring chunks equal; each case's teacher-forced
+          logits against the same weights unsharded here within its bound
+          (TP_RING_GAP's comment); every first call of a kernel a case and
+          shape makes held against its plain version (K1, K4 bitwise);
+          K1 and K4 at every 2- and 4-way shard shape bitwise (down's K of
+          2,752 at four ways); the same code at world size 1 over NCCL,
+          token-equal to the unsharded run; TP = 2 over NCCL where the
+          machine has two cards. tokens/s only as what they are: two ranks
+          sharing one card
 
   ckpt    checkpoints on disk at full size, loaded back through the port's
           loaders (ROADMAP queue 1 item 3) with both tokenizer loaders
@@ -275,9 +301,9 @@ each; any failing phase exits non-zero:
           peak host RSS, device memory; layers 0 and 31, lm_head, embed, the
           LoRA and every BLIP-2, BioViL-T, classifier and CheXbert leaf
           bitwise against the same tensors converted and packed on the host;
-          the report batch (56 x CKPT_NEW = 64; logits finite with the image,
+          the report batch (56 x CKPT_NEW = 32; logits finite with the image,
           NaN without it, as JAX's jnp.take gives them) and a 4-beam run (2
-          prompts x 64 tokens: K1, never K2); the bf16 pipeline (layers 0
+          prompts x 32 tokens: K1, never K2); the bf16 pipeline (layers 0
           and 31 bitwise); apps/evaluate.py main with every checkpoint flag,
           --num_beams 4, --do_corr, --do_cp_bin_qa over 1 fixture study (K3);
           the trainer from the files (int8 base, the adapter, flash, 2
@@ -342,15 +368,16 @@ QA_STUDIES, ALL_QA_STUDIES, LABELED, FOLLOW_UP_NEW = 2, 5, 16, 32
 # (decode/kvcache.py bucket_length). The eval phase also holds each kernel
 # against its plain version on the inputs the run itself gave it there
 CORR_T, CORR_T2, CORR_LEN, CORR_LEN2, CORR_NEW, CORR_S = 440, 448, 437, 445, 256, 768
-# test studies of the eval phase (and so of spec's --corr_spec): 2, cut from
-# 3 in PR 16 for the script's time on a slow host (a third correction added
-# ~25 s and no new shape: the k phases hold the third study's 445/448 rows)
-EVAL_STUDIES = 2
-# new tokens of the ckpt phase's report batch (the slice phase's 300, cut in
-# PR 16 for the script's time: it checks the weights loaded from files, the
-# slice phase times the pass; the eval command line keeps 300, which makes
-# the 256+-token correction prompts that K3 serves)
-CKPT_NEW = 64
+# test studies of the eval phase (and so of spec's --corr_spec): 1, cut from
+# 3 for the script's time on a slow host (a correction takes ~36 s there and
+# brings no new shape: the k phases hold the second and third studies'
+# 442/445-token rows)
+EVAL_STUDIES = 1
+# new tokens of the ckpt phase's report batch (the slice phase's 300, cut to
+# 32 for the script's time: it checks the weights
+# loaded from files, the slice phase times the pass; the eval command line
+# keeps 300, which makes the 256+-token correction prompts that K3 serves)
+CKPT_NEW = 32
 # the speculative phases: K1's rows in a verify block (batch 1 at k = 4 and
 # 5; 8 compact lanes at k = 5); batch-1 drafts and new tokens (the
 # correction turn's 256); the chat's drafts, reply tokens after its 300-token
@@ -361,12 +388,14 @@ CKPT_NEW = 64
 VERIFY_M = (5, 6, 48)
 SPEC_K, CORR_SPEC_K, CHAT_K, CHAT_NEW, CHAT_CHUNK = 4, 5, 5, 48, 16
 SPEC_BF16_NEW = 128     # the bf16-cache batch-1 run, cut from 256 for the script's time
+SPEC_INT8_NEW = 128     # the int8-cache batch-1 run, cut from 256 for the same reason
 RING_LANES, RING_NEW, RING_K, RING_CHUNK, RING_LEN = 4, 64, 4, 8, 325
 VERIFY_S = 1280
-# tokens of each speculative run teacher-forced through the plain steps (the
-# int8 runs make 256); generated rows of the batch-1 runs held bitwise
-# against one row at a time (_tf_verify one_row), and against the control
-SPEC_TF_N, ONE_ROW_N = 128, 32
+# tokens of each speculative run teacher-forced through the plain steps (cut
+# from 128 for the script's time); generated rows of the batch-1 runs
+# held bitwise against one row at a time (_tf_verify one_row), and against
+# the control
+SPEC_TF_N, ONE_ROW_N = 64, 32
 # the bound of the speculative runs' rows against the plain decode steps fed
 # the same tokens (teacher forcing). LOGIT_TOL cannot hold there at 32
 # layers: over the int8 cache the verify attention is another function than
@@ -395,7 +424,8 @@ FLOAT_LOGIT_TOL = {"mean": 2e-4, "max": 2e-3}   # why: _small_float's docstring
 # up to 0.0625 below the lone run's largest logit (an H100 80GB HBM3 at
 # 700 W); the bound is ~3x that
 FLOAT_STUDIES, FLOAT_SESSIONS, FLOAT_NEW = 1, 16, 32
-CB_LANES, CB_SESSIONS, CB_NEW, CB_CACHE = 4, 8, 32, 320
+# (CB_NEW: cut from 32 for the script's time)
+CB_LANES, CB_SESSIONS, CB_NEW, CB_CACHE = 4, 8, 16, 320
 CB_TOL = {"max": 0.3, "mean": 0.05, "margin": 0.2}
 # the serve phase: lanes, prompt region, cache length (ring 128), steps per chunk
 LANES, PROMPT_REGION, CACHE_LEN, CHUNK = 16, 256, 384, 8
@@ -2152,18 +2182,18 @@ def _copy(x):
 
 def _eval_holds(torch, kept_by_name):
     """Each kept call of an eval run (a {kernel name: _Kept} dict) against
-    its plain version on the same inputs: K1 bitwise, K2 within K2_TOL, K3
-    within K3_TOL. Returns one entry per kept call."""
+    its plain version on the same inputs: K1 and K4 bitwise, K2 within
+    K2_TOL (K2'' too), K3 within K3_TOL. Returns one entry per kept call."""
     held = []
     for name, kept in kept_by_name.items():
         for study, index, args, kw, got, views in kept.kept:
             ref = kept.plain(*args, **kw)
             err = float((got.double() - ref.double()).abs().max())
             ref_max = float(ref.double().abs().max())
-            if name == "q8_matmul":
+            if name in ("q8_matmul", "q4_matmul"):    # K4's weight is (N, K/2) bytes
                 ok, where = err == 0, {"m": args[0].shape[0], "n": args[1].shape[0],
-                                       "k": args[1].shape[1]}
-            elif name == "flash_decode_int8":
+                                       "k": args[0].shape[1]}
+            elif name.startswith("flash_decode_int8"):     # K2, K2''
                 ok = bool(torch.allclose(got, ref, **K2_TOL))
                 lens, a1, b1 = (int(m[0]) for m in args[6][:3])
                 where = {"step": b1 - a1, "layer": args[7], "s": args[2].shape[2],
@@ -2530,8 +2560,8 @@ def phase_spec(torch, te, tq8, tfd, tfa, ev_state):
     """Speculative decoding at Vicuna-7B width on the eval phase's pipeline
     (W8A8, the same synthetic weights) and its prompts:
       * generate_spec (k = SPEC_K) on the first study's correction prompt
-        with its image embeddings, 256 new tokens over the int8 cache and
-        SPEC_BF16_NEW over the bf16 one: verifies, tokens per verify, seconds, stream waits
+        with its image embeddings, SPEC_INT8_NEW new tokens over the int8 cache
+        and SPEC_BF16_NEW over the bf16 one: verifies, tokens per verify, seconds, stream waits
         per verify (torch's sync debug mode), and where the tokens part from
         the eval phase's batch-1 loop on the same prompt (int8) and from the
         teacher-forced run's argmax (both);
@@ -2593,7 +2623,7 @@ def phase_spec(torch, te, tq8, tfd, tfa, ev_state):
     ids = tok(prompt)["input_ids"]
     b1_loop = _tok_ids(corr[0]["out"][0][len(prompt):])
     runs = {}
-    for kv_int8, new in ((True, CORR_NEW), (False, SPEC_BF16_NEW)):
+    for kv_int8, new in ((True, SPEC_INT8_NEW), (False, SPEC_BF16_NEW)):
         dp = te.DecodeParams(max_new_tokens=new, eos_token_id=tok.eos_token_id)
         with _VerifyRecorder(tsp) as rec, warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
@@ -4546,11 +4576,638 @@ def phase_datatools(torch, sl, counted):
     return {tag: r["launches"] for tag, r in runs.items()}
 
 
+# the quality phase: the quantization-budget tools' functions at Vicuna-7B
+# width (tools/measure_*_torch.py), cut for the script's time; their full
+# defaults run alone (PERF.md §2). measure_kv_logit_err at its defaults (3
+# seeds, 4 layers, batch 4, 128-token prompts, 32 steps) beside the W8A8
+# weights' own error at the same depth (measure_quant's W8A8 row, 1 seed);
+# measure_quant's W4A8 row at 1 layer and 1 seed (pack_q4 takes ~38 s a
+# layer on the host); measure_kv_int8 at 2 of its 8 seeds, 4 layers
+QUALITY_LAYERS, QUALITY_KV_SEEDS, QUALITY_W4_LAYERS, QUALITY_INT8_SEEDS = 4, 3, 1, 2
+# the tp phase: two ranks on the one card over gloo, TP = 2, each with a
+# Vicuna-7B-width shard (16 heads, FFN 5504), cut in depth: TP_LAYERS for
+# the 8-bit cases, one layer for the 4-bit case (its shards are packed by
+# pack_q4 on the host), the weights of seed TP_SEED (8-bit) and of
+# measure_quant's seed 0 (4-bit, so the quality phase's unsharded pack is
+# its reference). The cases: a report batch over the int8 cache with a
+# shared prefix of TP_PREFIX tokens (K3 in its prefill), the 4-bit batch,
+# beams over the bf16 cache, and RaDialogServer over TPRingBatcher with
+# TP_CLIENTS clients (3 admissions of a 256-slot bucket: K3)
+TP_SEED, TP_LAYERS, TP_TIMEOUT_S = 21, 2, 600
+TP_BATCH, TP_PREFIX, TP_REST, TP_NEW, TP_W4_T = 8, 272, 32, 32, 64
+TP_BEAM_B, TP_BEAMS, TP_BEAM_T, TP_BEAM_NEW = 2, 2, 64, 16
+TP_RING = dict(lanes=4, cache_len=320, prompt_len=256, steps_per_call=8)
+TP_RING_LENS, TP_RING_NEW, TP_CLIENTS = (230, 120, 180, 250, 100, 140, 240, 160), 16, 4
+# the bounds of the TP runs against the same weights unsharded on the card,
+# teacher-forced with the TP run's tokens, on measure_kv_logit_err's scale
+# (mean |logit difference| over the vocabulary / the unsharded logits' std,
+# averaged over rows and steps): the 8-bit cases within the W8A8 weights'
+# own error against FP32 on the same weights and depth (measure_quant's
+# metric, computed in this phase), the 4-bit case within the W4A8 weights'
+# own error (the quality phase's row on the same weights): TP re-quantizes
+# the row-parallel wo/down per shard (and at 4 bits restarts their groups
+# at the shard boundary), a second rounding of two of the four projections
+# that must cost less than the quantization itself. Each session of the ring
+# is held by its tokens: each within TP_RING_GAP standard deviations of the
+# unsharded forced logits' largest (a gross-fault bound, as SPEC_TOL)
+TP_RING_GAP = 1.0
+
+
+def phase_quality(torch, counted, dev="cuda"):
+    """The three quantization-budget tools' measurements on the card (their
+    int8 paths through K1 and K2, W4A8 through K4). Returns the numbers and
+    the unsharded W4A8 pack of measure_quant's seed 0 (the tp phase's 4-bit
+    reference)."""
+    from tools import measure_kv_int8_torch as mki
+    from tools import measure_kv_logit_err_torch as mkl
+    from tools import measure_quant_torch as mq
+    cfg = _tp_cfg(QUALITY_LAYERS)
+    _zero(counted)
+    t0 = time.time()
+    kv = mkl.measure(cfg, QUALITY_KV_SEEDS, 4, 128, 32, dev, log=lambda line: None)
+    t1 = time.time()
+    # the W8A8 weights' own error at the same depth, measure_quant's metric
+    w8 = _w8_own_error(torch, mq, cfg, 0, dev)
+    t2 = time.time()
+    kept = {}
+
+    def keep(seed, name, params):
+        if name == "w4a8-asym":
+            kept["w4"] = params
+    rows = mq.measure(_tp_cfg(QUALITY_W4_LAYERS), 1, 50, 8, 64, "asym", dev, on_params=keep)
+    t3 = time.time()
+    int8 = mki.measure(cfg, QUALITY_INT8_SEEDS, 4, 128, 50, device=dev, log=lambda line: None)
+    t4 = time.time()
+    launches = _read(counted)
+    quant = {r["mode"]: r for r in rows}
+    figures = [kv["logit_err_per_sigma_mean"], w8, int8["mean_agreement"]] + \
+        [r["logit_err_vs_fp32"] for r in rows]
+    ok = (all(x == x and abs(x) != float("inf") for x in figures)
+          and launches["q8_matmul"] > 0 and launches["flash_decode_int8"] > 0
+          and launches["q4_matmul"] > 0 and "w4" in kept)
+    emit("quality", card=smi(), kv_logit_err=kv, w8a8_err_same_depth=w8,
+         kv_int8_within_w8a8=kv["logit_err_per_sigma_mean"] <= w8,
+         quant={k: {kk: vv for kk, vv in v.items() if kk != "note"} for k, v in quant.items()},
+         kv_int8=int8, seconds={"kv_logit_err": t1 - t0, "w8a8_same_depth": t2 - t1,
+                                "quant_w4": t3 - t2, "kv_int8": t4 - t3},
+         launches=launches, ok=ok)
+    if not ok:
+        raise AssertionError("the quality phase failed a check")
+    return {"launches": launches, "w4_err": quant["w4a8-asym"]["logit_err_vs_fp32"],
+            "w8_err": w8}, kept["w4"]
+
+
+def _w8_own_error(torch, mq, cfg, seed, dev, params32=None):
+    """measure_quant's W8A8 prefill error against FP32 (batch 8, 64-token
+    prompts, numpy's tokens of ``seed``) on the float weights ``params32``,
+    by default those of ``seed`` at ``cfg``."""
+    import numpy as np
+    from radialog_tpu_torch.models.llama import llama_init
+    if params32 is None:
+        params32 = llama_init(torch.Generator(device=dev).manual_seed(seed), cfg, device=dev)
+    rng = np.random.default_rng(seed)
+    toks = torch.from_numpy(rng.integers(3, 30000, (8, 64)).astype(np.int32)).to(dev)
+    lens = torch.full((8,), 64, dtype=torch.int32, device=dev)
+    out = mq.measure_seed(params32, cfg, toks, lens, 1, [("w8a8", 8, "asym")], 64 + 1 + 14)
+    return out["w8a8"][0]
+
+
+def _tp_inputs():
+    """The tp phase's token inputs (numpy, the same in every rank and in the
+    parent): the shared prefix and remainders, the 4-bit and beam prompts,
+    the ring's prompts."""
+    import numpy as np
+    rng = np.random.default_rng(TP_SEED)
+
+    def toks(b, t, lo):
+        x = rng.integers(3, 30000, (b, t)).astype(np.int32)
+        lens = rng.integers(lo, t + 1, (b,)).astype(np.int32)
+        for i in range(b):
+            x[i, lens[i]:] = 0
+        return x, lens
+    prefix = rng.integers(3, 30000, (TP_PREFIX,)).astype(np.int32)
+    rest, rest_lens = toks(TP_BATCH, TP_REST, 20)
+    w4, w4_lens = toks(TP_BATCH, TP_W4_T, 40)
+    beam, beam_lens = toks(TP_BEAM_B, TP_BEAM_T, 40)
+    ring = [rng.integers(3, 30000, (n,)).tolist() for n in TP_RING_LENS]
+    return dict(prefix=prefix, rest=rest, rest_lens=rest_lens, w4=w4, w4_lens=w4_lens,
+                beam=beam, beam_lens=beam_lens, ring=ring)
+
+
+def _tp_cfg(layers):
+    """Vicuna-7B's widths at ``layers`` layers, as the quality tools build it."""
+    from tools.measure_kv_logit_err_torch import llama_config
+    return llama_config(32001, 4096, layers, 32, 11008)
+
+
+def _sync(torch, dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _forced_logits(torch, params, cfg, toks, lens, forced, kv_int8, prefix=None, group=None):
+    """Teacher-forced logits (B, steps, V) f32 over the serving path the
+    batch engine runs (``generate`` / ``generate_shared_prefix``, BF16): the
+    prefill's last logits, then one decode step per forced token but the
+    last. ``group``: a rank's model group, its shard in ``params``."""
+    from radialog_tpu_torch.decode import engine as te
+    from radialog_tpu_torch.models.llama import init_cache, llama_apply, prefill_bias
+    from radialog_tpu_torch.ops.layers import BF16
+    b, t = toks.shape
+    dp = te.DecodeParams(max_new_tokens=forced.shape[1], eos_token_id=-1)
+    cache_len = te.default_cache_len(t, dp)
+    shared, p0 = None, 0
+    with torch.no_grad():
+        if prefix is not None:
+            p0 = prefix.shape[0]
+            kv = te.prefix_kv(params, cfg, prefix, policy=BF16, tp_group=group)
+            cache = init_cache(cfg, b, cache_len, device=toks.device, quantized=kv_int8)
+            pos = p0 + torch.arange(t, device=toks.device)[None].repeat(b, 1)
+            logits, cache = llama_apply(params, cfg, toks, pos, prefill_bias(lens, t),
+                                        cache=cache, lengths=lens, last_pos=lens - 1,
+                                        shared_kv=kv, policy=BF16, tp_group=group)
+            first, shared = logits[:, 0], te.decode_prefix(kv, cache)
+        else:
+            cache, first = te.prefill(params, cfg, toks, lens, cache_len, policy=BF16,
+                                      kv_int8=kv_int8, tp_group=group)
+        rows = [first]
+        for step in range(forced.shape[1] - 1):
+            rows.append(te.decode_step(params, cfg, cache, forced[:, step], lens, t, step,
+                                       policy=BF16, shared_kv=shared, pos_offset=p0,
+                                       shared_p0=p0 if prefix is not None else None,
+                                       tp_group=group))
+    return torch.stack(rows, 1).float()
+
+
+def _normalized_err(got, ref):
+    """measure_kv_logit_err's scale: mean over rows and steps of mean |got -
+    ref| over the vocabulary / ref's std there."""
+    sigma = ref.std(dim=-1, unbiased=False)
+    return float(((got - ref).abs().mean(-1) / sigma).mean())
+
+
+def _tp_counted(torch):
+    """The kernels of the tp phase's paths, as _Kept stand-ins installed in
+    their modules: each keeps its first call per case and shape, for the
+    holds against the plain versions at the shard's shapes."""
+    from radialog_tpu_torch.ops import flash_attention as tfa
+    from radialog_tpu_torch.ops import flash_decode as tfd
+    from radialog_tpu_torch.ops import q4_matmul as tq4
+    from radialog_tpu_torch.ops import q8_matmul as tq8
+    state = {"corr": None}
+    seen = set()
+
+    def first_per_shape(st, index, args):
+        key = (st["corr"], tuple(args[1].shape), args[0].shape[0] > 1)
+        if key in seen:
+            return False
+        seen.add(key)
+        return True
+    kept = {"q8_matmul": _Kept(tq8.q8_matmul_int32, tq8.q8_matmul_int32_plain, state,
+                               first_per_shape),
+            "q4_matmul": _Kept(tq4.q4_matmul_acc, tq4.q4_matmul_acc_plain, state,
+                               first_per_shape),
+            "flash_decode_int8": _Kept(tfd.flash_decode_int8_kernel, tfd.flash_decode_int8_plain,
+                                       state, lambda st, i, a: i in (0, 1 + TP_LAYERS * 9)),
+            "flash_decode_int8_current": _Kept(tfd.flash_decode_int8_current_kernel,
+                                               tfd.flash_decode_int8_plain, state,
+                                               lambda st, i, a: i in (0, 1 + TP_LAYERS * 9)),
+            "flash_attention": _Kept(tfa.flash_attention_kernel, tfa.flash_attention_plain, state,
+                                     lambda st, i, a: i == 0)}
+    tq8.q8_matmul_int32, tq4.q4_matmul_acc = kept["q8_matmul"], kept["q4_matmul"]
+    tfd.flash_decode_int8_kernel = kept["flash_decode_int8"]
+    tfd.flash_decode_int8_current_kernel = kept["flash_decode_int8_current"]
+    tfa.flash_attention_kernel = kept["flash_attention"]
+    return kept, state
+
+
+def _tp_case(torch, kept, state, name, run, dev):
+    """Run one case under its name: (its result, seconds, launches by
+    kernel, the holds of its kept calls)."""
+    state["corr"] = name
+    _zero(kept)
+    _sync(torch, dev)
+    t0 = time.time()
+    out = run()
+    _sync(torch, dev)
+    seconds = time.time() - t0
+    launches = _read(kept)
+    holds = _eval_holds(torch, kept)
+    for k in kept.values():
+        k.kept.clear()
+    return out, seconds, launches, holds
+
+
+def _all_reduce_ms(torch, group, dev, n: int = 20):
+    """Host ms of one ``all_reduce_sum`` of a decode step's bf16 activations
+    (TP_BATCH x 4096) over ``group``, and of a prefill's (TP_BATCH x
+    TP_REST rows), each the mean of n after a warm-up."""
+    from radialog_tpu_torch.models.llama import all_reduce_sum
+    out = {}
+    for name, rows in (("decode", TP_BATCH), ("prefill", TP_BATCH * TP_REST)):
+        x = torch.ones((rows, 4096), dtype=torch.bfloat16, device=dev)
+        all_reduce_sum(x, group)
+        _sync(torch, dev)
+        t0 = time.time()
+        for _ in range(n):
+            all_reduce_sum(x, group)
+        _sync(torch, dev)
+        out[name] = (time.time() - t0) / n * 1e3
+    return out
+
+
+def _tp_rank(job_path: str) -> int:
+    """One rank of the tp phase (``chip_smoke.py --tp-rank JOB``): joins the
+    process group from the RADIALOG_* environment, takes its shards and runs
+    the job's cases in lock step with the other ranks; rank 0 writes the
+    numbers and its teacher-forced logits next to JOB."""
+    import threading
+    import numpy as np
+    import torch
+    from radialog_tpu_torch.apps.serve import RaDialogServer
+    from radialog_tpu_torch.core import mesh as tm
+    from radialog_tpu_torch.decode.engine import DecodeParams
+    from radialog_tpu_torch.models.llama import llama_init
+    from radialog_tpu_torch.ops.layers import BF16, set_precision
+    from radialog_tpu_torch.parallel.tp_ring import TPRingBatcher
+    from radialog_tpu_torch.parallel.tp_serving import (make_tp_generate, shard_config,
+                                                        shard_quantized_llama)
+    with open(job_path) as f:
+        job = json.load(f)
+    world = int(os.environ["RADIALOG_NUM_PROCESSES"])
+    dev = torch.device("cpu")
+    if job["device"] == "cuda":
+        dev = torch.device("cuda",
+                           int(os.environ["RADIALOG_PROCESS_ID"]) % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+    set_precision()
+    t_start = time.time()
+    tm.init_distributed(device=job["device"], backend=job["backend"], timeout=TP_TIMEOUT_S)
+    mesh = tm.make_mesh(tm.MeshSpec(1, world), device=job["device"], timeout=TP_TIMEOUT_S)
+    group, rank = tm.axis_group(mesh, tm.MODEL_AXIS), tm.axis_rank(mesh, tm.MODEL_AXIS)
+    kept, state = _tp_counted(torch)
+    inp = {k: (torch.from_numpy(v).to(dev) if isinstance(v, np.ndarray) else v)
+           for k, v in _tp_inputs().items()}
+    out = {"rank": rank, "world": world, "backend": job["backend"], "device": str(dev),
+           "init_s": time.time() - t_start, "cases": {},
+           "all_reduce_ms": _all_reduce_ms(torch, group, dev)}
+    logits = {}
+
+    def shard(seed, layers, bits):
+        cfg = _tp_cfg(layers)
+        tree = llama_init(torch.Generator(device=dev).manual_seed(seed), cfg, device=dev)
+        check = float(tree["layers"]["wq"]["w"].double().sum() + tree["embed"].double().sum())
+        t0 = time.time()
+        params = shard_quantized_llama(tree, cfg, world, rank, bits=bits, device=dev)
+        del tree
+        local = shard_config(cfg, world)
+        lp = params["layers"][0]
+        shapes = {name: list(getattr(lp[name], "w").shape) for name in
+                  ("wqkv", "wo", "gateup", "down")}
+        return cfg, params, {"tree_checksum": check, "pack_s": time.time() - t0,
+                             "local_heads": local.num_heads, "local_ffn": local.intermediate_size,
+                             "packed_weight_shapes": shapes}
+
+    def record(name, res, seconds, launches, holds, forced_logits=None, **extra):
+        out["cases"][name] = {"seconds": seconds, "launches": launches, "holds": holds,
+                              **extra}
+        if res is not None:
+            out["cases"][name]["tokens"] = res.tokens.cpu().tolist()
+        if forced_logits is not None and rank == 0:
+            logits[name] = forced_logits.cpu().numpy()
+
+    cfg8, p8, info8 = shard(TP_SEED, TP_LAYERS, 8)
+    out["shard8"] = info8
+    local8 = shard_config(cfg8, world)
+    if "int8_prefix" in job["cases"]:
+        dp = DecodeParams(max_new_tokens=TP_NEW, eos_token_id=-1)
+        fn = make_tp_generate(mesh, cfg8, dp, kv_int8=True, shared_prefix=True, policy=BF16,
+                              device=dev)
+        res, s, launches, holds = _tp_case(torch, kept, state, "int8_prefix", lambda: fn(
+            p8, inp["rest"], inp["rest_lens"], prefix_tokens=inp["prefix"]), dev)
+        tf = _forced_logits(torch, p8, local8, inp["rest"], inp["rest_lens"], res.tokens, True,
+                            inp["prefix"], group)
+        record("int8_prefix", res, s, launches, holds, tf,
+               tokens_per_s=TP_BATCH * TP_NEW / s, reports_per_s=TP_BATCH / s)
+    if "defer" in job["cases"]:
+        # the same batch with in-kernel KV writes: K2'' in place of K2
+        with _env("RADIALOG_DEFER_KV", "1"):
+            dp = DecodeParams(max_new_tokens=TP_NEW, eos_token_id=-1)
+            fn = make_tp_generate(mesh, cfg8, dp, kv_int8=True, shared_prefix=True,
+                                  policy=BF16, device=dev)
+            res, s, launches, holds = _tp_case(torch, kept, state, "defer", lambda: fn(
+                p8, inp["rest"], inp["rest_lens"], prefix_tokens=inp["prefix"]), dev)
+            tf = _forced_logits(torch, p8, local8, inp["rest"], inp["rest_lens"], res.tokens,
+                                True, inp["prefix"], group)
+        record("defer", res, s, launches, holds, tf, tokens_per_s=TP_BATCH * TP_NEW / s)
+    if "beam" in job["cases"]:
+        dp = DecodeParams(max_new_tokens=TP_BEAM_NEW, eos_token_id=-1)
+        fn = make_tp_generate(mesh, cfg8, dp, kv_int8=False, num_beams=TP_BEAMS, policy=BF16,
+                              device=dev)
+        res, s, launches, holds = _tp_case(torch, kept, state, "beam", lambda: fn(
+            p8, inp["beam"], inp["beam_lens"]), dev)
+        tf = _forced_logits(torch, p8, local8, inp["beam"], inp["beam_lens"], res.tokens, False,
+                            None, group)
+        record("beam", res, s, launches, holds, tf, tokens_per_s=TP_BEAM_B * TP_BEAM_NEW / s)
+    if "ring" in job["cases"]:
+        dp = DecodeParams(max_new_tokens=TP_RING_NEW, eos_token_id=-1)
+        tp = TPRingBatcher(mesh, p8, cfg8, dp=dp, policy=BF16, device=dev, **TP_RING)
+
+        def serve():
+            if rank != 0:
+                return {"chunks": tp.serve_follower()}
+            srv = RaDialogServer(batcher=tp)
+            futs, errors = {}, []
+
+            def client(c):
+                try:
+                    for j in range(c, len(inp["ring"]), TP_CLIENTS):
+                        futs[j] = srv.submit(inp["ring"][j])
+                except Exception as exc:     # reported, and fails the phase
+                    errors.append(repr(exc))
+            threads = [threading.Thread(target=client, args=(c,)) for c in range(TP_CLIENTS)]
+            try:
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(TP_TIMEOUT_S)
+                served = [futs[j].result(timeout=TP_TIMEOUT_S) for j in range(len(inp["ring"]))]
+            finally:
+                srv.shutdown()
+                tp.close()
+            return {"served": served, "errors": errors}
+        got, s, launches, holds = _tp_case(torch, kept, state, "ring", serve, dev)
+        record("ring", None, s, launches, holds, digests=list(tp.chunk_digests),
+               tokens_per_s=len(TP_RING_LENS) * TP_RING_NEW / s, **got)
+    if "w4" in job["cases"]:
+        cfg4, p4, info4 = shard(0, QUALITY_W4_LAYERS, 4)
+        out["shard4"] = info4
+        dp = DecodeParams(max_new_tokens=TP_NEW, eos_token_id=-1)
+        fn = make_tp_generate(mesh, cfg4, dp, kv_int8=True, policy=BF16, device=dev)
+        res, s, launches, holds = _tp_case(torch, kept, state, "w4", lambda: fn(
+            p4, inp["w4"], inp["w4_lens"]), dev)
+        tf = _forced_logits(torch, p4, shard_config(cfg4, world), inp["w4"], inp["w4_lens"],
+                            res.tokens, True, None, group)
+        record("w4", res, s, launches, holds, tf, tokens_per_s=TP_BATCH * TP_NEW / s)
+    out["total_s"] = time.time() - t_start
+    torch.distributed.destroy_process_group()
+    with open(f"{job_path}.{rank}.json", "w") as f:
+        json.dump(out, f)
+    if logits:
+        np.savez(f"{job_path}.logits.npz", **logits)
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _tp_start(name: str, world: int, backend: str, cases, dev="cuda"):
+    """Start ``world`` rank processes of this script on the card, meeting at
+    a free localhost port; returns (job path, processes)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(root, "build", "tp")
+    os.makedirs(out_dir, exist_ok=True)
+    job = os.path.join(out_dir, f"{name}.json")
+    for old in (f"{job}.{r}.json" for r in range(world)):
+        if os.path.exists(old):
+            os.remove(old)
+    with open(job, "w") as f:
+        json.dump({"backend": backend, "cases": list(cases), "device": dev}, f)
+    port = _free_port()
+    procs = []
+    for r in range(world):
+        env = dict(os.environ, RADIALOG_COORDINATOR=f"localhost:{port}",
+                   RADIALOG_NUM_PROCESSES=str(world), RADIALOG_PROCESS_ID=str(r),
+                   PYTHONPATH=root)
+        log = open(f"{job}.{r}.log", "w")
+        procs.append((subprocess.Popen([sys.executable, os.path.abspath(__file__), "--tp-rank",
+                                        job], env=env, stdout=log, stderr=subprocess.STDOUT,
+                                       cwd=root), log))
+    return job, procs
+
+
+def _tp_wait(job, procs):
+    """Wait for a group's ranks (killing them at TP_TIMEOUT_S); returns their
+    outputs in rank order, or raises with the tails of their logs."""
+    deadline = time.time() + TP_TIMEOUT_S
+    try:
+        for p, log in procs:
+            p.wait(timeout=max(1.0, deadline - time.time()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    if any(p.returncode for p, _ in procs):
+        tails = [open(f"{job}.{r}.log").read()[-3000:] for r in range(len(procs))]
+        raise AssertionError(f"tp ranks of {job} failed (rc "
+                             f"{[p.returncode for p, _ in procs]}):\n" + "\n---\n".join(tails))
+    outs = []
+    for r in range(len(procs)):
+        with open(f"{job}.{r}.json") as f:
+            outs.append(json.load(f))
+    return outs
+
+
+def _tp_shape_holds(torch, dev="cuda"):
+    """K1 and K4 at every projection shape of a 2- and a 4-way Vicuna-7B
+    shard (N halved or quartered for wqkv and gateup, K for wo and down:
+    down's K is 5,504 and 2,752, the latter not a multiple of 128, which K4's
+    groups cover as 6 groups of 512 rows in pick_bk's 1,024-row blocks, the
+    last half zeros) at the tp phase's decode rows, each against its plain
+    version, bitwise; K4 on both grids."""
+    from radialog_tpu_torch.ops import q4_matmul as tq4
+    from radialog_tpu_torch.ops import q8_matmul as tq8
+    g = torch.Generator(device=dev).manual_seed(23)
+    held = []
+    for n_shards in (2, 4):
+        h, inter = 4096, 11008
+        shapes = {"wqkv": (h, 3 * h // n_shards), "wo": (h // n_shards, h),
+                  "gateup": (h, 2 * inter // n_shards), "down": (inter // n_shards, h)}
+        for name, (k, n) in shapes.items():
+            x8 = torch.randint(-127, 128, (TP_BATCH, k), generator=g, device=dev,
+                               dtype=torch.int8)
+            w8 = torch.randint(-127, 128, (n, k), generator=g, device=dev, dtype=torch.int8)
+            k1 = bool(torch.equal(tq8.q8_matmul_int32(x8, w8), tq8.q8_matmul_int32_plain(x8, w8)))
+            bk = tq4.pick_bk(k)
+            group = tq4.GROUP if bk % tq4.GROUP == 0 else bk
+            groups = -(-k // bk) * bk // group
+            w4 = torch.randint(-128, 128, (n, k // 2), generator=g, device=dev,
+                               dtype=torch.int8)
+            gscale = (torch.rand((groups, n), generator=g, device=dev) + 0.5) / (4.6 * k ** 0.5)
+            goff = (torch.rand((groups, n), generator=g, device=dev) - 0.5) * gscale
+            k4 = all(bool(torch.equal(tq4.q4_matmul_acc(x8, w4, gscale, off, group),
+                                      tq4.q4_matmul_acc_plain(x8, w4, gscale, off, group)))
+                     for off in (goff, None))
+            held.append({"shards": n_shards, "weight": name, "m": TP_BATCH, "k": k, "n": n,
+                         "k4_group": group, "k4_groups": groups, "k1_bitwise": k1,
+                         "k4_bitwise": k4})
+    return held
+
+
+def phase_tp(torch, started, quality, w4_ref, dev="cuda"):
+    """Tensor-parallel serving on the card: the ranks started by _tp_start
+    (two over gloo, TP = 2; one over NCCL, TP = 1; two over NCCL where the
+    machine has two cards) against the same weights unsharded here. Checks:
+    every rank exits 0; both gloo ranks' tokens and ring chunks equal; each
+    case's teacher-forced logits within its bound (TP_RING_GAP's comment) of
+    the unsharded run's; K1, K2, K3 and K4 launched at the shard's shapes and
+    each kept call held against its plain version (K1, K4 bitwise, K2
+    K2_TOL, K3 K3_TOL); NCCL at TP = 1 token-equal to the unsharded run."""
+    import numpy as np
+    from radialog_tpu_torch.decode import engine as te
+    from radialog_tpu_torch.decode.beam import generate_beam
+    from radialog_tpu_torch.models.llama import llama_init
+    from radialog_tpu_torch.ops.layers import BF16
+    from radialog_tpu_torch.ops.quant import quantize_llama_host
+    from tools import measure_quant_torch as mq
+    gloo = _tp_wait(*started["gloo"])
+    nccl1 = _tp_wait(*started["nccl1"])
+    nccl2 = _tp_wait(*started["nccl2"]) if "nccl2" in started else None
+    job = started["gloo"][0]
+    tp_logits = dict(np.load(f"{job}.logits.npz"))
+    inp = {k: (torch.from_numpy(v).to(dev) if isinstance(v, np.ndarray) else v)
+           for k, v in _tp_inputs().items()}
+    t0 = time.time()
+    cfg8 = _tp_cfg(TP_LAYERS)
+    tree = llama_init(torch.Generator(device=dev).manual_seed(TP_SEED), cfg8, device=dev)
+    check = float(tree["layers"]["wq"]["w"].double().sum() + tree["embed"].double().sum())
+    w8_err = _w8_own_error(torch, mq, cfg8, TP_SEED, dev, tree)
+    full8 = quantize_llama_host(tree, device=dev)
+    del tree
+    cases, ok = {}, True
+    g0 = gloo[0]["cases"]
+
+    def tok(x):
+        return torch.tensor(x, dtype=torch.int32, device=dev)
+
+    # the report batch, int8 cache, shared prefix
+    dp = te.DecodeParams(max_new_tokens=TP_NEW, eos_token_id=-1)
+    with torch.no_grad():
+        ref_a = te.generate_shared_prefix(full8, cfg8, inp["prefix"], inp["rest"],
+                                          inp["rest_lens"], dp, policy=BF16).tokens.cpu()
+    forced = tok(g0["int8_prefix"]["tokens"])
+    ref = _forced_logits(torch, full8, cfg8, inp["rest"], inp["rest_lens"], forced, True,
+                         inp["prefix"])
+    err = _normalized_err(torch.from_numpy(tp_logits["int8_prefix"]).to(dev), ref)
+    cases["int8_prefix"] = {"err": err, "bound": w8_err, "within": err <= w8_err,
+                            "tokens_equal_unsharded": float((forced.cpu() == ref_a).float().mean()),
+                            "nccl_tp1_equal_unsharded": nccl1[0]["cases"]["int8_prefix"]["tokens"]
+                            == ref_a.tolist()}
+    # the same with in-kernel KV writes (K2'')
+    forced = tok(g0["defer"]["tokens"])
+    with _env("RADIALOG_DEFER_KV", "1"):
+        ref = _forced_logits(torch, full8, cfg8, inp["rest"], inp["rest_lens"], forced, True,
+                             inp["prefix"])
+    err = _normalized_err(torch.from_numpy(tp_logits["defer"]).to(dev), ref)
+    cases["defer"] = {"err": err, "bound": w8_err, "within": err <= w8_err,
+                      "tokens_equal_defer_off": float(
+                          (forced.cpu() == torch.tensor(g0["int8_prefix"]["tokens"])).float()
+                          .mean())}
+    # beams over the bf16 cache
+    dp = te.DecodeParams(max_new_tokens=TP_BEAM_NEW, eos_token_id=-1)
+    with torch.no_grad():
+        ref_c = generate_beam(full8, cfg8, inp["beam"], inp["beam_lens"], dp, TP_BEAMS,
+                              policy=BF16).tokens.cpu()
+    forced = tok(g0["beam"]["tokens"])
+    ref = _forced_logits(torch, full8, cfg8, inp["beam"], inp["beam_lens"], forced, False)
+    err = _normalized_err(torch.from_numpy(tp_logits["beam"]).to(dev), ref)
+    cases["beam"] = {"err": err, "bound": w8_err, "within": err <= w8_err,
+                     "tokens_equal_unsharded": float((forced.cpu() == ref_c).float().mean())}
+    # the ring's sessions: each served token against the unsharded forced logits
+    served = g0["ring"]["served"]
+    t_max = max(TP_RING_LENS)
+    prompts = np.zeros((len(served), t_max), np.int32)
+    for j, ids in enumerate(inp["ring"]):
+        prompts[j, :len(ids)] = ids
+    plens = tok(list(TP_RING_LENS))
+    forced = tok(served)
+    ref = _forced_logits(torch, full8, cfg8, tok(prompts.tolist()), plens, forced, False)
+    sigma = ref.std(dim=-1, unbiased=False)
+    gap = (ref.amax(-1) - ref.gather(-1, forced.long()[..., None])[..., 0]) / sigma
+    cases["ring"] = {"gap_max_sigma": float(gap.max()), "gap_mean_sigma": float(gap.mean()),
+                     "bound": TP_RING_GAP, "within": float(gap.max()) <= TP_RING_GAP,
+                     "argmax_equal": float((gap == 0).float().mean())}
+    del full8
+    # the 4-bit batch, against the quality phase's unsharded W4A8 pack
+    dp = te.DecodeParams(max_new_tokens=TP_NEW, eos_token_id=-1)
+    cfg4 = _tp_cfg(QUALITY_W4_LAYERS)
+    forced = tok(g0["w4"]["tokens"])
+    with torch.no_grad():
+        ref_b = te.generate(w4_ref, cfg4, inp["w4"], inp["w4_lens"], dp, policy=BF16).tokens.cpu()
+    ref = _forced_logits(torch, w4_ref, cfg4, inp["w4"], inp["w4_lens"], forced, True)
+    err = _normalized_err(torch.from_numpy(tp_logits["w4"]).to(dev), ref)
+    cases["w4"] = {"err": err, "bound": quality["w4_err"], "within": err <= quality["w4_err"],
+                   "tokens_equal_unsharded": float((forced.cpu() == ref_b).float().mean())}
+    ref_s = time.time() - t0
+    shape_holds = _tp_shape_holds(torch, dev)
+    # ranks: equal tokens, every kernel at shard shapes, every hold
+    ranks_equal = all(r["cases"][c]["tokens"] == g0[c]["tokens"]
+                      for r in gloo[1:] for c in ("int8_prefix", "defer", "beam", "w4")) and \
+        all(r["cases"]["ring"]["digests"] == g0["ring"]["digests"]
+            and r["cases"]["ring"]["chunks"] == len(g0["ring"]["digests"]) > 0
+            for r in gloo[1:])
+    need = {"int8_prefix": ("q8_matmul", "flash_decode_int8", "flash_attention"),
+            "defer": ("q8_matmul", "flash_decode_int8_current", "flash_attention"),
+            "beam": ("q8_matmul",), "ring": ("q8_matmul", "flash_attention"),
+            "w4": ("q4_matmul", "q8_matmul", "flash_decode_int8")}
+    launched = (all(r["cases"][c]["launches"][k] > 0 for r in gloo
+                    for c, ks in need.items() for k in ks)
+                and all(r["cases"]["defer"]["launches"]["flash_decode_int8"] == 0 for r in gloo))
+    holds = [h for r in gloo for c in r["cases"].values() for h in c["holds"]]
+    held = bool(holds) and all(h["ok"] for h in holds)
+    shard_shapes = {"shard8": gloo[0]["shard8"], "shard4": gloo[0]["shard4"]}
+    checksums = [r[k]["tree_checksum"] for r in gloo for k in ("shard8",)] + [check]
+    ok = (ranks_equal and launched and held and len(set(checksums)) == 1
+          and all(x["k1_bitwise"] and x["k4_bitwise"] for x in shape_holds)
+          and all(c["within"] for c in cases.values())
+          and cases["int8_prefix"]["nccl_tp1_equal_unsharded"]
+          and not g0["ring"]["errors"] and len(served) == len(TP_RING_LENS)
+          and all(len(s) == TP_RING_NEW for s in served))
+    nccl2_equal = None
+    if nccl2 is not None:
+        nccl2_equal = nccl2[0]["cases"]["int8_prefix"]["tokens"] == g0["int8_prefix"]["tokens"]
+        ok = ok and nccl2_equal
+    emit("tp", card=smi(), cards=torch.cuda.device_count(), layers=TP_LAYERS,
+         w4_layers=QUALITY_W4_LAYERS, cases=cases, w8a8_err_same_weights=w8_err,
+         ranks_equal=ranks_equal, launched_at_shard_shapes=launched, holds_ok=held,
+         holds=len(holds), holds_worst={k: max((h["max_abs_err"] for h in holds
+                                               if h["kernel"] == k), default=None)
+                                        for k in need["int8_prefix"] + need["defer"][1:2]
+                                        + ("q4_matmul",)},
+         held_shapes=sorted({(h["kernel"], h.get("n"), h.get("k"), h.get("s"), h.get("t"))
+                             for h in holds}, key=str),
+         shards=shard_shapes, shard_shape_holds=shape_holds, tree_checksums_equal=len(set(checksums)) == 1,
+         rank_seconds={c: g0[c]["seconds"] for c in g0}, rank_init_s=gloo[0]["init_s"],
+         rank_total_s=gloo[0]["total_s"], reference_s=ref_s,
+         all_reduce_ms={"gloo": gloo[0]["all_reduce_ms"], "nccl_world1": nccl1[0]["all_reduce_ms"]},
+         tokens_per_s={c: g0[c]["tokens_per_s"] for c in g0},
+         reports_per_s=g0["int8_prefix"]["reports_per_s"],
+         launches_rank0={c: g0[c]["launches"] for c in g0},
+         nccl_tp1={"launches": nccl1[0]["cases"]["int8_prefix"]["launches"],
+                   "seconds": nccl1[0]["cases"]["int8_prefix"]["seconds"]},
+         nccl_tp2=("not run: one card" if nccl2 is None else {"tokens_equal_gloo": nccl2_equal}),
+         note="tokens/s of two ranks sharing one card over gloo: no measure of TP speed-up",
+         ok=ok)
+    if not ok:
+        raise AssertionError("the tp phase failed a check")
+    return {k: sum(g0[c]["launches"].get(k, 0) for c in g0) for k in
+            ("q8_matmul", "flash_decode_int8", "flash_decode_int8_current", "flash_attention",
+             "q4_matmul")}
+
+
 # the ckpt phase: Vicuna-7B v1.3's published shapes (32,000 embedding rows, one
 # short of the port's vocab 32,001 with <IMG> = 32,000), the adapter's rank
 # and alpha, the beam run, the trainer's steps; bytes of free disk it needs
 CKPT_VOCAB, CKPT_LORA_R, CKPT_LORA_ALPHA = 32000, 8, 16
-CKPT_BEAMS, CKPT_BEAM_PROMPTS, CKPT_BEAM_NEW, CKPT_TRAIN_STEPS = 4, 2, 64, 2
+CKPT_BEAMS, CKPT_BEAM_PROMPTS, CKPT_BEAM_NEW, CKPT_TRAIN_STEPS = 4, 2, 32, 2
 CKPT_FREE_BYTES = 16 * 1024 ** 3
 
 
@@ -5204,6 +5861,26 @@ def main() -> int:
     trainers_launches = phase_trainers(torch, every_kernel)
     gc.collect()
     torch.cuda.empty_cache()
+    # the tp phase's ranks start first and run beside the quality phase:
+    # their shards' pack_q4 and the quality phase's use the host's cores
+    started = {"gloo": _tp_start("gloo", 2, "gloo",
+                                 ("int8_prefix", "defer", "beam", "ring", "w4")),
+               "nccl1": _tp_start("nccl1", 1, "nccl", ("int8_prefix",))}
+    if torch.cuda.device_count() >= 2:
+        started["nccl2"] = _tp_start("nccl2", 2, "nccl", ("int8_prefix",))
+    try:
+        quality, w4_ref = phase_quality(torch, every_kernel)
+        tp_launches = phase_tp(torch, started, quality, w4_ref)
+    finally:
+        for _, procs in started.values():
+            for p, log in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+                log.close()
+    del w4_ref
+    gc.collect()
+    torch.cuda.empty_cache()
     ckpt = phase_ckpt(torch, pipeline_mod, tq8, tfd, tfa)
 
     kernels = [
@@ -5344,6 +6021,11 @@ def main() -> int:
         counter = {"flash_decode_int8_intervals": "flash_decode_int8"}.get(k["name"], k["name"])
         k["launches_stage1"] = stage1_launches[counter]
         k["launches_trainers"] = trainers_launches[counter]
+        # the quality phase's, and the tp phase's on rank 0 at the shard's
+        # shapes; neither runs the ring's intervals (the TP ring is bf16)
+        static = k["name"] != "flash_decode_int8_intervals"
+        k["launches_quality"] = quality["launches"].get(counter, 0) if static else 0
+        k["launches_tp"] = tp_launches.get(counter, 0) if static else 0
     # the datatools phase's teacher: the ring (K2' is K2's counter there, every
     # launch checked to be under per-lane intervals) and the batch
     by_name = {k["name"]: k for k in kernels}
@@ -5434,6 +6116,8 @@ def time_report(roots) -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--tp-rank"] and len(sys.argv) == 3:
+        sys.exit(_tp_rank(sys.argv[2]))
     if sys.argv[1:2] == ["--time-report"]:
         sys.exit(time_report(sys.argv[2:]))
     if sys.argv[1:2] == ["--time-report-one"] and len(sys.argv) == 3:

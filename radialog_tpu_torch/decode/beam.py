@@ -15,6 +15,11 @@ Both weight layouts run: the unrolled serving list (W8A8 or W4A8
 projections, K1 and K4 on the card) and the stacked float tree, both over
 the bf16 cache; the int8 cache and sampling raise. The attention is plain
 PyTorch, as it is XLA in the JAX package: no Pallas kernel is behind it.
+
+``tp_group``: each rank beam-decodes over its tensor-parallel shard (its
+heads' prompt and generated K/V), the row-parallel partials summed over the
+group (``all_reduce_sum``, JAX's ``axis_name``); the reorder follows the
+summed logits, the same on every rank, so every rank keeps the same beams.
 """
 from __future__ import annotations
 
@@ -22,7 +27,8 @@ from typing import Dict, Optional
 
 import torch
 
-from ..models.llama import KVCache, LlamaConfig, _gqa, _layer_view, _mlp, _proj, qkv_proj
+from ..models.llama import (KVCache, LlamaConfig, _gqa, _layer_view, _mlp, _proj,
+                            all_reduce_sum, qkv_proj)
 from ..ops.layers import DTypePolicy, FP32, embedding_lookup, linear, rmsnorm
 from ..ops.rotary import apply_rope, rope_tables
 from .engine import DecodeParams, GenerationResult, prefill
@@ -60,7 +66,8 @@ def _split_attention(q: torch.Tensor, pk: torch.Tensor, pv: torch.Tensor,
 def _beam_forward(params: Dict, cfg: LlamaConfig, last_tok: torch.Tensor,
                   positions: torch.Tensor, pk: torch.Tensor, pv: torch.Tensor,
                   prompt_bias: torch.Tensor, gk: torch.Tensor, gv: torch.Tensor, step: int,
-                  beams: int, lora: Optional[Dict], policy: DTypePolicy) -> torch.Tensor:
+                  beams: int, lora: Optional[Dict], policy: DTypePolicy,
+                  tp_group=None) -> torch.Tensor:
     """One decode step at B*K rows against the split cache: writes each
     layer's new K/V into generated slot ``step`` of gk/gv (in place) and
     returns the logits (B*K, V) in f32. Either weight layout."""
@@ -81,8 +88,9 @@ def _beam_forward(params: Dict, cfg: LlamaConfig, last_tok: torch.Tensor,
         gv[i, :, step] = v[:, 0].to(gv.dtype)
         o = _split_attention(q, pk[i].to(x.dtype), pv[i].to(x.dtype), gk[i].to(x.dtype),
                              gv[i].to(x.dtype), prompt_bias, gen_bias, cfg.num_heads, beams)
-        x = x + _proj(lp, ll, "wo", o, lora_scale, policy)
-        x = x + _mlp(lp, rmsnorm(lp["post_ln"], x, cfg.rms_eps), policy)
+        x = x + all_reduce_sum(_proj(lp, ll, "wo", o, lora_scale, policy), tp_group)
+        x = x + all_reduce_sum(_mlp(lp, rmsnorm(lp["post_ln"], x, cfg.rms_eps), policy),
+                               tp_group)
     x = rmsnorm(params["final_ln"], x, cfg.rms_eps)
     return linear(params["lm_head"], x, policy).float()[:, 0]
 
@@ -91,7 +99,7 @@ def _beam_forward(params: Dict, cfg: LlamaConfig, last_tok: torch.Tensor,
 def beam_decode(params: Dict, cfg: LlamaConfig, cache: KVCache, first_logits: torch.Tensor,
                 prompt_lengths: torch.Tensor, prompt_pad: int, dp: DecodeParams,
                 num_beams: int, lora: Optional[Dict] = None, policy: DTypePolicy = FP32,
-                length_penalty: float = 1.0) -> GenerationResult:
+                length_penalty: float = 1.0, tp_group=None) -> GenerationResult:
     """Beam-decode from a prefill: ``cache`` the bf16 prompt K/V at batch B
     (only slots [0, prompt_pad) are read), ``first_logits`` (B, V). Returns
     each batch element's best beam."""
@@ -133,7 +141,7 @@ def beam_decode(params: Dict, cfg: LlamaConfig, cache: KVCache, first_logits: to
     while step + 1 < max_new and not bool(done.all()):
         pos = (lengths_bk + step)[:, None]
         logits = _beam_forward(params, cfg, tok, pos, pk, pv, prompt_bias, gk, gv, step, k,
-                               lora, policy)
+                               lora, policy, tp_group)
         logp = torch.log_softmax(logits, dim=-1)
         logp = torch.where(done[:, None], eos_only[None, :], logp)   # finished: EOS, no cost
         top = torch.topk((scores[:, None] + logp).reshape(b, k * vocab), k, dim=-1)
@@ -160,8 +168,8 @@ def beam_decode(params: Dict, cfg: LlamaConfig, cache: KVCache, first_logits: to
 def generate_beam(params: Dict, cfg: LlamaConfig, tokens: torch.Tensor,
                   lengths: torch.Tensor, dp: DecodeParams, num_beams: int,
                   img_embs: Optional[torch.Tensor] = None, lora: Optional[Dict] = None,
-                  policy: DTypePolicy = FP32, cache_len: Optional[int] = None
-                  ) -> GenerationResult:
+                  policy: DTypePolicy = FP32, cache_len: Optional[int] = None,
+                  tp_group=None) -> GenerationResult:
     """Prefill once at batch B on the bf16 cache, then beam-decode at
     B*num_beams. ``cache_len`` is taken for generate()'s signature and not
     used: the prompt K/V is sized by the padded prompt, the generated K/V by
@@ -169,6 +177,6 @@ def generate_beam(params: Dict, cfg: LlamaConfig, tokens: torch.Tensor,
     del cache_len
     t = tokens.shape[1]
     cache, last = prefill(params, cfg, tokens, lengths, t, img_embs=img_embs, lora=lora,
-                          policy=policy, kv_int8=False)
+                          policy=policy, kv_int8=False, tp_group=tp_group)
     return beam_decode(params, cfg, cache, last, lengths, t, dp, num_beams, lora=lora,
-                       policy=policy)
+                       policy=policy, tp_group=tp_group)

@@ -86,6 +86,9 @@ class ContinuousBatcher:
     step over the stacked float params, one step at a time. Not
     thread-safe: one thread owns it."""
 
+    # the tensor-parallel group of the forward (parallel/tp_ring.py sets it)
+    tp_group = None
+
     def __init__(self, params: Dict, cfg: LlamaConfig, lanes: int = 4,
                  cache_len: int = 512, dp: DecodeParams = DecodeParams(),
                  lora: Optional[Dict] = None, policy: DTypePolicy = FP32, device="cuda"):
@@ -174,7 +177,8 @@ class ContinuousBatcher:
         logits, fresh = llama_apply(
             self.params, self.cfg, tokens, torch.arange(t, device=dev)[None],
             prefill_bias(lens, t), cache=None, img_embs=img_embs, img_start=img_start,
-            lora=self.lora, policy=self.policy, lengths=lens, last_pos=lens - 1)
+            lora=self.lora, policy=self.policy, lengths=lens, last_pos=lens - 1,
+            tp_group=self.tp_group)
         install_prefill(self.cache, fresh, lane=lane)
         return torch.argmax(logits[0, 0], dim=-1)
 
@@ -214,6 +218,7 @@ class RingBatcher:
     # the generation region rotates (slots reused modulo ring_len); a
     # subclass with linear per-lane frontiers turns the ring-span guards off
     _ring_wraps = True
+    tp_group = None
 
     def __init__(self, params: Dict, cfg: LlamaConfig, lanes: int = 4,
                  cache_len: int = 512, prompt_len: int = 256,
@@ -284,12 +289,14 @@ class RingBatcher:
                         self.params, cfg, last_tok[:, None], pos, None, cache=cache,
                         write_pos=slot, lora=self.lora, policy=self.policy,
                         lengths=prompt_lens,
-                        slot_info=ring_intervals(writes, e, prompt_len, ring_len))
+                        slot_info=ring_intervals(writes, e, prompt_len, ring_len),
+                        tp_group=self.tp_group)
                 else:
                     bias = torch.where(valid, 0.0, NEG)[:, None, None, :]
                     logits, _ = llama_apply(
                         self.params, cfg, last_tok[:, None], pos, bias, cache=cache,
-                        write_pos=slot, lora=self.lora, policy=self.policy)
+                        write_pos=slot, lora=self.lora, policy=self.policy,
+                        tp_group=self.tp_group)
                 nxt = torch.argmax(logits[:, 0], dim=-1).to(torch.int32)
                 last_tok = torch.where(active, nxt, last_tok)
                 cur_lens = cur_lens + grow

@@ -20,6 +20,13 @@ Sampling draws its noise from one ``torch.Generator`` per ``decode_loop``,
 seeded from ``DecodeParams.seed`` on the logits' device, through
 ``gumbel_noise``. It gives other numbers than ``jax.random`` from the same
 seed; the tests feed both the same noise by replacing ``gumbel_noise``.
+
+``tp_group`` (the JAX engine's ``axis_name``): each rank runs these
+functions over its tensor-parallel shard of the serving params and
+``shard_config``'s local counts, and ``llama_apply`` sums the row-parallel
+partials over the group (parallel/tp_serving.py). The logits are the same
+on every rank of the group, so every rank picks the same tokens and runs
+the same number of steps.
 """
 from __future__ import annotations
 
@@ -108,7 +115,8 @@ def prefills_directly(params: Dict, batch: int, kv_int8: bool) -> bool:
 
 def prefill(params: Dict, cfg: LlamaConfig, tokens: torch.Tensor, lengths: torch.Tensor,
             cache_len: int, img_embs: Optional[torch.Tensor] = None,
-            lora: Optional[Dict] = None, policy: DTypePolicy = FP32, kv_int8: bool = True):
+            lora: Optional[Dict] = None, policy: DTypePolicy = FP32, kv_int8: bool = True,
+            tp_group=None):
     """The prompt pass: returns (cache, last_logits (B, V)). tokens (B, T)
     right-padded with lengths (B,); cache_len >= T + max_new.
 
@@ -134,7 +142,8 @@ def prefill(params: Dict, cfg: LlamaConfig, tokens: torch.Tensor, lengths: torch
     logits, out = llama_apply(params, cfg, tokens, positions, prefill_bias(lengths, t),
                               cache=cache if direct else None, write_pos=0,
                               img_embs=img_embs, img_start=img_start, lora=lora,
-                              policy=policy, lengths=lengths, last_pos=lengths - 1)
+                              policy=policy, lengths=lengths, last_pos=lengths - 1,
+                              tp_group=tp_group)
     if not direct:
         cache = install_prefill(cache, out)
     return cache, logits[:, 0]
@@ -142,7 +151,7 @@ def prefill(params: Dict, cfg: LlamaConfig, tokens: torch.Tensor, lengths: torch
 
 def prefix_kv(params: Dict, cfg: LlamaConfig, prefix_tokens: torch.Tensor,
               lora: Optional[Dict] = None, policy: DTypePolicy = FP32,
-              img_embs: Optional[torch.Tensor] = None) -> PrefixKV:
+              img_embs: Optional[torch.Tensor] = None, tp_group=None) -> PrefixKV:
     """Prefill a batch-wide shared prefix (P0,) once: per-layer K/V
     (L, P0, H, D) in the compute dtype."""
     p0 = prefix_tokens.shape[0]
@@ -154,7 +163,7 @@ def prefix_kv(params: Dict, cfg: LlamaConfig, prefix_tokens: torch.Tensor,
                            torch.arange(p0, device=dev)[None], prefill_bias(ln, p0),
                            lora=lora, policy=policy, lengths=ln,
                            last_pos=torch.zeros((1,), dtype=torch.int32, device=dev),
-                           img_embs=img_embs, img_start=img_start)
+                           img_embs=img_embs, img_start=img_start, tp_group=tp_group)
     return PrefixKV(fresh.k[:, 0], fresh.v[:, 0])
 
 
@@ -192,7 +201,7 @@ def generate_shared_prefix(params: Dict, cfg: LlamaConfig, prefix_tokens: torch.
                            lora: Optional[Dict] = None, policy: DTypePolicy = FP32,
                            cache_len: Optional[int] = None,
                            prefix_img_embs: Optional[torch.Tensor] = None,
-                           kv_int8: bool = True) -> GenerationResult:
+                           kv_int8: bool = True, tp_group=None) -> GenerationResult:
     """generate() for prompts that share a literal token prefix.
 
     prefix_tokens (P0,) is prefilled once; tokens (B, T1) are the per-lane
@@ -216,30 +225,32 @@ def generate_shared_prefix(params: Dict, cfg: LlamaConfig, prefix_tokens: torch.
         raise ValueError(f"prefix_img_embs provides {prefix_img_embs.shape[1]} embeddings "
                          f"but the prompt contract reserves {cfg.num_img_tokens}")
     shared = prefix_kv(params, cfg, prefix_tokens, lora=lora, policy=policy,
-                       img_embs=prefix_img_embs)
+                       img_embs=prefix_img_embs, tp_group=tp_group)
     cache = init_cache(cfg, b, cache_len, device=dev, quantized=kv_int8)
     positions = p0 + torch.arange(t1, device=dev)[None].repeat(b, 1)
     img_start = find_img_start(tokens, cfg.img_token_id) if img_embs is not None else None
     logits, cache = llama_apply(params, cfg, tokens, positions, prefill_bias(lengths, t1),
                                 cache=cache, write_pos=0, img_embs=img_embs,
                                 img_start=img_start, lora=lora, policy=policy,
-                                lengths=lengths, last_pos=lengths - 1, shared_kv=shared)
+                                lengths=lengths, last_pos=lengths - 1, shared_kv=shared,
+                                tp_group=tp_group)
     return decode_loop(params, cfg, cache, logits[:, 0], lengths, dp, lora=lora,
                        policy=policy, prompt_pad=t1, shared_kv=decode_prefix(shared, cache),
-                       pos_offset=p0, shared_p0=p0)
+                       pos_offset=p0, shared_p0=p0, tp_group=tp_group)
 
 
 def generate(params: Dict, cfg: LlamaConfig, tokens: torch.Tensor, lengths: torch.Tensor,
              dp: DecodeParams = DecodeParams(), img_embs: Optional[torch.Tensor] = None,
              lora: Optional[Dict] = None, policy: DTypePolicy = FP32,
-             cache_len: Optional[int] = None, kv_int8: bool = True) -> GenerationResult:
+             cache_len: Optional[int] = None, kv_int8: bool = True,
+             tp_group=None) -> GenerationResult:
     """``prefill``, then decode."""
     if cache_len is None:
         cache_len = default_cache_len(tokens.shape[1], dp)
     cache, first = prefill(params, cfg, tokens, lengths, cache_len, img_embs=img_embs,
-                           lora=lora, policy=policy, kv_int8=kv_int8)
+                           lora=lora, policy=policy, kv_int8=kv_int8, tp_group=tp_group)
     return decode_loop(params, cfg, cache, first, lengths, dp, lora=lora, policy=policy,
-                       prompt_pad=tokens.shape[1])
+                       prompt_pad=tokens.shape[1], tp_group=tp_group)
 
 
 # JAX's generate_two_phase dispatches the prefill and the decode as two jitted
@@ -253,7 +264,7 @@ def decode_step(params: Dict, cfg: LlamaConfig, cache: KVCache, last_tok: torch.
                 prompt_lengths: torch.Tensor, prompt_pad: int, step: int,
                 lora=None, policy: DTypePolicy = FP32, shared_kv=None,
                 pos_offset: int = 0, shared_p0: Optional[int] = None,
-                defer_kv: Optional[bool] = None) -> torch.Tensor:
+                defer_kv: Optional[bool] = None, tp_group=None) -> torch.Tensor:
     """One forward of the last tokens (B,) at decode step ``step``: writes
     their K/V at slot prompt_pad + step and returns logits (B, V). The bf16
     cache is masked by ``decode_bias_static_slot``; ``defer_kv`` is
@@ -264,7 +275,8 @@ def decode_step(params: Dict, cfg: LlamaConfig, cache: KVCache, last_tok: torch.
     logits, _ = llama_apply(params, cfg, last_tok[:, None], pos, bias, cache=cache,
                             write_pos=prompt_pad + step, lora=lora, policy=policy,
                             lengths=prompt_lengths, slot_info=(prompt_pad, step),
-                            shared_kv=shared_kv, shared_p0=shared_p0, defer_kv=defer_kv)
+                            shared_kv=shared_kv, shared_p0=shared_p0, defer_kv=defer_kv,
+                            tp_group=tp_group)
     return logits[:, 0]
 
 
@@ -272,7 +284,7 @@ def decode_loop(params: Dict, cfg: LlamaConfig, cache: KVCache, first_logits: to
                 prompt_lengths: torch.Tensor, dp: DecodeParams, lora=None,
                 policy: DTypePolicy = FP32, prompt_pad: Optional[int] = None,
                 shared_kv=None, pos_offset: int = 0,
-                shared_p0: Optional[int] = None) -> GenerationResult:
+                shared_p0: Optional[int] = None, tp_group=None) -> GenerationResult:
     """Greedy or sampled decode with static-slot KV writes: step s writes
     every lane's K/V at slot prompt_pad + s; positions and masks stay per
     lane. A lane that emitted EOS keeps emitting it.
@@ -302,7 +314,8 @@ def decode_loop(params: Dict, cfg: LlamaConfig, cache: KVCache, first_logits: to
                 break
             logits = decode_step(params, cfg, cache, tok, prompt_lengths, prompt_pad, step,
                                  lora=lora, policy=policy, shared_kv=shared_kv,
-                                 pos_offset=pos_offset, shared_p0=shared_p0)
+                                 pos_offset=pos_offset, shared_p0=shared_p0,
+                                 tp_group=tp_group)
             nxt = _select_token(logits, dp, gen)
             nxt = torch.where(done, torch.full_like(nxt, dp.eos_token_id), nxt)
             out[:, step + 1] = nxt

@@ -42,8 +42,16 @@ indexed write), then attends the whole layer cache, cast to the compute
 dtype, under the caller's bias, for any t (``mha``; no kernel). The int8
 cache and a shared prefix need the unrolled serving params and raise.
 The stacked layout accepts ``verify`` and ignores it, as in JAX: it
-attends the whole cache for any t already. Tensor parallelism is not ported
-yet.
+attends the whole cache for any t already.
+
+Tensor parallelism (parallel/tp_serving.py, parallel/tp_ring.py): with
+``tp_group`` each rank holds a Megatron shard of the unrolled serving
+params (its heads' columns of wqkv, its FFN slice of gateup, the matching
+rows of wo and down) and runs the forward over ``shard_config``'s local
+head and FFN counts; the row-parallel partial outputs of wo and down are
+summed over the group (``all_reduce_sum``, the JAX package's ``_psum_if``)
+before each residual add, so the residual stream and the logits are the
+same on every rank of the group. ``tp_group=None`` adds nothing.
 
 The KV cache is updated IN PLACE (a PyTorch tensor is mutable; the JAX
 package returns a new cache from dynamic_update_slice): ``llama_apply``
@@ -85,9 +93,12 @@ class LlamaConfig:
     bos_token_id: int = 1
     eos_token_id: int = 2
     pad_token_id: int = 0
+    override_head_dim: Optional[int] = None   # a tensor-parallel shard's (shard_config)
 
     @property
     def head_dim(self) -> int:
+        if self.override_head_dim is not None:
+            return self.override_head_dim
         return self.hidden_size // self.num_heads
 
 
@@ -418,6 +429,19 @@ def _attention_int8_verify(q, cache: KVCache, layer_idx: int, bias, hd: int):
     return o.transpose(1, 2).to(q.dtype)
 
 
+def all_reduce_sum(y: torch.Tensor, group) -> torch.Tensor:
+    """Sum of ``y`` over the ranks of ``group`` (the identity for None), in
+    ``y``'s dtype: the partials are reduced as f32 and rounded once (gloo
+    takes no bf16, and for two ranks the rounded f32 sum is bitwise the bf16
+    one; for more the order of the sum is the backend's)."""
+    if group is None:
+        return y
+    import torch.distributed as dist
+    acc = y.to(torch.float32, copy=True).contiguous()
+    dist.all_reduce(acc, group=group)
+    return acc.to(y.dtype)
+
+
 def _mlp(lp: Dict, x, policy: DTypePolicy):
     if "gateup" in lp:   # fused serving layout
         g, u = torch.chunk(linear(lp["gateup"], x, policy), 2, dim=-1)
@@ -443,7 +467,7 @@ def llama_apply(params: Dict, cfg: LlamaConfig, tokens: torch.Tensor,
                 last_pos: Optional[torch.Tensor] = None,
                 shared_kv=None, shared_p0: Optional[int] = None,
                 remat: bool = False, flash: bool = True,
-                defer_kv: Optional[bool] = None, verify: bool = False):
+                defer_kv: Optional[bool] = None, verify: bool = False, tp_group=None):
     """The forward, over the unrolled serving layout (``params["layers"]`` a
     list) or the stacked layout (a dict of leaves with a leading layer axis;
     no cache, or the bf16 cache). Returns (logits, cache): logits (B,T,V) or,
@@ -479,7 +503,10 @@ def llama_apply(params: Dict, cfg: LlamaConfig, tokens: torch.Tensor,
     ``verify``: the block of t tokens attends the whole cache under ``bias``
     (B|1, 1, T, S) instead of being a prefill (module docstring); it needs
     a cache and refuses a shared prefix on the unrolled layout, as in JAX,
-    and never takes the flash-decode kernel or ``defer_kv``."""
+    and never takes the flash-decode kernel or ``defer_kv``.
+
+    ``tp_group``: the tensor-parallel process group whose ranks hold the
+    other shards of ``params`` (module docstring), or None."""
     stacked = not isinstance(params["layers"], (list, tuple))
     if verify and not stacked and shared_kv is not None:
         raise ValueError("speculative verification does not compose with prefix sharing "
@@ -535,9 +562,9 @@ def llama_apply(params: Dict, cfg: LlamaConfig, tokens: torch.Tensor,
         if keep_kv:
             fresh_k.append(out[0])
             fresh_v.append(out[1])
-        x = x + attn_out
+        x = x + all_reduce_sum(attn_out, tp_group)
         h = rmsnorm(lp["post_ln"], x, cfg.rms_eps)
-        return x + _mlp(lp, h, policy)
+        return x + all_reduce_sum(_mlp(lp, h, policy), tp_group)
 
     for i in range(num_layers):
         if remat:   # no dropout in the layer: no RNG state to preserve

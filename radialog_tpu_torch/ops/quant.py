@@ -14,6 +14,7 @@ it decides the argmax.
 """
 from __future__ import annotations
 
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, List
 
 import numpy as np
@@ -179,6 +180,8 @@ def quantize_llama_host(params: Dict, device="cuda", bits: int = 8,
     asymmetric, "sym": symmetric absmax) and moves the result."""
     _check_bits(bits, w4_mode)
     dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:   # the caller's card, also in the workers
+        dev = torch.device("cuda", torch.cuda.current_device())
 
     def f32(x):   # a tensor on ``device`` in f32 (numpy leaves keep their values)
         x = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x))
@@ -191,17 +194,25 @@ def quantize_llama_host(params: Dict, device="cuda", bits: int = 8,
     def pack_layer(*ws):
         if bits == 4:
             w = np.concatenate([f32_host(x) for x in ws], axis=-1)
-            return pack_q4(w, mode=w4_mode).to(device)
+            return pack_q4(w, mode=w4_mode).to(dev)
         return pack_q8(torch.cat([f32(x) for x in ws], dim=-1))
 
-    layers = [{
-        "input_ln": f32(lay["input_ln"]),
-        "post_ln": f32(lay["post_ln"]),
-        "wqkv": pack_layer(lay["wq"]["w"], lay["wk"]["w"], lay["wv"]["w"]),
-        "gateup": pack_layer(lay["gate"]["w"], lay["up"]["w"]),
-        "wo": pack_layer(lay["wo"]["w"]),
-        "down": pack_layer(lay["down"]["w"]),
-    } for lay in _per_layer(params["layers"])]
+    def leaves(lay):
+        return {"wqkv": (lay["wq"]["w"], lay["wk"]["w"], lay["wv"]["w"]),
+                "gateup": (lay["gate"]["w"], lay["up"]["w"]),
+                "wo": (lay["wo"]["w"],), "down": (lay["down"]["w"],)}
+
+    # pack_q4's grid fits are numpy array work, which releases the GIL: at 4
+    # bits the four projections of a layer pack in threads (the bytes of a
+    # serial run); at 8 bits pack_q8 runs on the device, in this thread
+    with ThreadPoolExecutor(4) as pool:
+        run = pool.map if bits == 4 else map
+        layers = []
+        for lay in _per_layer(params["layers"]):
+            groups = leaves(lay)
+            packed = run(lambda ws: pack_layer(*ws), groups.values())
+            layers.append({"input_ln": f32(lay["input_ln"]), "post_ln": f32(lay["post_ln"]),
+                           **dict(zip(groups, packed))})
     out = {"final_ln": f32(params["final_ln"]), "layers": layers,
            "lm_head": pack_q8(f32(params["lm_head"]["w"])),
            "embed": f32(params["embed"]).to(torch.bfloat16)}

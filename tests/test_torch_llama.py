@@ -63,9 +63,7 @@ def models(seed=0):
 
 def test_configs_match_jax():
     for name in ("VICUNA_7B", "TINY_LLAMA"):
-        assert dataclasses.asdict(getattr(tl, name)) == {
-            k: v for k, v in dataclasses.asdict(getattr(jl, name)).items()
-            if k != "override_head_dim"}
+        assert dataclasses.asdict(getattr(tl, name)) == dataclasses.asdict(getattr(jl, name))
 
 
 @pytest.mark.parametrize("scale_dtype", ["bfloat16", "float32"])

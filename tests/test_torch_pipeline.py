@@ -224,13 +224,14 @@ def test_entry_points_default_to_the_card():
 
 
 def test_port_imports_no_jax():
-    """The port, its tools and chip_smoke.py import neither jax, optax, orbax,
-    radialog_tpu, pandas nor nltk (the card machine has neither of the
-    last two)."""
+    """The port, its tools, chip_smoke.py and the tensor-parallel tests' rank
+    processes import neither jax, optax, orbax, radialog_tpu, pandas nor
+    nltk (the card machine has neither of the last two)."""
     files = (sorted((REPO / "radialog_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
              + sorted((REPO / "tools").glob("*torch*.py"))
              + [REPO / "tools" / f"{name}.py" for name in ("time_prefill_paths", "time_k2_phase",
-                                                          "time_k4_phase")])
+                                                          "time_k4_phase")]
+             + [REPO / "tests" / "torch_tp_ranks.py"])
     assert len(files) > 15
     assert REPO / "radialog_tpu_torch" / "native" / "loader.py" in files
     assert {"continuous.py", "serve.py", "q4_matmul.py", "quant.py", "bridge.py",
@@ -244,7 +245,9 @@ def test_port_imports_no_jax():
             "qformer.py", "augment.py", "image.py", "loader.py", "prefetch.py", "runner.py",
             "logging.py", "pretrain.py", "classifier.py", "chexbert_train.py", "summary.py",
             "section_parser.py", "instruct.py", "chexpert_train.py", "run_chexbert.py",
-            "create_sections.py", "create_data.py"} <= \
+            "create_sections.py", "create_data.py", "mesh.py", "tp_serving.py", "tp_ring.py",
+            "measure_kv_logit_err_torch.py", "measure_quant_torch.py",
+            "measure_kv_int8_torch.py", "tp_cards_torch.py", "torch_tp_ranks.py"} <= \
         {f.name for f in files}
     for f in files:
         for node in ast.walk(ast.parse(f.read_text())):
