@@ -287,6 +287,24 @@ each; any failing phase exits non-zero:
           token-equal to the unsharded run; TP = 2 over NCCL where the
           machine has two cards. tokens/s only as what they are: two ranks
           sharing one card
+  tptrain training across ranks (parallel/partition.py, collectives.py, the
+          Megatron pair in models/llama.py, make_lora_train_step(mesh=),
+          finetune_lora.train inside a process group): Vicuna-7B's widths
+          at 2 layers (vocab 32,001 padded to 2 x 16,001 rows), the int8
+          base, LoRA r 8 on wq/wv, remat, flash, cutoff 600 with the train
+          phase's records, global micro-batch 4. The one-process reference
+          here (an SGD step, 3 AdamW micro-steps through finetune_lora.train,
+          stage 1's SGD step at BERT-base widths over synthetic patch tokens,
+          batch 32 x 256 text tokens, FP32, its hard negatives drawn once),
+          then rank processes of this script (``--tptrain-rank``): two over
+          gloo on the one card for TP = 2 (1 x 2, 16 heads: K3, K5a, K5b
+          counted and held against their plain versions at that shape), DP =
+          2 (2 x 1) and stage 1 at DP = 2 with the same negatives; then one
+          over NCCL at world size 1, bitwise the reference. Each case: loss
+          and grad_norm within TPTRAIN_TOL, each LoRA leaf's update cosine
+          and largest element error (stage 1's too), the replicated leaves bitwise equal on both ranks, ms a micro-step,
+          the collectives a micro-step issues and their ms
+
 
   ckpt    checkpoints on disk at full size, loaded back through the port's
           loaders (ROADMAP queue 1 item 3) with both tokenizer loaders
@@ -4799,18 +4817,18 @@ def _tp_case(torch, kept, state, name, run, dev):
 
 
 def _all_reduce_ms(torch, group, dev, n: int = 20):
-    """Host ms of one ``all_reduce_sum`` of a decode step's bf16 activations
+    """Host ms of one ``reduce_from_group`` of a decode step's bf16 activations
     (TP_BATCH x 4096) over ``group``, and of a prefill's (TP_BATCH x
     TP_REST rows), each the mean of n after a warm-up."""
-    from radialog_tpu_torch.models.llama import all_reduce_sum
+    from radialog_tpu_torch.parallel.collectives import reduce_from_group
     out = {}
     for name, rows in (("decode", TP_BATCH), ("prefill", TP_BATCH * TP_REST)):
         x = torch.ones((rows, 4096), dtype=torch.bfloat16, device=dev)
-        all_reduce_sum(x, group)
+        reduce_from_group(x, group)
         _sync(torch, dev)
         t0 = time.time()
         for _ in range(n):
-            all_reduce_sum(x, group)
+            reduce_from_group(x, group)
         _sync(torch, dev)
         out[name] = (time.time() - t0) / n * 1e3
     return out
@@ -4965,18 +4983,23 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _tp_start(name: str, world: int, backend: str, cases, dev="cuda"):
-    """Start ``world`` rank processes of this script on the card, meeting at
-    a free localhost port; returns (job path, processes)."""
+def _tp_start(name: str, world: int, backend: str, cases, dev="cuda", flag="--tp-rank",
+              sub="tp", **job_fields):
+    """Start ``world`` rank processes of this script (``flag JOB``) on the
+    card, meeting at a free localhost port; the job file under build/``sub``
+    holds the backend, the cases (a list of names, or a dict) and
+    ``job_fields``. Returns (job path,
+    processes)."""
     root = os.path.dirname(os.path.abspath(__file__))
-    out_dir = os.path.join(root, "build", "tp")
+    out_dir = os.path.join(root, "build", sub)
     os.makedirs(out_dir, exist_ok=True)
     job = os.path.join(out_dir, f"{name}.json")
     for old in (f"{job}.{r}.json" for r in range(world)):
         if os.path.exists(old):
             os.remove(old)
     with open(job, "w") as f:
-        json.dump({"backend": backend, "cases": list(cases), "device": dev}, f)
+        json.dump({"backend": backend, "device": dev,
+                   "cases": cases if isinstance(cases, dict) else list(cases), **job_fields}, f)
     port = _free_port()
     procs = []
     for r in range(world):
@@ -4984,8 +5007,8 @@ def _tp_start(name: str, world: int, backend: str, cases, dev="cuda"):
                    RADIALOG_NUM_PROCESSES=str(world), RADIALOG_PROCESS_ID=str(r),
                    PYTHONPATH=root)
         log = open(f"{job}.{r}.log", "w")
-        procs.append((subprocess.Popen([sys.executable, os.path.abspath(__file__), "--tp-rank",
-                                        job], env=env, stdout=log, stderr=subprocess.STDOUT,
+        procs.append((subprocess.Popen([sys.executable, os.path.abspath(__file__), flag, job],
+                                       env=env, stdout=log, stderr=subprocess.STDOUT,
                                        cwd=root), log))
     return job, procs
 
@@ -5201,6 +5224,509 @@ def phase_tp(torch, started, quality, w4_ref, dev="cuda"):
     return {k: sum(g0[c]["launches"].get(k, 0) for c in g0) for k in
             ("q8_matmul", "flash_decode_int8", "flash_decode_int8_current", "flash_attention",
              "q4_matmul")}
+
+
+# the tptrain phase: the depth of the Vicuna-7B-width model, the global
+# micro-batch, AdamW micro-steps, the weights' seed; stage 1's global batch,
+# text tokens and patch tokens; the SGD learning rates (1: the update is
+# the gradient)
+TPTRAIN_LAYERS, TPTRAIN_MICRO, TPTRAIN_STEPS, TPTRAIN_SEED = 2, 4, 3, 31
+TPTRAIN_S1_BATCH, TPTRAIN_S1_TXT, TPTRAIN_S1_PATCHES = 32, 256, 196
+TPTRAIN_LR, TPTRAIN_S1_LR = 1.0, 0.1
+# bounds of the sharded runs against the one-process run on the card
+# (BF16 compute for LoRA, FP32 for stage 1): relative loss and grad_norm
+# errors, the least cosine of a leaf's update with the reference's, and a
+# leaf's largest element error over its largest update (a cosine does not
+# see scale: a gradient summed twice reads 1.0 there). Set at a few times
+# the readings on an H100 at 700 W (PERF.md section 6): update error 0.056
+# (TP = 2) and 0.046 (DP = 2) in bf16, 4.9e-4 for stage 1; stage 1's least
+# cosine 1 - 3.0e-9
+TPTRAIN_TOL = {"loss_rel": 1e-4, "grad_norm_rel": 1e-3, "cos": 0.999, "update_rel": 0.2,
+               "adamw_loss_rel": 5e-4, "s1_loss_rel": 1e-5, "s1_cos": 1 - 1e-8,
+               "s1_update_rel": 2e-3}
+
+
+def _tptrain_cfg():
+    from radialog_tpu_torch.models.llama import VICUNA_7B
+    return dataclasses.replace(VICUNA_7B, num_layers=TPTRAIN_LAYERS)
+
+
+def _tptrain_weights(torch, dev):
+    """(cfg, base, lora) of the phase, the same bits in every process on
+    the card: the int8 base from a device generator, the adapters from the
+    host's, with b drawn (zero, it would leave a without a gradient)."""
+    from radialog_tpu_torch.models.llama import lora_init
+    from radialog_tpu_torch.ops.quant import random_q8_train_base
+    from radialog_tpu_torch.train.optim import tree_map
+    cfg = _tptrain_cfg()
+    base = random_q8_train_base(cfg, torch.Generator(device=dev).manual_seed(TPTRAIN_SEED),
+                                device=dev)
+    gen = torch.Generator().manual_seed(TPTRAIN_SEED)
+    lora = lora_init(gen, cfg, device="cpu")
+    for ab in lora["layers"].values():
+        ab["b"] = torch.randn(ab["b"].shape, generator=gen) * 0.02
+    return cfg, base, tree_map(lambda x: x.to(dev), lora)
+
+
+def _tptrain_batch(cfg, records):
+    """The global micro-batch of the SGD step (numpy): the train phase's
+    tokenization of records 2-5 (their valid label counts differ, so the two
+    data ranks hold different counts)."""
+    from radialog_tpu_torch.apps import finetune_lora as ft
+    from radialog_tpu_torch.apps.tokenization import WhitespaceTokenizer
+    tok = WhitespaceTokenizer(vocab_size=cfg.vocab_size, num_img_tokens=cfg.num_img_tokens,
+                              img_token_id=cfg.img_token_id)
+    fcfg = ft.FinetuneConfig(synthetic=True, cutoff_len=CUTOFF, use_embs=True)
+    return ft._make_batcher(records[2:], tok, fcfg, cfg, {})(list(range(TPTRAIN_MICRO)))
+
+
+def _tptrain_sgd(torch, cfg, base, lora, batch, dev, mesh=None, before_timed=None):
+    """One SGD LoRA step (BF16, remat, flash) of the global micro-batch,
+    twice from the same state: the first warms up, the second is timed
+    (``before_timed()`` is called just before it). Returns (loss, grad_norm,
+    the new local tree, ms of the timed step)."""
+    from radialog_tpu_torch.core.mesh import shard_batch
+    from radialog_tpu_torch.ops.layers import BF16
+    from radialog_tpu_torch.train.optim import make_sgd
+    from radialog_tpu_torch.train.steps import TrainState, make_lora_train_step
+    tx = make_sgd(TPTRAIN_LR, momentum=0.0)
+    step = make_lora_train_step(tx, cfg, policy=BF16, remat=True, flash=True, mesh=mesh)
+    local = shard_batch(mesh, batch, dev)
+    for timed in (False, True):
+        if timed and before_timed is not None:
+            before_timed()
+        _sync(torch, dev)
+        t0 = time.time()
+        state, m = step(TrainState.create(lora, tx), base, local)
+        _sync(torch, dev)
+        ms = (time.time() - t0) * 1e3
+    return float(m["loss"]), float(m["grad_norm"]), state.params, ms
+
+
+def _tptrain_adamw(torch, cfg, base, lora, data, out_dir, dev, mesh_model=1):
+    """TPTRAIN_STEPS micro-steps of apps/finetune_lora.train (AdamW,
+    micro-batch TPTRAIN_MICRO, no accumulation, one validation batch) at
+    this phase's depth: the micro-steps' losses and grad norms and the
+    validation loss (None on a rank that does not log)."""
+    from radialog_tpu_torch.apps import finetune_lora as ft
+    cfg_full = ft.VICUNA_7B
+    fcfg = ft.FinetuneConfig(synthetic=True, data_path=data, output_dir=out_dir,
+                             batch_size=TPTRAIN_MICRO, micro_batch_size=TPTRAIN_MICRO,
+                             num_epochs=1, max_steps=TPTRAIN_STEPS, cutoff_len=CUTOFF,
+                             val_set_size=2, use_embs=True, quantize_base=True, flash=True,
+                             mesh_model=mesh_model, device=torch.device(dev).type)
+    steps, logs = [], []
+    ft.VICUNA_7B = cfg        # the synthetic run's config, cut to this depth
+    try:
+        ft.train(fcfg, log_fn=logs.append, base=base, lora=lora,
+                 on_step=lambda i, m: steps.append((float(m["loss"]), float(m["grad_norm"]))))
+    finally:
+        ft.VICUNA_7B = cfg_full
+    val = [m["val_loss"] for m in logs if "val_loss" in m]
+    return {"losses": [x for x, _ in steps], "grad_norms": [g for _, g in steps],
+            "val_loss": val[0] if val else None}
+
+
+def _tptrain_s1_setup(torch, dev):
+    """Stage 1 at BERT-base widths: (cfg, params on ``dev``, the global
+    batch in numpy) from the phase's seed, alike in every process."""
+    import numpy as np
+    from radialog_tpu_torch.models.blip2 import Blip2Config, blip2_init
+    cfg = Blip2Config()
+    params, _ = blip2_init(torch.Generator(device=dev).manual_seed(TPTRAIN_SEED), cfg, dev,
+                           with_vision=False)
+    rng = np.random.default_rng(TPTRAIN_SEED)
+    b, t = TPTRAIN_S1_BATCH, TPTRAIN_S1_TXT
+    ids = rng.integers(4, cfg.qformer.bert.vocab_size, (b, t)).astype(np.int32)
+    ids[:, 0] = 101
+    lens = rng.integers(t // 6, t + 1, (b,))
+    mask = (np.arange(t)[None] < lens[:, None]).astype(np.int32)
+    ids = np.where(mask > 0, ids, 0).astype(np.int32)
+    embeds = rng.normal(size=(b, TPTRAIN_S1_PATCHES, cfg.qformer.encoder_width))
+    return cfg, params, {"image_embeds": embeds.astype(np.float32), "text_ids": ids,
+                         "text_mask": mask}
+
+
+def _tptrain_s1_step(torch, cfg, params, batch, dev, negatives, mesh=None):
+    """One FP32 SGD stage-1 step of the global batch, the hard negatives
+    from ``negatives`` (a sample_negatives stand-in): (losses, new params,
+    ms)."""
+    from radialog_tpu_torch.core.mesh import DATA_AXIS, axis_group, shard_batch
+    from radialog_tpu_torch.models import blip2 as tb
+    from radialog_tpu_torch.train.optim import make_sgd
+    from radialog_tpu_torch.train.steps import TrainState, make_stage1_train_step
+    tx = make_sgd(TPTRAIN_S1_LR, momentum=0.0)
+    step = make_stage1_train_step(tx, cfg, data_group=axis_group(mesh, DATA_AXIS))
+    local = shard_batch(mesh, batch, dev)
+    real, tb.sample_negatives = tb.sample_negatives, negatives
+    try:
+        _sync(torch, dev)
+        t0 = time.time()
+        state, m = step(TrainState.create(params, tx), local, None)
+        _sync(torch, dev)
+    finally:
+        tb.sample_negatives = real
+    return {k: float(v) for k, v in m.items()}, state.params, (time.time() - t0) * 1e3
+
+
+def _tptrain_kept(torch):
+    """_Kept stand-ins for K3 and K5a/K5b in their module: each keeps its
+    first call under the current case, for the holds at the shard's
+    shapes."""
+    from radialog_tpu_torch.ops import flash_attention as tfa
+    state = {"corr": None}
+    first = lambda st, i, a: i == 0      # noqa: E731
+    kept = {"flash_attention": _Kept(tfa.flash_attention_kernel, tfa.flash_attention_plain,
+                                     state, first),
+            "flash_attention_dq": _Kept(tfa.flash_attention_dq_delta_kernel,
+                                        tfa.flash_attention_dq_delta_plain, state, first),
+            "flash_attention_dkv": _Kept(tfa.flash_attention_dkv_kernel,
+                                         tfa.flash_attention_dkv_plain, state, first)}
+    tfa.flash_attention_kernel = kept["flash_attention"]
+    tfa.flash_attention_dq_delta_kernel = kept["flash_attention_dq"]
+    tfa.flash_attention_dkv_kernel = kept["flash_attention_dkv"]
+    return kept, state
+
+
+def _tptrain_holds(torch, kept):
+    """Each kept call against its plain version on the same inputs: K3's
+    out within K3_TOL, K5a's dq and K5b's dk and dv within K5_TOL of their
+    own largest value (bf16); with the head count of the call."""
+    held = []
+    for name, k in kept.items():
+        for corr, _, args, kw, got, _ in k.kept:
+            ref = k.plain(*args, **kw)
+            pairs = [(got[0], ref[0])] if name != "flash_attention_dkv" else list(zip(got, ref))
+            errs = []
+            for g, r in pairs:
+                largest = float(r.float().abs().max())
+                err = float((g.float() - r.float()).abs().max())
+                ok = (bool(torch.allclose(g.float(), r.float(), **K3_TOL["bfloat16"]))
+                      if name == "flash_attention" else err <= K5_TOL["bfloat16"] * largest)
+                errs.append((err, largest, ok))
+            held.append({"kernel": name, "case": corr, "heads": int(args[0].shape[2]),
+                         "b": int(args[0].shape[0]), "t": int(args[0].shape[1]),
+                         "max_abs_err": max(e for e, _, _ in errs),
+                         "ref_max": max(m for _, m, _ in errs), "ok": all(o for _, _, o in errs)})
+        k.kept.clear()
+    return held
+
+
+def _crc(torch, tree, prefix=""):
+    """{leaf path: crc32 of its bytes} of a tree of dicts and lists."""
+    import zlib
+    items = tree.items() if isinstance(tree, dict) else \
+        enumerate(tree) if isinstance(tree, (list, tuple)) else None
+    if items is not None:
+        return {p: v for k, sub in items for p, v in _crc(torch, sub, f"{prefix}{k}/").items()}
+    x = tree.detach().contiguous().cpu().reshape(-1)
+    return {prefix.rstrip("/"): zlib.crc32(x.view(torch.uint8).numpy().tobytes())}
+
+
+def _tptrain_rank(job_path: str) -> int:
+    """One rank of the tptrain phase (``chip_smoke.py --tptrain-rank JOB``):
+    joins the process group from the RADIALOG_* environment, builds the
+    phase's weights, runs the job's cases and writes its numbers next to
+    JOB; rank 0 also saves the gathered trees the parent compares."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from radialog_tpu_torch.core import mesh as tm
+    from radialog_tpu_torch.ops.layers import set_precision
+    from radialog_tpu_torch.parallel import collectives as tc
+    from radialog_tpu_torch.parallel.partition import (gather_params, llama_partition_specs,
+                                                       lora_partition_specs, shard_params)
+    from radialog_tpu_torch.train.optim import tree_leaves, tree_map
+    with open(job_path) as f:
+        job = json.load(f)
+    dev = torch.device(job["device"])
+    if dev.type == "cuda":
+        dev = torch.device("cuda",
+                           int(os.environ["RADIALOG_PROCESS_ID"]) % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+    set_precision()
+    t_start = time.time()
+    tm.init_distributed(device=dev.type, backend=job["backend"], timeout=TP_TIMEOUT_S)
+    rank = dist.get_rank()
+    kept, state = _tptrain_kept(torch)
+    # launches: K3 and K5b count on their stand-ins; K5a's delta-folding
+    # kernel counts on flash_attention_dq_kernel, whose stand-in it is not
+    from radialog_tpu_torch.ops import flash_attention as tfa
+    counted = {"flash_attention": kept["flash_attention"],
+               "flash_attention_dq": tfa.flash_attention_dq_kernel,
+               "flash_attention_dkv": kept["flash_attention_dkv"]}
+    cfg, base, lora = _tptrain_weights(torch, dev)
+    batch = dict(np.load(job["batch"]))
+    counters = (tc.copy_to_group, tc.reduce_from_group, tc.gather_last_dim, tc.gather_batch,
+                tc.sum_over)
+    out = {"rank": rank, "backend": job["backend"], "base_checksum": _checksum(torch, base),
+           "init_s": time.time() - t_start, "cases": {}}
+    while job.get("wait_for") and not os.path.exists(job["wait_for"]):
+        if time.time() - t_start > TP_TIMEOUT_S:
+            raise TimeoutError(f"{job['wait_for']} never came")
+        time.sleep(0.2)
+    for name, shape in job["cases"].items():
+        if name == "stage1":
+            continue
+        mesh = tm.make_mesh(tm.MeshSpec(*shape), device=dev.type, timeout=TP_TIMEOUT_S)
+        specs = lora_partition_specs(lora)
+        lb = shard_params(mesh, base, llama_partition_specs(base))
+        ll = shard_params(mesh, lora, specs)
+        calls = {}
+
+        def zero():
+            state["corr"] = name
+            _zero(counted)
+            for k in kept.values():
+                k.kept.clear()
+            calls.update({f.__name__: f.calls for f in counters})
+        loss, gnorm, new, ms = _tptrain_sgd(torch, cfg, lb, ll, batch, dev, mesh, zero)
+        launches = _read(counted)
+        issued = {f.__name__: f.calls - calls[f.__name__] for f in counters}
+        holds = _tptrain_holds(torch, kept)
+        gathered = gather_params(mesh, new, specs)
+        if rank == 0:
+            torch.save(tree_map(lambda x: x.cpu(), gathered), f"{job_path}.{name}.pt")
+        # one activation sum of the model group and one gradient sum of the
+        # data group, each the mean of 5 after a warm-up
+        n_data, n_model = shape
+        act = torch.ones((TPTRAIN_MICRO // n_data, CUTOFF, cfg.hidden_size),
+                         dtype=torch.bfloat16, device=dev)
+        grads = tree_leaves(new)
+        timing = {}
+        for what, fn in (("activation_sum_model", lambda: tc.reduce_from_group(
+                act, tm.axis_group(mesh, tm.MODEL_AXIS))),
+                         ("gradient_sum_data", lambda: tc.sum_over(
+                             grads, tm.axis_group(mesh, tm.DATA_AXIS)))):
+            fn()
+            _sync(torch, dev)
+            t0 = time.time()
+            for _ in range(5):
+                fn()
+            _sync(torch, dev)
+            timing[what] = (time.time() - t0) / 5 * 1e3
+        del lb, ll, act, grads, gathered
+        adamw = _tptrain_adamw(torch, cfg, base, lora, job["data"],
+                               os.path.join(os.path.dirname(job_path), f"lora-{name}"), dev,
+                               mesh_model=n_model)
+        out["cases"][name] = {"mesh": shape, "loss": loss, "grad_norm": gnorm,
+                              "ms_per_micro_step": ms, "launches": launches,
+                              "collectives_per_micro_step": issued, "collective_ms": timing,
+                              "holds": holds, "crc": _crc(torch, new), "adamw": adamw}
+        gc.collect()
+        torch.cuda.empty_cache()
+    if "stage1" in job["cases"]:
+        mesh = tm.make_mesh(tm.MeshSpec(*job["cases"]["stage1"]), device=dev.type,
+                            timeout=TP_TIMEOUT_S)
+        s1cfg, params, s1batch = _tptrain_s1_setup(torch, dev)
+        drawn = np.load(job["negatives"])
+        negs = tuple(torch.from_numpy(drawn[k]).to(dev) for k in ("neg_img", "neg_txt"))
+        calls = {f.__name__: f.calls for f in counters}
+        losses, new, ms = _tptrain_s1_step(torch, s1cfg, params, s1batch, dev,
+                                           lambda w_t2i, w_i2t, gen: negs, mesh)
+        if rank == 0:
+            torch.save(tree_map(lambda x: x.cpu(), new), f"{job_path}.stage1.pt")
+        out["cases"]["stage1"] = {"losses": losses, "ms_per_step": ms,
+                                  "collectives_per_step": {f.__name__: f.calls - calls[f.__name__]
+                                                           for f in counters},
+                                  "crc": _crc(torch, new)}
+    out["total_s"] = time.time() - t_start
+    dist.destroy_process_group()
+    with open(f"{job_path}.{rank}.json", "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def _paths(tree, prefix=""):
+    """[(leaf path, leaf)] of a tree of dicts and lists, in tree_leaves order."""
+    items = tree.items() if isinstance(tree, dict) else \
+        enumerate(tree) if isinstance(tree, (list, tuple)) else None
+    if items is None:
+        return [(prefix.rstrip("/"), tree)]
+    return [pl for k, sub in items for pl in _paths(sub, f"{prefix}{k}/")]
+
+
+def _update_cos(torch, got, want, start, skip=()):
+    """{leaf path: (cosine of got - start with want - start, max |got -
+    want| over max |want - start|)} over three trees, leaving out the paths
+    that end with one of ``skip``; a leaf that the reference leaves unmoved
+    (no gradient reaches it) must stay unmoved: (1, 0) if it does."""
+    out = {}
+    for (path, g), (_, w), (_, s0) in zip(_paths(got), _paths(want), _paths(start)):
+        if path.endswith(tuple(skip)):
+            continue
+        dg, dw = (g.double().to(s0.device) - s0.double()), (w.double() - s0.double())
+        if not bool(dw.any()):
+            out[path] = (1.0, 0.0) if not bool(dg.any()) else (0.0, float("inf"))
+            continue
+        cos = float((dg * dw).sum() / (dg.norm() * dw.norm()).clamp_min(1e-300))
+        out[path] = (cos, float((dg - dw).abs().max() / dw.abs().max()))
+    return out
+
+
+def phase_tptrain(torch, counted, dev="cuda"):
+    """Training across ranks on the card (module docstring): the one-process
+    reference here, then the gloo pair (TP = 2, DP = 2, stage 1 at DP = 2)
+    and NCCL at world size 1; checks every case against the reference.
+    Returns the launches of K3, K5a and K5b in the gloo ranks' timed TP and
+    DP micro-steps on rank 0. ``dev="cpu"`` rehearses the phase's control
+    at a tiny width with the kernels' plain versions (no launches)."""
+    import numpy as np
+    from radialog_tpu_torch.models import blip2 as tb
+    from radialog_tpu_torch.train.optim import tree_leaves
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "tptrain")
+    os.makedirs(root, exist_ok=True)
+    for old in os.listdir(root):
+        if old.endswith((".pt", ".json", ".npz", ".go", ".log")):
+            os.remove(os.path.join(root, old))
+    t_phase = time.time()
+    cfg, base, lora = _tptrain_weights(torch, dev)
+    records = _train_records(14, lambda j: 360 + 30 * (j % 12))
+    data = os.path.join(root, "instruct.json")
+    with open(data, "w") as f:
+        json.dump(records, f)
+    batch = _tptrain_batch(cfg, records)
+    np.savez(os.path.join(root, "batch.npz"), **batch)
+    fa = {k: counted[k] for k in ("flash_attention", "flash_attention_dq", "flash_attention_dkv")}
+
+    # case 1: the one-process reference
+    loss, gnorm, ref_new, ref_ms = _tptrain_sgd(torch, cfg, base, lora, batch, dev,
+                                                before_timed=lambda: _zero(fa))
+    ref_launches = _read(fa)
+    ref_adamw = _tptrain_adamw(torch, cfg, base, lora, data, os.path.join(root, "lora-ref"), dev)
+    s1cfg, s1params, s1batch = _tptrain_s1_setup(torch, dev)
+    negs = _Negatives(tb.sample_negatives)
+    s1_losses, s1_new, s1_ms = _tptrain_s1_step(torch, s1cfg, s1params, s1batch, dev, negs)
+    np.savez(os.path.join(root, "negatives.npz"), neg_img=negs.drawn[0].numpy(),
+             neg_txt=negs.drawn[1].numpy())
+    with torch.no_grad():       # ITC of each half alone, its own in-batch negatives
+        half = [float(tb.blip2_stage1_losses(
+            s1params, s1cfg, *(torch.from_numpy(s1batch[k][sl]).to(dev) for k in
+                               ("image_embeds", "text_ids", "text_mask")),
+            torch.Generator(device=dev).manual_seed(0)).loss_itc)
+            for sl in (slice(0, TPTRAIN_S1_BATCH // 2), slice(TPTRAIN_S1_BATCH // 2, None))]
+    ref_s = time.time() - t_phase
+    gc.collect()                # the ranks share the card: hand back the cached blocks
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+
+    # the gloo pair, then NCCL at world size 1 (started together; it waits)
+    go = os.path.join(root, "gloo.go")
+    gloo = _tp_start("tptrain_gloo", 2, "gloo", {"tp2": [1, 2], "dp2": [2, 1], "stage1": [2, 1]},
+                     dev=dev, flag="--tptrain-rank", sub="tptrain",
+                     batch=os.path.join(root, "batch.npz"), data=data,
+                     negatives=os.path.join(root, "negatives.npz"))
+    nccl = _tp_start("tptrain_nccl1", 1, "nccl" if dev == "cuda" else "gloo", {"nccl1": [1, 1]},
+                     dev=dev, flag="--tptrain-rank", sub="tptrain",
+                     batch=os.path.join(root, "batch.npz"), data=data, wait_for=go)
+    try:
+        ranks = _tp_wait(*gloo)
+        open(go, "w").close()
+        one = _tp_wait(*nccl)[0]
+    finally:
+        for _, procs in (gloo, nccl):
+            for p, log in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+                log.close()
+    ref_crc = _crc(torch, ref_new)
+    tol = TPTRAIN_TOL
+    cases, ok = {}, True
+    for name, replicated in (("tp2", ("img_proj", "scale", "/a")), ("dp2", ("",))):
+        r0 = ranks[0]["cases"][name]
+        got = torch.load(f"{gloo[0]}.{name}.pt")
+        ups = list(_update_cos(torch, got, ref_new, lora).values())
+        loss_rel = abs(r0["loss"] - loss) / abs(loss)
+        gnorm_rel = abs(r0["grad_norm"] - gnorm) / abs(gnorm)
+        adamw_rel = max(abs(a - b) / abs(b) for a, b in zip(r0["adamw"]["losses"],
+                                                             ref_adamw["losses"]))
+        same = [k for k in r0["crc"] if any(t in k for t in replicated)]
+        bitwise = bool(same) and all(ranks[1]["cases"][name]["crc"][k] == r0["crc"][k]
+                                     for k in same)
+        holds = [h for r in ranks for h in r["cases"][name]["holds"]]
+        heads = sorted({h["heads"] for h in holds})
+        launched = all(r["cases"][name]["launches"][k] > 0 for r in ranks for k in fa)
+        c_ok = (loss_rel <= tol["loss_rel"] and gnorm_rel <= tol["grad_norm_rel"]
+                and min(c for c, _ in ups) >= tol["cos"]
+                and max(e for _, e in ups) <= tol["update_rel"]
+                and adamw_rel <= tol["adamw_loss_rel"]
+                and bitwise and launched and bool(holds) and all(h["ok"] for h in holds)
+                and (name != "tp2" or heads == [cfg.num_heads // 2]))
+        ok = ok and c_ok
+        cases[name] = {
+            "mesh": r0["mesh"], "loss": r0["loss"], "loss_rel_err": loss_rel,
+            "loss_bound": tol["loss_rel"], "grad_norm": r0["grad_norm"],
+            "grad_norm_rel_err": gnorm_rel, "grad_norm_bound": tol["grad_norm_rel"],
+            "update_cos_min": min(c for c, _ in ups), "cos_bound": tol["cos"],
+            "update_err_max_rel": max(e for _, e in ups), "update_err_bound": tol["update_rel"],
+            "adamw_losses": r0["adamw"]["losses"], "adamw_loss_rel_err_max": adamw_rel,
+            "adamw_loss_bound": tol["adamw_loss_rel"],
+            "adamw_val_loss": r0["adamw"]["val_loss"],
+            "replicated_bitwise_on_both_ranks": bitwise, "replicated_leaves": len(same),
+            "ms_per_micro_step_rank0": r0["ms_per_micro_step"],
+            "ms_per_micro_step_rank1": ranks[1]["cases"][name]["ms_per_micro_step"],
+            "collectives_per_micro_step": r0["collectives_per_micro_step"],
+            "collective_ms": r0["collective_ms"], "launches_rank0": r0["launches"],
+            "holds": len(holds), "held_heads": heads,
+            "holds_worst": {k: max((h["max_abs_err"] / h["ref_max"] for h in holds
+                                    if h["kernel"] == k), default=None) for k in fa},
+            "ok": c_ok}
+    # NCCL at world size 1: the reference's bits
+    n1 = one["cases"]["nccl1"]
+    got = torch.load(f"{nccl[0]}.nccl1.pt")
+    cases["nccl1"] = {
+        "loss_equal": n1["loss"] == loss, "grad_norm_equal": n1["grad_norm"] == gnorm,
+        "lora_bitwise": all(torch.equal(a, b.cpu()) for a, b in
+                            zip(tree_leaves(got), tree_leaves(ref_new))),
+        "crc_equal": n1["crc"] == ref_crc,
+        "adamw_losses_equal": n1["adamw"]["losses"] == ref_adamw["losses"],
+        "adamw_val_equal": n1["adamw"]["val_loss"] == ref_adamw["val_loss"],
+        "ms_per_micro_step": n1["ms_per_micro_step"],
+        "collectives_per_micro_step": n1["collectives_per_micro_step"],
+        "collective_ms": n1["collective_ms"], "launches": n1["launches"]}
+    ok = ok and all(v for k, v in cases["nccl1"].items() if k.endswith(("_equal", "_bitwise")))
+    # stage 1 at DP = 2
+    s1 = ranks[0]["cases"]["stage1"]
+    got = torch.load(f"{gloo[0]}.stage1.pt")
+    # the attention key biases' gradient is 0 in exact arithmetic (a softmax
+    # ignores a shift of every score): both runs step on rounding noise
+    ups = _update_cos(torch, got, s1_new, s1params, skip=("k/b",))
+    worst = min(ups, key=lambda k: ups[k][0])
+    ups = list(ups.values())
+    s1_rel = {k: abs(s1["losses"][k] - v) / abs(v) for k, v in s1_losses.items()}
+    s1_bitwise = s1["crc"] == ranks[1]["cases"]["stage1"]["crc"]
+    s1_ok = (max(s1_rel.values()) <= tol["s1_loss_rel"]
+             and min(c for c, _ in ups) >= tol["s1_cos"]
+             and max(e for _, e in ups) <= tol["s1_update_rel"] and s1_bitwise
+             and all(abs(h - s1_losses["loss_itc"]) > 1e-2 for h in half))
+    ok = ok and s1_ok
+    cases["stage1_dp2"] = {"losses": s1["losses"], "losses_one_process": s1_losses,
+                           "loss_rel_err": s1_rel, "loss_bound": tol["s1_loss_rel"],
+                           "update_cos_min": min(c for c, _ in ups), "cos_bound": tol["s1_cos"],
+                           "update_cos_min_leaf": worst,
+                           "update_err_max_rel": max(e for _, e in ups),
+                           "update_err_bound": tol["s1_update_rel"],
+                           "leaves_held": len(ups), "key_biases_left_out": True,
+                           "params_bitwise_on_both_ranks": s1_bitwise,
+                           "half_batch_itc": half, "ms_per_step_rank0": s1["ms_per_step"],
+                           "ms_per_step_one_process": s1_ms,
+                           "collectives_per_step": s1["collectives_per_step"], "ok": s1_ok}
+    checksums = {r["base_checksum"] == _checksum(torch, base) for r in ranks + [one]}
+    ok = ok and checksums == {True}
+    emit("tptrain", card=smi(), layers=TPTRAIN_LAYERS, micro_batch=TPTRAIN_MICRO,
+         cutoff=CUTOFF, reference={"loss": loss, "grad_norm": gnorm,
+                                   "ms_per_micro_step": ref_ms, "launches": ref_launches,
+                                   "adamw": ref_adamw, "stage1": s1_losses},
+         cases=cases, base_checksums_equal=checksums == {True}, reference_s=ref_s,
+         rank_init_s=ranks[0]["init_s"], rank_total_s=ranks[0]["total_s"],
+         nccl1_total_s=one["total_s"], phase_s=time.time() - t_phase,
+         note="two ranks sharing one card over gloo: every activation sum goes through the "
+              "host; ms are no measure of multi-card speed", ok=ok)
+    del ref_new, s1_new, s1params
+    if not ok:
+        raise AssertionError("the tptrain phase failed a check")
+    return {k: sum(ranks[0]["cases"][c]["launches"][k] for c in ("tp2", "dp2")) for k in fa}
 
 
 # the ckpt phase: Vicuna-7B v1.3's published shapes (32,000 embedding rows, one
@@ -5881,6 +6407,9 @@ def main() -> int:
     del w4_ref
     gc.collect()
     torch.cuda.empty_cache()
+    tptrain_launches = phase_tptrain(torch, every_kernel)
+    gc.collect()
+    torch.cuda.empty_cache()
     ckpt = phase_ckpt(torch, pipeline_mod, tq8, tfd, tfa)
 
     kernels = [
@@ -6026,6 +6555,8 @@ def main() -> int:
         static = k["name"] != "flash_decode_int8_intervals"
         k["launches_quality"] = quality["launches"].get(counter, 0) if static else 0
         k["launches_tp"] = tp_launches.get(counter, 0) if static else 0
+        # the tptrain phase's: rank 0's timed TP = 2 and DP = 2 micro-steps
+        k["launches_tptrain"] = tptrain_launches.get(counter, 0) if static else 0
     # the datatools phase's teacher: the ring (K2' is K2's counter there, every
     # launch checked to be under per-lane intervals) and the batch
     by_name = {k["name"]: k for k in kernels}
@@ -6035,6 +6566,7 @@ def main() -> int:
                                 ("flash_attention", "flash_attention", ("ring", "batch"))):
         for run in runs:
             by_name[name][f"launches_datatools_{run}"] = datatools_launches[run][counter]
+    emit("total", seconds=time.time() - _START)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -6118,6 +6650,8 @@ def time_report(roots) -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--tp-rank"] and len(sys.argv) == 3:
         sys.exit(_tp_rank(sys.argv[2]))
+    if sys.argv[1:2] == ["--tptrain-rank"] and len(sys.argv) == 3:
+        sys.exit(_tptrain_rank(sys.argv[2]))
     if sys.argv[1:2] == ["--time-report"]:
         sys.exit(time_report(sys.argv[2:]))
     if sys.argv[1:2] == ["--time-report-one"] and len(sys.argv) == 3:

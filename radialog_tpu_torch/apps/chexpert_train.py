@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..core.checkpoint import BestKeeper
+from ..core.mesh import init_distributed
 from ..models.chexpert import NUM_CLASSES, chexpert_classifier_apply, chexpert_classifier_init
 from ..native.loader import CxrLoader
 from ..ops.layers import set_precision
@@ -74,6 +75,7 @@ def _mock_images(rng: np.random.Generator, n: int, size: int) -> np.ndarray:
 
 def main(argv: Optional[List[str]] = None) -> None:
     args = parse_args(argv)
+    init_distributed(device=args.device)   # a no-op without the RADIALOG_* environment
     if not args.mock:
         raise SystemExit("real training needs the MIMIC-CXR image tree; "
                          "use --mock for the synthetic smoke run")

@@ -16,6 +16,18 @@ in the JAX package, the Vicuna checkpoint directory ``base_model`` (its
 tokenizer and safetensors or ``pytorch_model*.bin`` shards; bf16, or int8
 with ``quantize_base``), with a PEFT adapter ``lora_weights`` to start from.
 
+Across ranks: when a process group is up (``main`` joins one from the
+RADIALOG_* or torchrun environment, core/mesh.py ``init_distributed``),
+``train`` runs on a (data, model) mesh of ``mesh_model`` model ranks, as the
+JAX package's train does on its device mesh: each rank builds the same
+weights, keeps its shard of the base and the adapters
+(parallel/partition.py), draws the same epoch order from ``seed`` and trains
+on its rows of each micro-batch (``micro_batch_size`` rounded up to a
+multiple of the data axis). The logged and validation losses are the
+global ones; rank 0 alone logs and writes the checkpoints, gathered into
+the one-device layout. Without a process group nothing changes, and a
+``mesh_model`` above 1 raises as ``MeshSpec.resolve`` does.
+
   python -m radialog_tpu_torch.apps.finetune_lora --mock true \\
       --data_path tests/fixtures/instruct.json --batch_size 4 \\
       --micro_batch_size 2 --num_epochs 1 --max_steps 4 --cutoff_len 64 \\
@@ -23,6 +35,8 @@ with ``quantize_base``), with a PEFT adapter ``lora_weights`` to start from.
   python -m radialog_tpu_torch.apps.finetune_lora --base_model VICUNA_DIR \\
       --lora_weights ADAPTER_DIR/adapter_model.bin --quantize_base true \\
       --data_path DATA.json --output_dir OUT_DIR
+  RADIALOG_DISTRIBUTED=1 torchrun --nproc_per_node 2 -m \\
+      radialog_tpu_torch.apps.finetune_lora --mock true --mesh_model 2 ...
 """
 from __future__ import annotations
 
@@ -37,13 +51,20 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from ..core.checkpoint import BestKeeper, load_checkpoint
+from ..core.checkpoint import BestKeeper, _like, load_checkpoint
+from ..core.mesh import (DATA_AXIS, MODEL_AXIS, MeshSpec, axis_group, axis_size,
+                         init_distributed, make_mesh, rank_device, shard_batch)
 from ..data.datasets import (balanced_epoch_indices, load_instruct_dataset,
                              split_report_instruct)
 from ..models.llama import LlamaConfig, TINY_LLAMA, VICUNA_7B, llama_init, lora_init
 from ..ops.layers import BF16, FP32, set_precision
 from ..ops.quant import quantize_llama, quantize_llama_np, random_q8_train_base
+from ..parallel.collectives import sum_over
+from ..parallel.partition import (gather_params, llama_partition_specs, lora_partition_specs,
+                                  shard_like_params, shard_params)
+from ..parallel.tp_serving import shard_config
 from ..train.optim import linear_warmup_cosine, make_adamw, tree_map
 from ..train.steps import TrainState, lora_loss_fn, make_lora_train_step
 from ..utils import hf_weights
@@ -87,6 +108,9 @@ class FinetuneConfig:
     # attention of 256 tokens or more through the flash-attention kernels
     # and their backward instead of mha under autograd
     flash: bool = False
+    # model (tensor-parallel) ranks of the mesh when a process group is up;
+    # the other ranks form the data axis
+    mesh_model: int = 1
     device: str = "cuda"
 
 
@@ -119,6 +143,10 @@ def _make_batcher(records: List[Dict], tokenizer, cfg: FinetuneConfig,
         return batch
 
     return batch_at
+
+
+def _quiet(metrics: Dict) -> None:
+    """The log of every rank but 0."""
 
 
 def _to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
@@ -180,7 +208,12 @@ def train(cfg: FinetuneConfig,
     at step 1 and every 50th) and ``tokens``, the int sum of the micro-batch's
     sequence lengths (padding not counted). ``base`` and ``lora`` replace the trees the
     configuration would build (on ``cfg.device`` already), so that two runs
-    can share their weights."""
+    can share their weights.
+
+    Inside a process group (module docstring) every rank calls it with the
+    same arguments (``base`` and ``lora`` whole: each rank keeps its shard);
+    ``tokens`` is the global micro-batch's, ``log_fn`` is called on rank 0
+    only, and the returned state holds this rank's shard."""
     if cfg.mock and cfg.synthetic:
         raise ValueError("choose one of mock=True and synthetic=True")
     if not (cfg.mock or cfg.synthetic or cfg.base_model):
@@ -192,6 +225,15 @@ def train(cfg: FinetuneConfig,
             raise RuntimeError("no CUDA device: pass device='cpu' to train on the CPU")
         set_precision()
     rng = np.random.default_rng(cfg.seed)
+    mesh = None
+    if dist.is_initialized():
+        device = rank_device(device)
+        mesh = make_mesh(MeshSpec(model=cfg.mesh_model), device=device.type)
+    else:
+        MeshSpec(model=cfg.mesh_model).resolve()    # one device: mesh_model 1 only
+    rank0 = mesh is None or dist.get_rank() == 0
+    if not rank0:
+        log_fn = _quiet
 
     # ---- model
     llama_cfg, tokenizer, base, policy = _build_model(cfg, device, base)
@@ -204,6 +246,24 @@ def train(cfg: FinetuneConfig,
         lora = lora_init(torch.Generator(device=gen_dev).manual_seed(cfg.seed), llama_cfg,
                          device=gen_dev, rank=cfg.lora_r, alpha=cfg.lora_alpha)
         lora = tree_map(lambda x: x.to(device), lora)
+    lora_specs = lora_partition_specs(lora)
+    tp_group = data_group = None
+    if mesh is not None:
+        n_data = axis_size(mesh, DATA_AXIS)
+        if cfg.micro_batch_size % n_data:
+            new_mb = -(-cfg.micro_batch_size // n_data) * n_data
+            log_fn({"note": f"micro_batch_size {cfg.micro_batch_size} -> {new_mb} "
+                            f"(must divide data axis {n_data})"})
+            cfg = dataclasses.replace(cfg, micro_batch_size=new_mb)
+        base = shard_params(mesh, base, llama_partition_specs(base))
+        lora = shard_params(mesh, lora, lora_specs)
+        tp_group, data_group = axis_group(mesh, MODEL_AXIS), axis_group(mesh, DATA_AXIS)
+    local_cfg = llama_cfg if mesh is None else shard_config(llama_cfg,
+                                                            axis_size(mesh, MODEL_AXIS))
+
+    def on_device(host_batch):
+        return _to_device(host_batch, device) if mesh is None else \
+            shard_batch(mesh, host_batch, device)
 
     # ---- data
     records = load_instruct_dataset(cfg.data_path)
@@ -225,21 +285,35 @@ def train(cfg: FinetuneConfig,
     # applied update, as in the JAX package
     tx = make_adamw(linear_warmup_cosine(cfg.learning_rate, cfg.learning_rate / 10,
                                          warmup_steps=100, total_steps=total),
-                    weight_decay=0.0, grad_clip=1.0, accum_steps=accum)
+                    weight_decay=0.0, grad_clip=1.0, accum_steps=accum,
+                    specs=lora_specs, mesh=mesh)
     state = TrainState.create(lora, tx)
-    step_fn = make_lora_train_step(tx, llama_cfg, policy=policy, flash=cfg.flash)
+    step_fn = make_lora_train_step(tx, llama_cfg, policy=policy, flash=cfg.flash, mesh=mesh)
 
     @torch.no_grad()
     def eval_fn(params, batch):
-        return lora_loss_fn(params, base, llama_cfg, batch, policy, flash=cfg.flash)
+        share = lora_loss_fn(params, base, local_cfg, batch, policy, flash=cfg.flash,
+                             tp_group=tp_group, data_group=data_group)
+        return sum_over([share], data_group)[0]
 
     if cfg.resume_from_checkpoint:
-        tree, meta = load_checkpoint(Path(cfg.resume_from_checkpoint).parent,
-                                     Path(cfg.resume_from_checkpoint).name, target=state)
-        state = tree
+        where = Path(cfg.resume_from_checkpoint)
+        if mesh is None:
+            state, meta = load_checkpoint(where.parent, where.name, target=state)
+        else:   # the one-device TrainState, re-sharded: params and optimizer moments
+            (params, opt_state, at), meta = load_checkpoint(where.parent, where.name)
+            state = _like(TrainState(shard_params(mesh, params, lora_specs),
+                                     shard_like_params(mesh, opt_state, params, lora_specs),
+                                     at), state)
         log_fn({"resumed_step": int(meta.get("step", 0))})
 
     keeper = BestKeeper(cfg.output_dir, mode="min")
+
+    def keep(step: int, metric: float) -> Optional[bool]:
+        """Save 'last' (and 'best'), gathered to the one-device layout, on
+        rank 0; every rank joins the gather."""
+        tree = state.params if mesh is None else gather_params(mesh, state.params, lora_specs)
+        return keeper.update(step, metric, tree) if rank0 else None
     rep_idxs, inst_idxs = split_report_instruct(train_records)
 
     # ---- loop
@@ -252,7 +326,7 @@ def train(cfg: FinetuneConfig,
             order = rng.permutation(len(train_records)).tolist()
         for i0 in range(0, len(order) - cfg.micro_batch_size + 1, cfg.micro_batch_size):
             host_batch = batch_at(order[i0:i0 + cfg.micro_batch_size])
-            state, metrics = step_fn(state, base, _to_device(host_batch, device))
+            state, metrics = step_fn(state, base, on_device(host_batch))
             step += 1
             if on_step is not None:
                 on_step(step, {**metrics, "tokens": int(host_batch["lengths"].sum())})
@@ -266,24 +340,29 @@ def train(cfg: FinetuneConfig,
                     idxs = list(range(j0, min(j0 + cfg.micro_batch_size, len(val_records))))
                     while len(idxs) % cfg.micro_batch_size:   # a full micro-batch
                         idxs.append(idxs[-1])
-                    vb = _to_device(val_batch_at(idxs), device)
+                    vb = on_device(val_batch_at(idxs))
                     val_losses.append(float(eval_fn(state.params, vb)))
                 vl = float(np.mean(val_losses)) if val_losses else float("nan")
-                improved = keeper.update(step, vl, state.params)
+                improved = keep(step, vl)
                 log_fn({"step": step, "val_loss": vl, "best": improved})
             if cfg.max_steps and step >= cfg.max_steps:
                 break
         if cfg.max_steps and step >= cfg.max_steps:
             break
 
-    keeper.update(step, float("inf") if keeper.best is None else keeper.best,
-                  state.params)   # a 'last' always exists
+    keep(step, float("inf") if keeper.best is None else keeper.best)   # a 'last' always exists
     return state
 
 
-def export_adapter(lora_params, out_path: str) -> None:
+def export_adapter(lora_params, out_path: str, mesh=None) -> None:
     """Write the reference's adapter_model.bin format: lora_A/lora_B per
-    layer and the img_proj_layer keys, loadable with torch.load."""
+    layer and the img_proj_layer keys, loadable with torch.load. ``mesh``:
+    ``lora_params`` is this rank's shard; every rank joins the gather and
+    rank 0 writes the one-device file."""
+    if mesh is not None:
+        lora_params = gather_params(mesh, lora_params, lora_partition_specs(lora_params))
+        if dist.get_rank() != 0:
+            return
     sd = {}
     layers = lora_params["layers"]
     num_layers = layers[next(iter(layers))]["a"].shape[0]
@@ -346,6 +425,7 @@ def main(argv: Optional[List[str]] = None) -> None:
             raise SystemExit(f"unknown option --{k}; valid: {sorted(hints)}")
         kwargs[k] = _coerce(v, hints[k])
     cfg = FinetuneConfig(**kwargs)
+    init_distributed(device=cfg.device)   # a no-op without the RADIALOG_* environment
     print(f"finetune config: {cfg}")
     train(cfg)
 

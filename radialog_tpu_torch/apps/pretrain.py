@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..core.config import Config
+from ..core.mesh import init_distributed
 from ..data.datasets import MimicPaths, Stage1Data
 from ..data.prefetch import DevicePrefetcher, stage1_raw_batches
 from ..models.biovil_t import biovil_t_init
@@ -66,6 +67,7 @@ def parse_args(argv: Optional[List[str]] = None):
 
 def main(argv: Optional[List[str]] = None) -> None:
     args = parse_args(argv)
+    init_distributed(device=args.device)   # a no-op without the RADIALOG_* environment
     device = torch.device(args.device)
     if device.type == "cuda":
         set_precision()

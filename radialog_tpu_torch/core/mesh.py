@@ -78,6 +78,18 @@ def init_distributed(coordinator_address: Optional[str] = None,
     return True
 
 
+def rank_device(device="cuda") -> torch.device:
+    """The device this rank computes on. Inside a process group a CUDA
+    device without an index is card ``rank % device_count`` (one card a
+    rank where there are enough, every rank on one card otherwise), made
+    the current one; any other device is as given."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None and dist.is_initialized():
+        dev = torch.device("cuda", dist.get_rank() % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+    return dev
+
+
 def world_size() -> int:
     """Ranks in the process group; 1 without one (the JAX device count)."""
     return dist.get_world_size() if dist.is_initialized() else 1

@@ -18,7 +18,7 @@ PyTorch, as it is XLA in the JAX package: no Pallas kernel is behind it.
 
 ``tp_group``: each rank beam-decodes over its tensor-parallel shard (its
 heads' prompt and generated K/V), the row-parallel partials summed over the
-group (``all_reduce_sum``, JAX's ``axis_name``); the reorder follows the
+group (``reduce_from_group``, JAX's ``axis_name``); the reorder follows the
 summed logits, the same on every rank, so every rank keeps the same beams.
 """
 from __future__ import annotations
@@ -27,10 +27,10 @@ from typing import Dict, Optional
 
 import torch
 
-from ..models.llama import (KVCache, LlamaConfig, _gqa, _layer_view, _mlp, _proj,
-                            all_reduce_sum, qkv_proj)
+from ..models.llama import KVCache, LlamaConfig, _gqa, _layer_view, _mlp, _proj, qkv_proj
 from ..ops.layers import DTypePolicy, FP32, embedding_lookup, linear, rmsnorm
 from ..ops.rotary import apply_rope, rope_tables
+from ..parallel.collectives import reduce_from_group
 from .engine import DecodeParams, GenerationResult, prefill
 
 NEG_INF = -1e30
@@ -88,8 +88,8 @@ def _beam_forward(params: Dict, cfg: LlamaConfig, last_tok: torch.Tensor,
         gv[i, :, step] = v[:, 0].to(gv.dtype)
         o = _split_attention(q, pk[i].to(x.dtype), pv[i].to(x.dtype), gk[i].to(x.dtype),
                              gv[i].to(x.dtype), prompt_bias, gen_bias, cfg.num_heads, beams)
-        x = x + all_reduce_sum(_proj(lp, ll, "wo", o, lora_scale, policy), tp_group)
-        x = x + all_reduce_sum(_mlp(lp, rmsnorm(lp["post_ln"], x, cfg.rms_eps), policy),
+        x = x + reduce_from_group(_proj(lp, ll, "wo", o, lora_scale, policy), tp_group)
+        x = x + reduce_from_group(_mlp(lp, rmsnorm(lp["post_ln"], x, cfg.rms_eps), policy),
                                tp_group)
     x = rmsnorm(params["final_ln"], x, cfg.rms_eps)
     return linear(params["lm_head"], x, policy).float()[:, 0]

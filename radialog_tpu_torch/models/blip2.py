@@ -11,6 +11,12 @@ The hard negatives are drawn by ``sample_negatives``, one module-level
 function of the weights and a generator, so that a test can hand in the
 JAX package's own draws (``jax.random.categorical`` gives other numbers
 than a ``torch.Generator``).
+
+Data parallelism (``data_group``): each rank holds its rows of the global
+batch and computes them against the gathered global columns
+(parallel/collectives.py ``gather_batch``, the reference's GatherLayer), so
+the losses are the global batch's, as the JAX package's under a batch
+sharded over ``data``.
 """
 from __future__ import annotations
 
@@ -18,10 +24,12 @@ import dataclasses
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.layers import (DTypePolicy, FP32, layernorm, layernorm_init, linear, linear_init,
                           upcast)
+from ..parallel.collectives import gather_batch
 from .biovil_t import biovil_t_apply, biovil_t_init, patch_tokens_for_qformer
 from .qformer import (QFormerConfig, lm_loss, qformer_image_grounded, qformer_init,
                       qformer_lm, qformer_multimodal, qformer_text)
@@ -88,12 +96,15 @@ def _normalize(x: torch.Tensor) -> torch.Tensor:
     return x / torch.clamp(torch.linalg.vector_norm(x, dim=-1, keepdim=True), min=1e-12)
 
 
-def _smoothed_ce(logits: torch.Tensor, targets: torch.Tensor, smoothing: float) -> torch.Tensor:
+def _smoothed_ce(logits: torch.Tensor, targets: torch.Tensor, smoothing: float,
+                 count: Optional[int] = None) -> torch.Tensor:
+    """The mean over the rows; with ``count``, their sum divided by it (a
+    rank's share of a global batch of ``count`` rows)."""
     logp = torch.log_softmax(upcast(logits), dim=-1)
     nll = -torch.gather(logp, -1, targets.long()[:, None])[:, 0]
     if smoothing > 0:
         nll = (1 - smoothing) * nll + smoothing * (-logp.mean(dim=-1))
-    return nll.mean()
+    return nll.mean() if count is None else nll.sum() / count
 
 
 def sample_negatives(w_t2i: torch.Tensor, w_i2t: torch.Tensor,
@@ -108,7 +119,7 @@ def sample_negatives(w_t2i: torch.Tensor, w_i2t: torch.Tensor,
 def blip2_stage1_losses(params: Dict, cfg: Blip2Config, image_embeds: torch.Tensor,
                         text_ids: torch.Tensor, text_mask: torch.Tensor,
                         gen: Optional[torch.Generator], policy: DTypePolicy = FP32,
-                        itm_chunks: int = 1) -> Stage1Losses:
+                        itm_chunks: int = 1, data_group=None) -> Stage1Losses:
     """ITC + ITM + LM over one in-batch sample set.
 
     image_embeds (B, N, 1408): ln_vision'd patch tokens. text_ids/text_mask
@@ -123,12 +134,25 @@ def blip2_stage1_losses(params: Dict, cfg: Blip2Config, image_embeds: torch.Tens
     with the diagonal set to 0; the LM input's first token is the BOS and
     its labels are -100 at padding; the ITM logits are the mean over the
     queries.
+
+    ``data_group``: the inputs are this rank's rows of a global batch split
+    over the group (in rank order) and the result is this rank's share of
+    the global losses (they add up over the group). ITC runs the local image
+    rows against every text and the local text rows against every image's
+    query features, both gathered. Every rank builds the whole (B, B)
+    negative weights from the gathered features, without gradient, and
+    draws the global indices with ``gen``, which must be seeded alike on
+    every rank; it keeps its own rows, their negative images from the
+    gathered ``image_embeds`` and negative texts from the gathered ids and
+    masks. Each mean over the batch is the local sum over the global count:
+    ITC over B, ITM over 3B, LM over the global valid tokens.
     """
     qcfg = cfg.qformer
     b = image_embeds.shape[0]
     nq = qcfg.num_query_tokens
     if itm_chunks > 1 and (3 * b) % itm_chunks:
         raise ValueError(f"itm_chunks {itm_chunks} must divide 3*batch ({3 * b})")
+    dev = text_ids.device
 
     query_hidden, query_cache = qformer_image_grounded(
         params["qformer"], qcfg, image_embeds, use_cache=True, policy=policy)
@@ -136,22 +160,46 @@ def blip2_stage1_losses(params: Dict, cfg: Blip2Config, image_embeds: torch.Tens
     text_hidden = qformer_text(params["qformer"], qcfg, text_ids, text_mask, policy=policy)
     text_feat = _normalize(upcast(linear(params["text_proj"], text_hidden[:, 0], policy)))
 
-    # ITC, in batch
-    sim_q2t = torch.einsum("iqe,te->itq", image_feats, text_feat)
-    sim_i2t = sim_q2t.amax(dim=-1) / params["temp"]                   # (B, B)
-    sim_t2i = sim_i2t.T
-    targets = torch.arange(b, device=text_ids.device)
-    loss_itc = 0.5 * (_smoothed_ce(sim_i2t, targets, 0.1) + _smoothed_ce(sim_t2i, targets, 0.1))
+    if data_group is None:
+        # ITC, in batch
+        sim_q2t = torch.einsum("iqe,te->itq", image_feats, text_feat)
+        sim_i2t = sim_q2t.amax(dim=-1) / params["temp"]                   # (B, B)
+        sim_t2i = sim_i2t.T
+        targets = torch.arange(b, device=dev)
+        loss_itc = 0.5 * (_smoothed_ce(sim_i2t, targets, 0.1)
+                          + _smoothed_ce(sim_t2i, targets, 0.1))
+        w_sim, rows = sim_i2t, slice(None)
+        image_pool, ids_pool, mask_pool, count = image_embeds, text_ids, text_mask, None
+    else:
+        # ITC, the local rows against the global columns
+        image_all_feats = gather_batch(image_feats, data_group)           # (B, nq, E)
+        text_all_feat = gather_batch(text_feat, data_group)               # (B, E)
+        count = text_all_feat.shape[0]
+        rows = slice(dist.get_rank(data_group) * b, (dist.get_rank(data_group) + 1) * b)
+        sim_i2t = torch.einsum("iqe,te->itq", image_feats, text_all_feat).amax(dim=-1) \
+            / params["temp"]                                              # (b, B)
+        sim_t2i = torch.einsum("te,iqe->tiq", text_feat, image_all_feats).amax(dim=-1) \
+            / params["temp"]                                              # (b, B)
+        targets = torch.arange(rows.start, rows.stop, device=dev)
+        loss_itc = 0.5 * (_smoothed_ce(sim_i2t, targets, 0.1, count)
+                          + _smoothed_ce(sim_t2i, targets, 0.1, count))
+        with torch.no_grad():
+            w_sim = torch.einsum("iqe,te->itq", image_all_feats,
+                                 text_all_feat).amax(dim=-1) / params["temp"]
+        image_pool = gather_batch(image_embeds, data_group)
+        ids_pool = gather_batch(text_ids, data_group)
+        mask_pool = gather_batch(text_mask, data_group)
 
-    # ITM with hard negatives
+    # ITM with hard negatives: the whole (B, B) weights, this rank's rows
     with torch.no_grad():
-        eye = torch.eye(b, dtype=torch.bool, device=text_ids.device)
-        w_t2i = torch.where(eye, 0.0, torch.softmax(sim_t2i, dim=-1) + 1e-4)
-        w_i2t = torch.where(eye, 0.0, torch.softmax(sim_i2t, dim=-1) + 1e-4)
-        neg_img, neg_txt = sample_negatives(w_t2i, w_i2t, gen)
-    ids_all = torch.cat([text_ids, text_ids, text_ids[neg_txt]], dim=0)
-    mask_all = torch.cat([text_mask, text_mask, text_mask[neg_txt]], dim=0)
-    image_all = torch.cat([image_embeds, image_embeds[neg_img], image_embeds], dim=0)
+        n = w_sim.shape[0]
+        eye = torch.eye(n, dtype=torch.bool, device=dev)
+        w_t2i = torch.where(eye, 0.0, torch.softmax(w_sim.T, dim=-1) + 1e-4)
+        w_i2t = torch.where(eye, 0.0, torch.softmax(w_sim, dim=-1) + 1e-4)
+        neg_img, neg_txt = (x[rows] for x in sample_negatives(w_t2i, w_i2t, gen))
+    ids_all = torch.cat([text_ids, text_ids, ids_pool[neg_txt]], dim=0)
+    mask_all = torch.cat([text_mask, text_mask, mask_pool[neg_txt]], dim=0)
+    image_all = torch.cat([image_embeds, image_pool[neg_img], image_embeds], dim=0)
     attn_all = torch.cat([torch.ones((3 * b, nq), dtype=text_mask.dtype,
                                      device=text_mask.device), mask_all], dim=1)
 
@@ -165,10 +213,10 @@ def blip2_stage1_losses(params: Dict, cfg: Blip2Config, image_embeds: torch.Tens
     else:
         itm_q = itm_queries(ids_all, attn_all, image_all)
     itm_logits = linear(params["itm_head"], itm_q, policy).mean(dim=1)
-    dev = text_ids.device
     itm_labels = torch.cat([torch.ones(b, dtype=torch.long, device=dev),
                             torch.zeros(2 * b, dtype=torch.long, device=dev)])
-    loss_itm = _smoothed_ce(upcast(itm_logits), itm_labels, 0.0)
+    loss_itm = _smoothed_ce(upcast(itm_logits), itm_labels, 0.0,
+                            None if count is None else 3 * count)
 
     # LM captioning over the cached queries
     dec_ids = text_ids.clone()
@@ -177,7 +225,7 @@ def blip2_stage1_losses(params: Dict, cfg: Blip2Config, image_embeds: torch.Tens
     lm_mask = torch.cat([torch.ones((b, nq), dtype=text_mask.dtype, device=text_mask.device),
                          text_mask], dim=1)
     logits = qformer_lm(params["qformer"], qcfg, dec_ids, lm_mask, query_cache, policy=policy)
-    loss_lm = lm_loss(logits, labels, label_smoothing=0.1)
+    loss_lm = lm_loss(logits, labels, label_smoothing=0.1, data_group=data_group)
 
     return Stage1Losses(loss=loss_itc + loss_itm + loss_lm, loss_itc=loss_itc,
                         loss_itm=loss_itm, loss_lm=loss_lm)

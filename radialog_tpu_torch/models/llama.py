@@ -44,14 +44,24 @@ cache and a shared prefix need the unrolled serving params and raise.
 The stacked layout accepts ``verify`` and ignores it, as in JAX: it
 attends the whole cache for any t already.
 
-Tensor parallelism (parallel/tp_serving.py, parallel/tp_ring.py): with
-``tp_group`` each rank holds a Megatron shard of the unrolled serving
-params (its heads' columns of wqkv, its FFN slice of gateup, the matching
-rows of wo and down) and runs the forward over ``shard_config``'s local
-head and FFN counts; the row-parallel partial outputs of wo and down are
-summed over the group (``all_reduce_sum``, the JAX package's ``_psum_if``)
-before each residual add, so the residual stream and the logits are the
-same on every rank of the group. ``tp_group=None`` adds nothing.
+Tensor parallelism (parallel/tp_serving.py, parallel/tp_ring.py,
+parallel/partition.py): with ``tp_group`` each rank holds a Megatron shard
+of the params (its heads' columns of wqkv or wq/wk/wv, its FFN slice of
+gateup or gate/up, the matching rows of wo and down) and runs the forward
+over ``shard_config``'s local head and FFN counts. The Megatron pair of
+parallel/collectives.py makes it differentiable: ``copy_to_group`` ("f":
+identity forward, gradient summed backward) at the input of q/k/v and of
+gate/up, and ``reduce_from_group`` ("g": sum forward,
+identity backward; the JAX package's ``_psum_if``) on the row-parallel
+partial outputs of wo and down before each residual add, so the residual
+stream, its gradient and the logits are the same on every rank of the
+group. In the stacked training layout the embedding and the lm_head are
+split on the vocabulary too (parallel/partition.py, rows padded to ceil(V /
+n) a rank): the lookup reads the rank's own rows and sums them over the
+group (``vocab_parallel_embed``), and the logits of the local rows, behind
+an "f", are gathered and cut to ``cfg.vocab_size``. The unrolled serving
+layout keeps a replicated embedding and lm_head. ``tp_group=None`` adds
+nothing.
 
 The KV cache is updated IN PLACE (a PyTorch tensor is mutable; the JAX
 package returns a new cache from dynamic_update_slice): ``llama_apply``
@@ -65,6 +75,7 @@ import os
 from typing import Dict, List, Optional, Tuple, Union
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
@@ -74,6 +85,7 @@ from ..ops.flash_decode import flash_decode_int8
 from ..ops.layers import DTypePolicy, FP32, embedding_lookup, linear, rmsnorm
 from ..ops.q8_matmul import div127
 from ..ops.rotary import apply_rope, rope_tables
+from ..parallel.collectives import copy_to_group, gather_last_dim, reduce_from_group
 
 
 @dataclasses.dataclass(frozen=True)
@@ -309,10 +321,10 @@ def _attention_block(lp: Dict, lora_layer, lora_scale, cfg: LlamaConfig, x, posi
                      rope, bias, cache: Optional[KVCache], layer_idx: int, write_pos,
                      policy: DTypePolicy, lengths=None, slot_info=None, shared_layer=None,
                      flash: bool = True, defer: bool = False, stacked: bool = False,
-                     verify: bool = False):
+                     verify: bool = False, tp_group=None):
     b, t, _ = x.shape
     nh, hd = cfg.num_heads, cfg.head_dim
-    q, k, v = qkv_proj(lp, lora_layer, lora_scale, cfg, x, policy)
+    q, k, v = qkv_proj(lp, lora_layer, lora_scale, cfg, copy_to_group(x, tp_group), policy)
     cos, sin = rope
     q = apply_rope(q, cos, sin, positions)
     k = apply_rope(k, cos, sin, positions)
@@ -429,20 +441,22 @@ def _attention_int8_verify(q, cache: KVCache, layer_idx: int, bias, hd: int):
     return o.transpose(1, 2).to(q.dtype)
 
 
-def all_reduce_sum(y: torch.Tensor, group) -> torch.Tensor:
-    """Sum of ``y`` over the ranks of ``group`` (the identity for None), in
-    ``y``'s dtype: the partials are reduced as f32 and rounded once (gloo
-    takes no bf16, and for two ranks the rounded f32 sum is bitwise the bf16
-    one; for more the order of the sum is the backend's)."""
-    if group is None:
-        return y
-    import torch.distributed as dist
-    acc = y.to(torch.float32, copy=True).contiguous()
-    dist.all_reduce(acc, group=group)
-    return acc.to(y.dtype)
+def vocab_parallel_embed(table: torch.Tensor, ids: torch.Tensor, group) -> torch.Tensor:
+    """The embedding rows of ``ids`` from a vocab-split table: this rank
+    holds rows [rank * V_local, (rank + 1) * V_local) (``table``); each rank
+    reads its own rows, zeros elsewhere, and the group sums them. The sum is
+    exact: one term is not zero. An id of a padding row, or past every
+    rank's rows, reads zeros (the unsplit lookup reads NaN past the table,
+    rows that the image splice overwrites)."""
+    n_local = table.shape[0]
+    local = ids.long() - dist.get_rank(group) * n_local
+    mine = (local >= 0) & (local < n_local)
+    rows = table[torch.where(mine, local, torch.zeros_like(local))]
+    return reduce_from_group(torch.where(mine[..., None], rows, torch.zeros_like(rows)), group)
 
 
-def _mlp(lp: Dict, x, policy: DTypePolicy):
+def _mlp(lp: Dict, x, policy: DTypePolicy, tp_group=None):
+    x = copy_to_group(x, tp_group)
     if "gateup" in lp:   # fused serving layout
         g, u = torch.chunk(linear(lp["gateup"], x, policy), 2, dim=-1)
     else:
@@ -506,7 +520,10 @@ def llama_apply(params: Dict, cfg: LlamaConfig, tokens: torch.Tensor,
     and never takes the flash-decode kernel or ``defer_kv``.
 
     ``tp_group``: the tensor-parallel process group whose ranks hold the
-    other shards of ``params`` (module docstring), or None."""
+    other shards of ``params`` (module docstring), or None; ``cfg`` is then
+    ``shard_config``'s local view (its ``vocab_size`` the whole one). On the
+    stacked layout ``params`` and ``lora`` are ``shard_params`` trees of
+    parallel/partition.py's specs."""
     stacked = not isinstance(params["layers"], (list, tuple))
     if verify and not stacked and shared_kv is not None:
         raise ValueError("speculative verification does not compose with prefix sharing "
@@ -529,7 +546,13 @@ def llama_apply(params: Dict, cfg: LlamaConfig, tokens: torch.Tensor,
     if defer_kv and int(write_pos) != int(slot_info[0]) + int(slot_info[1]):
         raise ValueError(f"defer_kv writes at slot prompt_pad + step = "
                          f"{int(slot_info[0]) + int(slot_info[1])}, not write_pos {write_pos}")
-    x = embedding_lookup(params["embed"], tokens).to(policy.compute)
+    if stacked and tp_group is not None:
+        if lora is not None and set(lora["layers"]) - {"wq", "wk", "wv"}:
+            raise ValueError("tensor-parallel LoRA supports q/k/v targets (wo would need a "
+                             f"row-split a), got {sorted(lora['layers'])}")
+        x = vocab_parallel_embed(params["embed"], tokens, tp_group).to(policy.compute)
+    else:
+        x = embedding_lookup(params["embed"], tokens).to(policy.compute)
     lora_scale = lora["scale"] if lora is not None else None
     if img_embs is not None and img_start is not None:
         proj = lora["img_proj"] if (lora is not None and "img_proj" in lora) else params["img_proj"]
@@ -558,30 +581,37 @@ def llama_apply(params: Dict, cfg: LlamaConfig, tokens: torch.Tensor,
                                          cache, i, write_pos, policy, lengths=lengths,
                                          slot_info=slot_info, shared_layer=shared_layer,
                                          flash=flash, defer=defer_kv, stacked=stacked,
-                                         verify=verify)
+                                         verify=verify, tp_group=tp_group)
         if keep_kv:
             fresh_k.append(out[0])
             fresh_v.append(out[1])
-        x = x + all_reduce_sum(attn_out, tp_group)
+        x = x + reduce_from_group(attn_out, tp_group)
         h = rmsnorm(lp["post_ln"], x, cfg.rms_eps)
-        return x + all_reduce_sum(_mlp(lp, h, policy), tp_group)
+        return x + reduce_from_group(_mlp(lp, h, policy, tp_group), tp_group)
 
     for i in range(num_layers):
         if remat:   # no dropout in the layer: no RNG state to preserve
             x = checkpoint(layer_fn, x, i, use_reentrant=False, preserve_rng_state=False)
         else:
             x = layer_fn(x, i)
-    logits = _final_logits(params, cfg, x, policy, last_pos)
+    logits = _final_logits(params, cfg, x, policy, last_pos,
+                           tp_group if stacked else None)
     if cache is not None:
         return logits, cache
     return logits, (PrefixKV(torch.stack(fresh_k), torch.stack(fresh_v)) if keep_kv else None)
 
 
-def _final_logits(params: Dict, cfg: LlamaConfig, x, policy, last_pos):
+def _final_logits(params: Dict, cfg: LlamaConfig, x, policy, last_pos, vocab_group=None):
+    """The logits (f32). ``vocab_group``: the lm_head holds this rank's
+    vocabulary columns; the local logits are gathered over the group and
+    the zero-padded columns cut off."""
     x = rmsnorm(params["final_ln"], x, cfg.rms_eps)
     if last_pos is not None:
         x = x[torch.arange(x.shape[0], device=x.device)[:, None], last_pos.long()[:, None]]
-    return linear(params["lm_head"], x, policy).float()
+    if vocab_group is None:
+        return linear(params["lm_head"], x, policy).float()
+    local = linear(params["lm_head"], copy_to_group(x, vocab_group), policy).float()
+    return gather_last_dim(local, vocab_group)[..., :cfg.vocab_size]
 
 
 # -------------------------------------------------------------- mask helpers

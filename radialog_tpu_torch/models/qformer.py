@@ -23,6 +23,7 @@ import torch
 from ..ops.attention import NEG_INF, mha, padding_mask_bias
 from ..ops.layers import (DTypePolicy, FP32, embedding_lookup, gelu_exact, layernorm,
                           layernorm_init, linear, linear_init, normal, upcast)
+from ..parallel.collectives import sum_over
 from .bert import (BertConfig, bert_ffn, bert_ffn_init, bert_self_attention,
                    bert_self_attention_init)
 
@@ -223,9 +224,11 @@ def qformer_lm_head(params: Dict, hidden: torch.Tensor,
 
 
 def lm_loss(logits: torch.Tensor, labels: torch.Tensor, label_smoothing: float = 0.1,
-            ignore_index: int = -100) -> torch.Tensor:
+            ignore_index: int = -100, data_group=None) -> torch.Tensor:
     """Shifted cross entropy with label smoothing, the mean over the labels
-    that are not ``ignore_index`` (at least 1)."""
+    that are not ``ignore_index`` (at least 1). ``data_group``: the rows are
+    this rank's slice of a batch split over the group; the sum is divided by
+    the whole batch's count, this rank's share of the global loss."""
     logits = upcast(logits[:, :-1])
     labels = labels[:, 1:]
     valid = labels != ignore_index
@@ -235,4 +238,5 @@ def lm_loss(logits: torch.Tensor, labels: torch.Tensor, label_smoothing: float =
     smooth = -logp.mean(dim=-1)
     per_tok = (1.0 - label_smoothing) * nll + label_smoothing * smooth
     per_tok = torch.where(valid, per_tok, torch.zeros_like(per_tok))
-    return per_tok.sum() / torch.clamp(valid.sum(), min=1)
+    count = sum_over([valid.sum()], data_group)[0]
+    return per_tok.sum() / torch.clamp(count, min=1)

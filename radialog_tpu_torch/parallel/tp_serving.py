@@ -32,7 +32,6 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from ..core.mesh import (DATA_AXIS, MODEL_AXIS, axis_group, axis_rank, axis_size,
                          host_local_batch_slice)
@@ -40,6 +39,8 @@ from ..decode.engine import DecodeParams, GenerationResult, generate, generate_s
 from ..models.llama import LlamaConfig
 from ..ops.layers import BF16, DTypePolicy
 from ..ops.quant import _per_layer, quantize_llama_host
+from .collectives import gather_batch
+from .partition import lora_partition_specs, map_specs, split_leaf
 
 
 def shard_config(cfg: LlamaConfig, n_shards: int) -> LlamaConfig:
@@ -100,46 +101,22 @@ def shard_quantized_llama(params: Dict, cfg: LlamaConfig, n_shards: int, rank: i
 
 
 def shard_lora(lora: Dict, cfg: LlamaConfig, n_shards: int, rank: int) -> Dict:
-    """Rank ``rank``'s LoRA adapters for the TP serving path: ``a``
-    replicated, ``b`` sliced to the rank's head group (targets wq/wk/wv
-    only: wo would need a row-split ``a``)."""
-    hd = cfg.head_dim
-    widths = {"wq": cfg.num_heads * hd, "wk": cfg.num_kv_heads * hd,
-              "wv": cfg.num_kv_heads * hd}
-    layers: Dict = {}
+    """Rank ``rank``'s LoRA adapters for the TP serving path, split by
+    ``lora_partition_specs`` as for training: ``a`` replicated, ``b`` cut to
+    the rank's head group (targets wq/wk/wv only: wo would need a row-split
+    ``a``). ``cfg`` is unused, kept for the JAX signature."""
     for t, ab in lora["layers"].items():
-        if t not in widths:
+        if t not in ("wq", "wk", "wv"):
             raise ValueError(f"TP serving LoRA supports q/k/v targets, got {t}")
-        w = widths[t]
-        if w % n_shards:
-            raise ValueError(f"{t} width {w} not divisible by {n_shards}")
-        per = w // n_shards
-        layers[t] = {"a": ab["a"], "b": ab["b"][..., rank * per:(rank + 1) * per]}
-    out = {"layers": layers, "scale": lora["scale"]}
-    if "img_proj" in lora:
-        out["img_proj"] = lora["img_proj"]
-    return out
+        if ab["b"].shape[-1] % n_shards:
+            raise ValueError(f"{t} width {ab['b'].shape[-1]} not divisible by {n_shards}")
+    coords = {DATA_AXIS: (1, 0), MODEL_AXIS: (n_shards, rank)}
+    return map_specs(lambda x, s: split_leaf(x, s, coords), lora, lora_partition_specs(lora))
 
 
 def _as_tensor(x, device, dtype=None):
     t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.array(x))
     return t.to(device=device, dtype=dtype or t.dtype)
-
-
-def all_gather_batch(x: torch.Tensor, group) -> torch.Tensor:
-    """The ranks' (B_local, ...) tensors of ``group`` concatenated in rank
-    order, on ``x``'s device (the identity for None). Over gloo the
-    exchange goes through the host."""
-    if group is None:
-        return x
-    n = dist.get_world_size(group)
-    if n == 1:
-        return x
-    dev = x.device if dist.get_backend(group) == "nccl" else torch.device("cpu")
-    mine = x.to(dev).contiguous()
-    parts = [torch.empty_like(mine) for _ in range(n)]
-    dist.all_gather(parts, mine, group=group)
-    return torch.cat(parts).to(x.device)
 
 
 def tp_generate(mesh, params: Dict, cfg: LlamaConfig, tokens, lengths,
@@ -218,6 +195,6 @@ def make_tp_generate(mesh, cfg: LlamaConfig, dp: DecodeParams = DecodeParams(), 
                 res = generate(params, cfg_local, toks, lens, dp, img_embs=imgs, lora=lora_l,
                                policy=policy, cache_len=cache_len, kv_int8=kv_int8,
                                tp_group=model_group)
-        return GenerationResult(*(all_gather_batch(x, data_group) for x in res))
+        return GenerationResult(*(gather_batch(x, data_group) for x in res))
 
     return run

@@ -45,9 +45,26 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of squares over every leaf, a 0-d tensor."""
-    return torch.sqrt(sum(torch.sum(x.float() ** 2) for x in tree_leaves(tree)))
+def global_norm(tree, specs=None, mesh=None) -> torch.Tensor:
+    """sqrt of the sum of squares over every leaf, a 0-d tensor.
+
+    With ``specs`` (parallel/partition.py) and ``mesh``, ``tree`` is this
+    rank's shard of a tree split over the mesh's ``model`` axis: each split
+    leaf's sum of squares is summed over the model group (one all-reduce)
+    and each replicated leaf counted once, so every rank gets the norm of
+    the whole tree. The leaves' sums are added in the tree's order, as
+    without a mesh, so a model axis of one rank gives the same bits."""
+    squares = [torch.sum(x.float() ** 2) for x in tree_leaves(tree)]
+    if specs is not None and mesh is not None:
+        from ..core.mesh import MODEL_AXIS, axis_group
+        from ..parallel.collectives import sum_over
+        from ..parallel.partition import map_specs
+        split = [i for i, c in enumerate(tree_leaves(
+            map_specs(lambda x, s: MODEL_AXIS in s, tree, specs))) if c]
+        for i, q in zip(split, sum_over([squares[i] for i in split],
+                                        axis_group(mesh, MODEL_AXIS))):
+            squares[i] = q
+    return torch.sqrt(sum(squares))
 
 
 def apply_updates(params, updates):
@@ -97,8 +114,8 @@ def _lr_at(learning_rate: Union[float, Schedule], count: int) -> float:
     return learning_rate(count) if callable(learning_rate) else learning_rate
 
 
-def _clip_by_global_norm(grads, max_norm: float):
-    norm = global_norm(grads)
+def _clip_by_global_norm(grads, max_norm: float, specs=None, mesh=None):
+    norm = global_norm(grads, specs, mesh)
     return tree_map(lambda g: torch.where(norm < max_norm, g,
                                           (g / norm.to(g.dtype)) * max_norm), grads)
 
@@ -125,16 +142,18 @@ def _accumulate(inner: GradientTransformation, every: int) -> GradientTransforma
 def make_adamw(learning_rate: Union[float, Schedule], weight_decay: float = 0.05,
                b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                grad_clip: Optional[float] = None,
-               accum_steps: int = 1) -> GradientTransformation:
+               accum_steps: int = 1, specs=None, mesh=None) -> GradientTransformation:
     """AdamW with the decay masked to leaves of two or more dimensions, an
-    optional global-norm clip and gradient accumulation."""
+    optional global-norm clip and gradient accumulation. ``specs`` and
+    ``mesh``: the parameters are this rank's shard, and the clip's norm is
+    the whole tree's (``global_norm``)."""
     def init(params):
         return {"count": 0, "mu": tree_map(torch.zeros_like, params),
                 "nu": tree_map(torch.zeros_like, params)}
 
     def update(grads, state, params):
         if grad_clip is not None:
-            grads = _clip_by_global_norm(grads, grad_clip)
+            grads = _clip_by_global_norm(grads, grad_clip, specs, mesh)
         mu = tree_map(lambda g, m: (1 - b1) * g + b1 * m, grads, state["mu"])
         nu = tree_map(lambda g, v: (1 - b2) * (g * g) + b2 * v, grads, state["nu"])
         count = state["count"] + 1

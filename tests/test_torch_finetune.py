@@ -105,8 +105,7 @@ def test_batcher_matches_jax():
 def test_config_keeps_the_jax_fields():
     jf = {f.name: f.default for f in dataclasses.fields(jft.FinetuneConfig)}
     tf = {f.name: f.default for f in dataclasses.fields(tft.FinetuneConfig)}
-    del jf["mesh_model"]
-    assert {k: tf[k] for k in jf} == jf
+    assert {k: tf[k] for k in jf} == jf and tf["mesh_model"] == jf["mesh_model"] == 1
     assert set(tf) - set(jf) == {"synthetic", "device"} and tf["flash"] is False
 
 
@@ -253,6 +252,7 @@ def test_cli_runs(tmp_path, extra):
     assert [m["step"] for m in lines if "val_loss" in m] == [2, 4]
     assert all(np.isfinite(m.get("loss", m.get("val_loss"))) for m in lines)
     assert (tmp_path / "out" / "last" / tckpt.TREE_FILE).exists()
-    bad = subprocess.run(cmd[:3] + ["--mesh_model", "2"], cwd=REPO, capture_output=True,
+    # without a process group a model axis of 2 fails as JAX's MeshSpec.resolve
+    bad = subprocess.run(cmd + ["--mesh_model", "2"], cwd=REPO, capture_output=True,
                          text=True, timeout=300)
-    assert bad.returncode != 0 and "unknown option --mesh_model" in bad.stderr
+    assert bad.returncode != 0 and "model axis 2 does not divide device count 1" in bad.stderr

@@ -247,7 +247,8 @@ def test_port_imports_no_jax():
             "section_parser.py", "instruct.py", "chexpert_train.py", "run_chexbert.py",
             "create_sections.py", "create_data.py", "mesh.py", "tp_serving.py", "tp_ring.py",
             "measure_kv_logit_err_torch.py", "measure_quant_torch.py",
-            "measure_kv_int8_torch.py", "tp_cards_torch.py", "torch_tp_ranks.py"} <= \
+            "measure_kv_int8_torch.py", "tp_cards_torch.py", "torch_tp_ranks.py",
+            "partition.py", "collectives.py", "dryrun.py"} <= \
         {f.name for f in files}
     for f in files:
         for node in ast.walk(ast.parse(f.read_text())):

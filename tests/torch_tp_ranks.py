@@ -197,7 +197,227 @@ def _ring_job(job):
     return out
 
 
-JOBS = {"mesh": _mesh_job, "serving": _serving_job, "ring": _ring_job}
+def _leaves(tree):
+    from radialog_tpu_torch.train.optim import tree_leaves
+    return tree_leaves(tree)
+
+
+def _flat_np(tree, prefix=""):
+    """{"a/0/c": numpy leaf} of a tree of dicts and lists."""
+    items = tree.items() if isinstance(tree, dict) else \
+        enumerate(tree) if isinstance(tree, (list, tuple)) else None
+    if items is None:
+        return {prefix.rstrip("/"): _np(tree)}
+    return {p: v for k, sub in items for p, v in _flat_np(sub, f"{prefix}{k}/").items()}
+
+
+def _partition_job(job):
+    """tests/test_torch_partition.py's group: on a (1, 2) mesh each case's
+    base (and LoRA) sharded and gathered back, the local shapes checked,
+    and, where the case has tokens, the TP = 2 forward of the stacked
+    layout."""
+    import torch
+    from radialog_tpu_torch.core import mesh as tm
+    from radialog_tpu_torch.models import llama as tl
+    from radialog_tpu_torch.ops.layers import FP32
+    from radialog_tpu_torch.parallel import partition as pt
+    from radialog_tpu_torch.parallel.tp_serving import shard_config
+    mesh = tm.make_mesh(tm.MeshSpec(1, 2), device="cpu", timeout=60)
+    group = tm.axis_group(mesh, tm.MODEL_AXIS)
+    out = {}
+    for name, case in job["cases"].items():
+        base, lora = case["base"], case["lora"]
+        got = {}
+        for what, tree, specs in (("base", base, pt.llama_partition_specs(base)),
+                                  ("lora", lora, pt.lora_partition_specs(lora))):
+            local = pt.shard_params(mesh, tree, specs)
+            pt.with_sharding_constraints(local, specs, mesh, pt.shapes_of(tree))
+            back = pt.gather_params(mesh, local, specs, pt.shapes_of(tree))
+            got[f"{what}_identity"] = all(
+                a.dtype == b.dtype and torch.equal(a, b)
+                for a, b in zip(_leaves(back), _leaves(tree)))
+            got[f"{what}_local_shapes"] = [tuple(x.shape) for x in _leaves(local)]
+            if what == "base":
+                lb = local
+                head = local["lm_head"].get("w", local["lm_head"].get("w_q"))
+                got["vocab_rows"] = (local["embed"].shape[0], head.shape[1])
+                got["wq_cols"] = local["layers"]["wq"].get("w", local["layers"]["wq"].get(
+                    "w_q")).shape[-1]
+                try:
+                    bad = dict(local, embed=local["embed"][:-1])
+                    pt.with_sharding_constraints(bad, specs, mesh, pt.shapes_of(tree))
+                except ValueError as e:
+                    got["refused"] = str(e)
+            else:
+                ll = local
+        if "tokens" in case:
+            cfg = tl.LlamaConfig(**case["cfg"])
+            toks = torch.from_numpy(case["tokens"])
+            lens = torch.from_numpy(case["lengths"])
+            b, t = toks.shape
+            pos = torch.arange(t)[None].repeat(b, 1)
+            img = torch.from_numpy(case["img_embs"])
+            logits, _ = tl.llama_apply(lb, shard_config(cfg, 2), toks, pos,
+                                       tl.prefill_bias(lens, t), img_embs=img,
+                                       img_start=tl.find_img_start(toks, cfg.img_token_id),
+                                       lora=ll, policy=FP32, lengths=lens, tp_group=group)
+            got["logits"] = _np(logits)
+            got["embed"] = _np(tl.vocab_parallel_embed(lb["embed"], toks, group))
+        out[name] = got
+    return out
+
+
+def _train_job(job):
+    """tests/test_torch_train_parallel.py's groups: each case one SGD LoRA
+    step (remat) on its mesh, from the whole trees and the global batch the
+    test sends; returns the global metrics, this rank's updated local tree
+    and, gathered, the whole one. A case with ``no_f`` runs with the
+    identity in place of copy_to_group (the trap the f-op closes). Stage-1
+    cases run make_stage1_train_step over the data axis, with the global
+    negatives the test sends in place of sample_negatives."""
+    import torch
+    from radialog_tpu_torch.core import mesh as tm
+    from radialog_tpu_torch.models import blip2 as tb
+    from radialog_tpu_torch.models import llama as tl
+    from radialog_tpu_torch.ops.layers import FP32
+    from radialog_tpu_torch.parallel import collectives
+    from radialog_tpu_torch.parallel import partition as pt
+    from radialog_tpu_torch.train import optim as toptim
+    from radialog_tpu_torch.train import steps as tsteps
+    meshes = {}
+    out = {}
+    for name, case in job["cases"].items():
+        shape = tuple(case["mesh"])
+        if shape not in meshes:
+            meshes[shape] = tm.make_mesh(tm.MeshSpec(*shape), device="cpu", timeout=60)
+        mesh = meshes[shape]
+        tx = toptim.make_sgd(job["lr"], momentum=0.0)
+        batch = tm.shard_batch(mesh, case["batch"], device="cpu")
+        if case.get("stage1"):
+            want = tuple(torch.from_numpy(x) for x in case["negatives"])
+            real = tb.sample_negatives
+            tb.sample_negatives = lambda w_t2i, w_i2t, gen: want
+            try:
+                step = tsteps.make_stage1_train_step(
+                    tx, tb.Blip2Config(**case["cfg"]),
+                    data_group=tm.axis_group(mesh, tm.DATA_AXIS))
+                state, m = step(tsteps.TrainState.create(case["params"], tx), batch, None)
+            finally:
+                tb.sample_negatives = real
+            out[name] = {"metrics": {k: float(v) for k, v in m.items()},
+                         "params": _flat_np(state.params)}
+            continue
+        base, lora = case["base"], case["lora"]
+        specs = pt.lora_partition_specs(lora)
+        lb = pt.shard_params(mesh, base, pt.llama_partition_specs(base))
+        ll = pt.shard_params(mesh, lora, specs)
+        real_f = tl.copy_to_group
+        if case.get("no_f"):
+            tl.copy_to_group = lambda x, group: x
+        calls = {f.__name__: f.calls for f in (collectives.copy_to_group,
+                                                collectives.reduce_from_group,
+                                                collectives.sum_over)}
+        try:
+            step = tsteps.make_lora_train_step(tx, tl.LlamaConfig(**case["cfg"]), policy=FP32,
+                                               remat=True, flash=case.get("flash", False),
+                                               mesh=mesh)
+            state, m = step(tsteps.TrainState.create(ll, tx), lb, batch)
+        finally:
+            tl.copy_to_group = real_f
+        out[name] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                     "local": _flat_np(state.params),
+                     "params": _flat_np(pt.gather_params(mesh, state.params, specs)),
+                     "calls": {k: f.calls - calls[k] for k, f in
+                               (("copy_to_group", collectives.copy_to_group),
+                                ("reduce_from_group", collectives.reduce_from_group),
+                                ("sum_over", collectives.sum_over))}}
+    return out
+
+
+def _timeout_job(job):
+    """A rank that raises inside the backward: rank 1's loss hook raises
+    before the backward's first collective, and it stays alive without
+    joining; rank 0 waits in that collective until the mesh's timeout
+    (job["timeout"] seconds) and must raise, not hang."""
+    import time
+    import torch
+    from radialog_tpu_torch.core import mesh as tm
+    from radialog_tpu_torch.ops.layers import FP32
+    from radialog_tpu_torch.parallel import partition as pt
+    from radialog_tpu_torch.train import optim as toptim
+    from radialog_tpu_torch.train import steps as tsteps
+    from radialog_tpu_torch.models import llama as tl
+    mesh = tm.make_mesh(tm.MeshSpec(1, 2), device="cpu", timeout=job["timeout"])
+    rank = tm.axis_rank(mesh, tm.MODEL_AXIS)
+    base, lora = job["base"], job["lora"]
+    specs = pt.lora_partition_specs(lora)
+    lb = pt.shard_params(mesh, base, pt.llama_partition_specs(base))
+    ll = pt.shard_params(mesh, lora, specs)
+    tx = toptim.make_sgd(0.1, momentum=0.0)
+    step = tsteps.make_lora_train_step(tx, tl.LlamaConfig(**job["cfg"]), policy=FP32,
+                                       remat=True, mesh=mesh)
+    real = tsteps.masked_ce
+    if rank == 1:
+        def failing(logits, labels, data_group=None):
+            def fail(_):
+                raise RuntimeError("injected failure inside the backward")
+            logits.register_hook(fail)
+            return real(logits, labels, data_group)
+        tsteps.masked_ce = failing
+    t0 = time.time()
+    try:
+        step(tsteps.TrainState.create(ll, tx), lb, tm.shard_batch(mesh, job["batch"], "cpu"))
+        result = {"raised": None}
+    except RuntimeError as e:
+        result = {"raised": str(e)[:300]}
+    finally:
+        tsteps.masked_ce = real
+    result["seconds"] = time.time() - t0
+    if rank == 1:       # alive, but never joins the collective rank 0 waits in
+        time.sleep(job["timeout"] + 4)
+    return result
+
+
+def _finetune_job(job):
+    """tests/test_torch_finetune_parallel.py's group: apps/finetune_lora.train
+    on the two ranks at mesh_model 2 and 1 (output dirs under job["out"]),
+    the gathered adapter export, a resume from a one-process TrainState, and
+    the refusal of mesh_model 3."""
+    import dataclasses
+    import torch.distributed as dist
+    from radialog_tpu_torch.apps import finetune_lora as tft
+    from radialog_tpu_torch.core import mesh as tm
+    from radialog_tpu_torch.parallel import partition as pt
+    out = {}
+    for m in (2, 1):
+        logs = []
+        cfg = tft.FinetuneConfig(**job["cfg"], mesh_model=m, output_dir=f"{job['out']}/m{m}")
+        state = tft.train(cfg, log_fn=logs.append, base=job["base"], lora=job["lora"])
+        mesh = tm.make_mesh(tm.MeshSpec(model=m), device="cpu", timeout=60)
+        tft.export_adapter(state.params, f"{job['out']}/m{m}.bin", mesh=mesh)
+        out[m] = {"logs": logs, "step": state.step,
+                  "params": _flat_np(pt.gather_params(
+                      mesh, state.params, pt.lora_partition_specs(state.params)))}
+    logs = []
+    cfg = tft.FinetuneConfig(**dict(job["cfg"], max_steps=2), mesh_model=2,
+                             resume_from_checkpoint=job["resume"],
+                             output_dir=f"{job['out']}/resumed")
+    state = tft.train(cfg, log_fn=logs.append, base=job["base"])
+    mesh = tm.make_mesh(tm.MeshSpec(model=2), device="cpu", timeout=60)
+    out["resumed"] = {"logs": logs, "step": state.step, "params": _flat_np(
+        pt.gather_params(mesh, state.params, pt.lora_partition_specs(state.params)))}
+    try:
+        tft.train(dataclasses.replace(cfg, mesh_model=3, resume_from_checkpoint=None),
+                  base=job["base"])
+    except ValueError as e:
+        out["refused"] = str(e)
+    out["rank"] = dist.get_rank()
+    return out
+
+
+JOBS = {"mesh": _mesh_job, "serving": _serving_job, "ring": _ring_job,
+        "partition": _partition_job, "train": _train_job, "timeout": _timeout_job,
+        "finetune": _finetune_job}
 
 
 def main(job_path: str, out_path: str) -> None:
