@@ -11,8 +11,9 @@ each; any failing phase exits non-zero:
           Vicuna-7B weight shapes x M in {1, 5, 6, 16, 18, 20, 56, 48, 256,
           440, 448, 56*80} (5, 6, 18, 20 and 48: verify blocks)
           (16 and 256: the serve phase's decode lanes and a full admission;
-          1, 440 and 448: the eval phase's batch-1 decode and correction
-          prefills, whose last 64-row tile is partial); each
+          1, 440 and 448: the eval CLI's batch-1 decode and correction
+          prefills after its default 300-token reports, whose last 64-row
+          tile is partial); each
           line names the launch plan's route (TMA + wgmma on 128 x 256 or
           128 x 128 tiles, or swapped operands at M <= 64); layer sums of the
           four projections at M = 56, 16, 4480, 1 and 440 against
@@ -23,7 +24,7 @@ each; any failing phase exits non-zero:
           ring's per-lane slot intervals and no prefix (B=16, S=384, prompts
           of 100-256 rows: a window inside the ring, a wrapped window, a full
           ring, a lane with no valid slot, a full prompt region), at the
-          eval phase's batch-1 correction decode (B=1, no prefix, S=768, a
+          eval CLI's batch-1 correction decode (B=1, no prefix, S=768, a
           437-token prompt in 440 slots, steps 0, 128 and 255: 12 blocks of
           slots over 6 splits of one cluster); K2'' (the
           step's own row attended as an operand and written in place) at the
@@ -53,7 +54,7 @@ each; any failing phase exits non-zero:
           H=32, D=128, bf16, causal: B=1 with T=S in {256, 448, 1024}, the
           serve phase's admission (B=1, T=S=256, length 230, fused views), B=12
           with T=S=448 and lengths 300-448, and the qa phase's B=1 shapes
-          T=S in {431, 436} and the eval phase's correction prefills (437
+          T=S in {431, 436} and the eval CLI's correction prefills (437
           of 440 and 445 of 448 rows) with q/k/v as views of one fused
           projection, the float phase's binary-QA batch (B=14, T=S=440,
           lengths 431-440) and correction prefill (437 of 440) with q/k/v
@@ -118,9 +119,22 @@ each; any failing phase exits non-zero:
           with random weights from a seeded generator: 56 uint8 X-rays,
           128-token prompts sharing 48 tokens, greedy decode of 300 tokens
           with EOS disabled, after a warm-up; kernel launch counts of that
-          run and reports/s; then the same pass with RADIALOG_DEFER_KV=1:
-          K2'' 32 x 299 times, K2 never, reports/s both ways and the share
-          of tokens equal to the first pass (reported, not held)
+          run and reports/s; then the pass with RADIALOG_DEFER_KV=1 at 64
+          tokens (SLICE_DEFER_NEW): K2'' 32 x 63 times, K2 never, K1 as
+          often as a pass of that length without it, reports/s both ways and
+          the share of tokens equal to the first pass's first 64 (reported,
+          not held)
+  bench   the repo's measurement entry points (tools/bench_torch.py and the
+          tools/bench_*_torch.py twins of the JAX tools) at full width,
+          each on its own synthetic weights (one W8A8 set shared, a W4A8
+          set, the int8 training base), cut in depth only (runs, sessions,
+          tokens; each cut listed in its line): the report pass, the sweep
+          (W8A8 and W4A8, --mem), the binary and all-findings QA passes,
+          the ring (int8 and W4A8), speculation batch-1 and batched, the
+          chat, LoRA training with flash attention and stage 1, the
+          composed input pipeline and the loader. Each tool's lines parse,
+          have the JAX tool's keys, and every number in them is finite and
+          positive; each kernel the tool's path runs launched (BENCH_TOOLS)
   qa      the evaluation follow-up passes on the slice's pipeline, over the
           slice's own conversations (prompt + 300 generated tokens) and
           image embeddings: the binary-QA pass over 2 studies (14 lanes,
@@ -133,7 +147,9 @@ each; any failing phase exits non-zero:
           line (apps/evaluate.py main, the root test.py's counterpart):
           --synthetic --int8 --use_embs --do_corr --do_cp_bin_qa
           --do_cp_all_qa over the first test study of tests/fixtures,
-          batch 12, 300 new tokens, files under build/chip_eval/: the report
+          batch 12, 150 new tokens (EVAL_NEW, cut from the CLI's 300; the
+          correction prompts stay past 256 tokens), files under
+          build/chip_eval/: the report
           pass, the batch-1 correction pass (256 tokens a study), binary QA,
           all-QA, CheXbert labels; seconds per pass, launches of K1, K2 and
           K3 (K3 exactly as models/llama.py _use_flash predicts from the
@@ -144,7 +160,7 @@ each; any failing phase exits non-zero:
   spec    speculative decoding at full width on the eval phase's pipeline
           and prompts: the int8 verify attention card against CPU at S=1280
           (integer sums bitwise past 2^24, where an f32 product misses);
-          generate_spec (k 4) on the first correction prompt, 128 tokens
+          generate_spec (k 4) on the first correction prompt, 32 tokens
           over each cache (verifies, tokens per verify,
           seconds, stream waits per verify, where the tokens part from the
           eval phase's batch-1 loop); the eval command line with --corr_spec
@@ -175,12 +191,13 @@ each; any failing phase exits non-zero:
           is checked; aggregate tokens/s, seconds to the first token, peak
           memory. Then 16 sessions x 32 tokens with W4A8 layers (K4 128
           times and K1 once per forward)
-  datatools  the data tools, after serve, on the slice's weights:
+  datatools  the data tools, in the ckpt phase's process after it, on a
+          W8A8 pipeline built as the slice's (the same seed):
           create_sections over a report tree the phase writes (its rows
           checked against the tree), create_data --mode RG over
           tests/fixtures, and --mode INS --mock over those fixtures with
           each train study repeated 18 times (teacher calls of 12, 12, 12
-          and 3 prompts) and the slice's W8A8 pipeline as the teacher, 64
+          and 3 prompts) and that W8A8 pipeline as the teacher, 64
           new tokens (the mock's cut of the CLI's 256), once through
           generate_texts_ring (12 lanes, the int8 ring: K1, and K2 only
           under per-lane intervals, K2') and once with --teacher batch
@@ -190,8 +207,9 @@ each; any failing phase exits non-zero:
   float   the float path at full width (PipelineConfig(quantize=False), the
           JAX package's default): Vicuna-7B bf16 in the stacked layout over
           the bf16 cache, random from a seed, with the slice's vision models.
-          The report pass (56 images, 128-token prompts, 300 tokens, EOS
-          disabled, after a warm-up; reports/s, peak memory); the server on
+          The report pass (56 images, 128-token prompts, 64 tokens
+          (FLOAT_REPORT_NEW), EOS disabled, after a warm-up; reports/s, peak
+          memory); the server on
           its weights (the bf16 ring, 16 lanes, prompt region 256, ring 128,
           8 steps a chunk, 16 sessions x 32 tokens of 100-250-token image
           prompts from 4 client threads; tokens/s, first-token seconds);
@@ -306,7 +324,10 @@ each; any failing phase exits non-zero:
           the collectives a micro-step issues and their ms
 
 
-  ckpt    checkpoints on disk at full size, loaded back through the port's
+  ckpt    (in a process of its own with datatools, started after bench
+          and waited for before stage1: CHILD_TIMEOUT_S; their lines are
+          printed then)
+          checkpoints on disk at full size, loaded back through the port's
           loaders (ROADMAP queue 1 item 3) with both tokenizer loaders
           replaced by the WhitespaceTokenizer at the Vicuna layout: Vicuna-7B
           v1.3's HF layout in fp16 (32 layers, 32,000 embedding rows, two
@@ -316,14 +337,15 @@ each; any failing phase exits non-zero:
           CheXbert .pth (module. prefix) and an emb_cache npz, in a fresh
           directory under build/ (16 GiB free asked first, removed at the
           end). The W8A8 pipeline from the files: load seconds by stage,
-          peak host RSS, device memory; layers 0 and 31, lm_head, embed, the
-          LoRA and every BLIP-2, BioViL-T, classifier and CheXbert leaf
+          peak host RSS so far, device memory; layers 0 and 31, lm_head,
+          embed, the LoRA and every BLIP-2, BioViL-T, classifier and CheXbert leaf
           bitwise against the same tensors converted and packed on the host;
           the report batch (56 x CKPT_NEW = 32; logits finite with the image,
           NaN without it, as JAX's jnp.take gives them) and a 4-beam run (2
           prompts x 32 tokens: K1, never K2); the bf16 pipeline (layers 0
           and 31 bitwise); apps/evaluate.py main with every checkpoint flag,
-          --num_beams 4, --do_corr, --do_cp_bin_qa over 1 fixture study (K3);
+          --num_beams 4, --do_corr, --do_cp_bin_qa over 1 fixture study,
+          --max_new_tokens EVAL_NEW (K3);
           the trainer from the files (int8 base, the adapter, flash, 2
           micro-steps: K3, K5a, K5b); pack_q4's seconds for the o_proj and by
           weights for a layer
@@ -333,6 +355,10 @@ phase's report batch, of each checkout at ROOT in turn (its own package and
 chip_smoke.py, a process each), to compare commits in one call: the stream
 waits the host makes in an 8-token warm-up (torch's sync debug mode), then
 two timed passes' reports/s, launches and a checksum of the tokens.
+
+Each phase's start goes to stderr ("chip_smoke: <phase> starts at <t> s"),
+and at WATCHDOG_S seconds every thread's stack (faulthandler), so that a run
+stopped at its time limit says where it was.
 
 The line before the last is a JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}. A kernel's time is the
@@ -345,7 +371,9 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import io
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -355,6 +383,11 @@ import time
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM (NVIDIA data sheet)
 INT8_OPS_PER_S = 1979e12       # dense int8 tensor-core peak
 BATCH, PROMPT, SHARED, NEW = 56, 128, 48, 300
+# new tokens of the slice phase's second pass (in-kernel KV writes) and of
+# the float phase's report pass: the slice's 300, cut for the script's time
+# (each checks a path the first pass times; the script's time on a slow host
+# went past 1,200 s)
+SLICE_DEFER_NEW, FLOAT_REPORT_NEW = 64, 64
 BF16_OPS_PER_S = 989e12        # dense bf16 tensor-core peak
 F32_OPS_PER_S = 67e12          # float32 outside the tensor cores
 K2_TOL = dict(atol=2e-3, rtol=2e-3)
@@ -377,10 +410,11 @@ K3_TOL = {"bfloat16": dict(atol=1e-2, rtol=1e-2), "float32": dict(atol=1e-5, rto
 # f32: only the order of the f32 sums differs (errors up to 1.1e-6)
 K5_TOL = {"bfloat16": 8e-3, "float32": 1e-5}
 QA_STUDIES, ALL_QA_STUDIES, LABELED, FOLLOW_UP_NEW = 2, 5, 16, 32
-# the eval phase's batch-1 correction turn at full width: 437, 442 and 445
-# prompt tokens over the first three fixture studies (a 118-token report
-# prompt, its 300 generated tokens, the correction request; the eval phase
-# prints them; it runs the first two since PR 16), padded to a multiple of
+# the eval command line's batch-1 correction turn at full width and its
+# default 300 report tokens: 437, 442 and 445 prompt tokens over the first
+# three fixture studies (a 118-token report prompt, its 300 generated
+# tokens, the correction request; the eval phase, at EVAL_NEW report
+# tokens, prints its own), padded to a multiple of
 # 8 (apps/tokenization.py pad_batch_right): 440 and 448 rows, whose last
 # 64-row tile is partial; 256 new tokens in a cache of 768 slots
 # (decode/kvcache.py bucket_length). The eval phase also holds each kernel
@@ -391,6 +425,11 @@ CORR_T, CORR_T2, CORR_LEN, CORR_LEN2, CORR_NEW, CORR_S = 440, 448, 437, 445, 256
 # brings no new shape: the k phases hold the second and third studies'
 # 442/445-token rows)
 EVAL_STUDIES = 1
+# new tokens of the eval command lines' report pass (eval, float, ckpt):
+# the CLI's 300, cut for the script's time; the correction prompts then
+# hold ~287 tokens, still past K3's 256, and the k phases keep the shapes
+# of a 300-token report (CORR_T, CORR_T2)
+EVAL_NEW = 150
 # new tokens of the ckpt phase's report batch (the slice phase's 300, cut to
 # 32 for the script's time: it checks the weights
 # loaded from files, the slice phase times the pass; the eval command line
@@ -405,15 +444,15 @@ CKPT_NEW = 32
 # 1,280 passes 2^24
 VERIFY_M = (5, 6, 48)
 SPEC_K, CORR_SPEC_K, CHAT_K, CHAT_NEW, CHAT_CHUNK = 4, 5, 5, 48, 16
-SPEC_BF16_NEW = 128     # the bf16-cache batch-1 run, cut from 256 for the script's time
-SPEC_INT8_NEW = 128     # the int8-cache batch-1 run, cut from 256 for the same reason
+SPEC_BF16_NEW = 32      # the bf16-cache batch-1 run, cut from 256 (then 128, 64) for
+SPEC_INT8_NEW = 32      # the script's time; the int8-cache one the same
 RING_LANES, RING_NEW, RING_K, RING_CHUNK, RING_LEN = 4, 64, 4, 8, 325
 VERIFY_S = 1280
 # tokens of each speculative run teacher-forced through the plain steps (cut
-# from 128 for the script's time); generated rows of the batch-1 runs
-# held bitwise against one row at a time (_tf_verify one_row), and against
-# the control
-SPEC_TF_N, ONE_ROW_N = 64, 32
+# from 128, then 64, for the script's time); generated rows of the batch-1
+# runs held bitwise against one row at a time (_tf_verify one_row), and
+# against the control
+SPEC_TF_N, ONE_ROW_N = 32, 16
 # the bound of the speculative runs' rows against the plain decode steps fed
 # the same tokens (teacher forcing). LOGIT_TOL cannot hold there at 32
 # layers: over the int8 cache the verify attention is another function than
@@ -460,6 +499,21 @@ SMALL_TRAIN_TOL = {"fp32": {"loss": 1e-4, "tree": 2e-4}, "bf16": {"loss": 5e-2, 
 
 
 _START = time.time()
+
+
+# each phase's start goes to stderr, so that a run stopped at its time limit
+# shows where it was; at WATCHDOG_S seconds every thread's stack follows
+WATCHDOG_S = 1140
+
+
+def _begin(phase: str) -> None:
+    print(f"chip_smoke: {phase} starts at {time.time() - _START:.1f} s", file=sys.stderr,
+          flush=True)
+
+
+def _watchdog() -> None:
+    import faulthandler
+    faulthandler.dump_traceback_later(max(1.0, WATCHDOG_S - (time.time() - _START)))
 
 
 def emit(phase: str, **kw) -> None:
@@ -513,7 +567,7 @@ def timed_ms(fn, iters: int, flush) -> float:
 def phase_k1(torch, tq8, flush):
     """Every LLaMA projection shape at the report path's decode, prefix and
     prefill rows and at the serve phase's: 16 lanes at decode, a batch-1
-    admission of a full prompt region (256 rows); and at the eval phase's:
+    admission of a full prompt region (256 rows); and at the eval CLI's:
     batch-1 decode (M = 1) and the correction prefill (440 and 448 rows, a
     partial last 64-row tile). Each line names the route of the launch
     plan. The summary is one decoder layer's four projections at M = 56,
@@ -841,7 +895,7 @@ def phase_k2(torch, tfd, flush):
     for key in ("ms", "plain_ms", "bound_ms", "prefix_device_ms", "lane_device_ms",
                 "read_flush_ms"):
         summary[f"{key}_qa"] = qa[9][key]
-    # the eval phase's batch-1 correction decode: one lane, no prefix, a
+    # the eval CLI's batch-1 correction decode: one lane, no prefix, a
     # 437-token prompt padded to 440 slots in a 768-slot cache, steps 0,
     # 128 and 255: 12 blocks of 64 slots over the plan's splits of one
     # cluster (32 heads on 132 SMs)
@@ -962,7 +1016,7 @@ def phase_k3(torch, tfa, flush):
     its 256-row bucket (a partial last key tile, query rows past the
     length); and the qa phase's own: the binary-QA prefix (431 tokens) and
     the batch-1 follow-up (436), both ending in a partial 64-row tile, and
-    the eval phase's correction prefills (437 of 440 and 445 of 448 rows),
+    the eval CLI's correction prefills (437 of 440 and 445 of 448 rows),
     with q/k/v read as views of one fused (B, T, 3*H*D) projection:
     the strided route, stricter than the dense q/k/v the eval run's
     cache-free prefill hands over (phase eval holds those); and the float
@@ -2018,22 +2072,22 @@ def phase_slice(torch, te, pipeline_mod, tq8, tfd):
     torch.cuda.synchronize()
     build_s = time.time() - t0
     prompts, ids, report_step = _report_batch(torch, pipe)
-    report_step(8)                      # warm-up: cuDNN plans, allocator
     counted = {"q8_matmul": tq8.q8_matmul_int32, "flash_decode_int8": tfd.flash_decode_int8_kernel,
                "flash_decode_int8_current": tfd.flash_decode_int8_current_kernel}
+    _zero(counted)
+    report_step(8)                      # warm-up: cuDNN plans, allocator
+    warm_k1 = tq8.q8_matmul_int32.launches
 
-    def timed_pass():
+    def timed_pass(new):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        for fn in counted.values():
-            fn.launches = 0
+        _zero(counted)
         t0 = time.time()
-        findings, embs, res = report_step(NEW)
+        findings, embs, res = report_step(new)
         tokens = res.tokens.cpu()
-        return (findings, embs, res, tokens, time.time() - t0,
-                {name: fn.launches for name, fn in counted.items()})
+        return (findings, embs, res, tokens, time.time() - t0, _read(counted))
 
-    findings, embs, res, tokens, dt, launches = timed_pass()
+    findings, embs, res, tokens, dt, launches = timed_pass(NEW)
     p0, _ = pipe._shared_prefix_len(ids, embs)
     ok = (tokens.shape == (BATCH, NEW) and int(tokens.min()) >= 0
           and int(tokens.max()) < pipe.llama_cfg.vocab_size
@@ -2047,33 +2101,206 @@ def phase_slice(torch, te, pipeline_mod, tq8, tfd):
          distinct_tokens=int(tokens.unique().numel()), ok=ok)
     if not ok:
         raise AssertionError("the full-width slice produced a malformed result")
-    # the same pass with in-kernel KV writes: K2'' at every layer of every
-    # decode step (32 x 299 launches), K2 and the row copies never
+    # the same pass with in-kernel KV writes, SLICE_DEFER_NEW tokens: K2'' at
+    # every layer of every decode step (32 x 63 launches), K2 and the row
+    # copies never; K1 as often as a pass of that length without them (K1's
+    # launches grow by the same count a token: the warm-up's 8 tokens and the
+    # first pass's NEW give the line)
+    n_d = SLICE_DEFER_NEW
     with _env("RADIALOG_DEFER_KV", "1"):
-        _, _, res_d, tokens_d, dt_d, launches_d = timed_pass()
+        _, _, res_d, tokens_d, dt_d, launches_d = timed_pass(n_d)
     layers = pipe.llama_cfg.num_layers
-    differs = tokens_d != tokens
+    k1_step, k1_rest = divmod(launches["q8_matmul"] - warm_k1, NEW - 8)
+    differs = tokens_d != tokens[:, :n_d]
     first_diff = torch.where(differs.any(dim=1), differs.int().argmax(dim=1),
-                             torch.full((BATCH,), NEW))         # NEW: the lane is equal
-    ok_d = (tokens_d.shape == (BATCH, NEW) and int(tokens_d.min()) >= 0
+                             torch.full((BATCH,), n_d))         # n_d: the lane is equal
+    ok_d = (tokens_d.shape == (BATCH, n_d) and int(tokens_d.min()) >= 0
             and int(tokens_d.max()) < pipe.llama_cfg.vocab_size
-            and all(res_d.lengths.cpu() == NEW)
+            and all(res_d.lengths.cpu() == n_d)
             and launches_d["flash_decode_int8"] == 0
-            and launches_d["flash_decode_int8_current"] == layers * (NEW - 1)
-            and launches_d["q8_matmul"] == launches["q8_matmul"])
+            and launches_d["flash_decode_int8_current"] == layers * (n_d - 1)
+            and k1_rest == 0 and k1_step > 0
+            and launches_d["q8_matmul"] == warm_k1 + (n_d - 8) * k1_step)
     emit("slice", reports_per_s=BATCH / dt_d, seconds=dt_d, batch=BATCH, prompt=PROMPT,
-         shared_prefix=p0, new_tokens=NEW, defer_kv=True, launches=launches_d,
-         reports_per_s_defer_off=BATCH / dt,
+         shared_prefix=p0, new_tokens=n_d, defer_kv=True, launches=launches_d,
+         k1_launches_per_token=k1_step,
+         reports_per_s_defer_off=BATCH / dt, new_tokens_defer_off=NEW,
          # reported, not held: the current row is summed in another order, so
          # a rounding edge may flip a token and the rest of its lane
-         token_share_equal_to_defer_off=float((tokens_d == tokens).float().mean()),
-         lanes_equal_to_defer_off=int((first_diff == NEW).sum()),
+         token_share_equal_to_defer_off=float((tokens_d == tokens[:, :n_d]).float().mean()),
+         lanes_equal_to_defer_off=int((first_diff == n_d).sum()),
          first_different_step_median=float(first_diff.float().median()),
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, ok=ok_d)
     if not ok_d:
         raise AssertionError("the full-width slice with in-kernel KV writes failed a check")
     return launches, launches_d, {"pipe": pipe, "prompts": prompts, "tokens": tokens,
                                   "lengths": res.lengths.cpu(), "embs": embs}
+
+
+# the bench phase: each tool's flags (cut in depth only), the kernels its
+# path must launch, and the JAX tool's keys of each line it prints (the
+# port adds "device" and "runs_s", bench_interactive "ignored")
+K1, K2, K3, K4 = "q8_matmul", "flash_decode_int8", "flash_attention", "q4_matmul"
+K5A, K5B = "flash_attention_dq", "flash_attention_dkv"
+_SWEEP_KEYS = {"batch", "kv_int8", "w4", "two_phase", "shared_prefix", "cache_len",
+               "new_tokens", "reports_per_sec", "ms_per_token"}
+_SPEC_ROW = {"mode", "tok_s", "forwards", "ms_per_forward", "accepted_per_forward"}
+_RING_ROW = {"mode", "tok_s", "reports_s", "accepted_per_verify", "lanes_token_exact_vs_plain",
+             "cache_slots"}
+_CHAT_ROW = {"mode", "cold_turns_s", "warm_turns_s", "warm_followup_mean_s",
+             "warm_report_tok_s"}
+_RING_KEYS = {"lanes", "sessions", "prompt_len", "new_tokens", "cache_len", "steps_per_call",
+              "w4", "aggregate_tok_per_s", "per_session_tok_per_s", "chunk_ms", "ms_per_tok",
+              "admit_ms_warm", "ignored"}
+BENCH_TOOLS = {
+    "bench": ([], (K1, K2), [{"metric", "value", "unit", "vs_baseline"}]),
+    "sweep": (["--batch", "16", "--kv-int8", "--shared-prefix", "48", "--new-tokens", "16",
+               "--runs", "1"], (K1, K2), [_SWEEP_KEYS]),
+    "sweep_w4": (["--batch", "16", "--kv-int8", "--w4", "--new-tokens", "16", "--runs", "1"],
+                 (K1, K2, K4), [_SWEEP_KEYS]),
+    "sweep_mem": (["--batch", "16", "--kv-int8", "--shared-prefix", "48", "--new-tokens", "16",
+                   "--mem"], (K1, K2),
+                  [{"batch", "kv_int8", "cache_len", "argument_gib", "output_gib", "temp_gib",
+                    "alias_gib", "peak_gib"}]),
+    "qa": (["--runs", "1"], (K1, K2, K3),
+           [{"batch", "hist_len", "q_len", "new_tokens", "kv_int8", "plain_s_per_study",
+             "shared_s_per_study", "speedup"}]),
+    "allqa": (["--runs", "1", "--new-tokens", "10"], (K1, K2, K3),
+              [{"batch", "hist_len", "q_len", "prefix", "new_tokens", "kv_int8",
+                "plain_s_per_batch", "shared_s_per_batch", "plain_s_per_study",
+                "shared_s_per_study", "speedup"}]),
+    "interactive_int8": (["--kv-int8", "--sessions", "8", "--new-tokens", "32"], (K1, K2),
+                         [_RING_KEYS]),
+    "interactive_w4": (["--w4", "--sessions", "8", "--new-tokens", "32", "--no-donate"],
+                       (K1, K4), [_RING_KEYS]),
+    "spec": (["--kv-int8", "--new-tokens", "12", "--runs", "1", "--accept-pattern", "1,2"],
+             (K1, K3), [{"k", "m", "prompt_len", "new_tokens", "kv", "note", "accept_pattern"}]
+             + [_SPEC_ROW] * 5),
+    "spec_ring": (["--compact", "--kv-int8", "--new-tokens", "8", "--runs", "1"], (K1, K2, K3),
+                  [{"k", "lanes", "prompt_len", "new_tokens", "compact", "kv_int8", "spc_plain",
+                    "spc_spec", "note"}, {"mode", "tok_s", "reports_s", "cache_slots"}]
+                  + [_RING_ROW] * 4),
+    "chat": (["--report-tokens", "52", "--reply-tokens", "2"], (K1, K3),
+             [{"prompt_len", "turn_len", "report_tokens", "reply_tokens", "turns", "cache_len",
+               "unroll", "note"}] + [_CHAT_ROW] * 2),
+    "train_flash": (["--flash", "--micro", "2", "--runs", "1"], (K3, K5A, K5B),
+                    [{"micro_batch", "cutoff", "ms_per_step", "tokens_per_sec", "loss",
+                      "grad_norm"}]),
+    "train_stage1": (["--stage1", "--micro", "8", "--runs", "1", "--itm-chunks", "2"], (),
+                     [{"mode", "batch", "ms_per_step", "images_per_sec", "loss", "loss_itc",
+                       "loss_itm", "loss_lm"}]),
+    "pipeline": (["--steps", "4", "--imgs", "16"], (),
+                 [{"mode", "batch", "steps", "threads", "depth", "wall_s", "images_per_sec",
+                   "ms_per_step", "no_step", "no_prefetch", "step_ms_p50", "step_ms_p90",
+                   "first5_ms", "note"}]),
+    "loader": (["--n", "32", "--repeat", "1"], (), None),
+}
+# what each run cuts from its tool's defaults, in depth only
+BENCH_CUTS = {
+    "bench": "runs 3 -> 1, new tokens 300 -> 32 (the warm-up too)",
+    "sweep": "runs 2 -> 1, new tokens 300 -> 16", "sweep_w4": "runs 2 -> 1, new tokens 300 -> 16",
+    "sweep_mem": "new tokens 300 -> 16", "qa": "runs 4 -> 1", "allqa": "runs 4 -> 1, new "
+    "tokens 30 -> 10", "interactive_int8": "sessions 16 -> 8, new tokens 64 -> 32 (the "
+    "warm-up's timed third chunk still decodes)",
+    "interactive_w4": "sessions 16 -> 8, new tokens 64 -> 32",
+    "spec": "runs 2 -> 1, new tokens 300 -> 12", "spec_ring": "runs 2 -> 1, new tokens 300 "
+    "-> 8", "chat": "report tokens 300 -> 52, reply tokens 64 -> 2 (the fourth turn's re-prefill "
+    "still 256 tokens: K3)", "train_flash": "micro-batches 2/4/8 -> 2, runs 3 -> 1",
+    "train_stage1": "batches 2/4/8 -> 8, runs 3 -> 1", "pipeline": "steps 50 -> 4, images "
+    "96 -> 16", "loader": "files 128 -> 32, repeats 2 -> 1"}
+BENCH_NEW = 32
+BENCH_ZERO_OK = {"shared_prefix"}     # a flag's echo: 0 where no prefix is shared
+
+
+def _bench_numbers_ok(value, key=None) -> bool:
+    """Every number in a tool's line finite and positive (booleans, None,
+    strings and BENCH_ZERO_OK's echoes of a 0 flag aside)."""
+    if isinstance(value, dict):
+        return all(_bench_numbers_ok(v, k) for k, v in value.items())
+    if isinstance(value, list):
+        return all(_bench_numbers_ok(v, key) for v in value)
+    if isinstance(value, bool) or value is None or isinstance(value, str):
+        return True
+    return math.isfinite(value) and (value > 0 or (key in BENCH_ZERO_OK and value == 0))
+
+
+def phase_bench(torch, counted):
+    """The measurement entry points at full width (module docstring): each
+    tool's run through its own ``run`` (or ``bench_lora`` / ``bench_stage1``)
+    on the card, its printed lines parsed and checked, the launches of each
+    kernel over it. Returns {tool: launches}."""
+    from tools import (bench_allqa_pass_torch, bench_chat_torch, bench_interactive_torch,
+                       bench_loader_torch, bench_pipeline_torch, bench_qa_pass_torch,
+                       bench_spec_ring_torch, bench_spec_torch, bench_sweep_torch, bench_torch,
+                       bench_train_torch)
+    from radialog_tpu_torch.ops.layers import BF16
+    dev = torch.device("cuda")
+    model = bench_torch.full_model()
+    t0 = time.time()
+    models = bench_torch.build_models(model, dev)
+    params4 = bench_torch.build_serving_params(
+        model.llama, torch.Generator(device=dev).manual_seed(0), bits=4, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    models4 = {**models, "params": params4}
+    runs = {   # each tool: its module (whose parser reads the flags) and its run
+        "bench": (bench_torch, lambda a: bench_torch.run(models, model, bench_torch.Shape(
+            new_tokens=BENCH_NEW, runs=1), dev)),
+        "sweep": (bench_sweep_torch, lambda a: bench_sweep_torch.run(a, models, model, dev)),
+        "sweep_w4": (bench_sweep_torch,
+                     lambda a: bench_sweep_torch.run(a, models4, model, dev)),
+        "sweep_mem": (bench_sweep_torch,
+                      lambda a: bench_sweep_torch.run(a, models, model, dev)),
+        "qa": (bench_qa_pass_torch, lambda a: bench_qa_pass_torch.run(a, models, model, dev)),
+        "allqa": (bench_allqa_pass_torch,
+                  lambda a: bench_allqa_pass_torch.run(a, models, model, dev)),
+        "interactive_int8": (bench_interactive_torch, lambda a: bench_interactive_torch.run(
+            a, models["params"], model, dev)),
+        "interactive_w4": (bench_interactive_torch,
+                           lambda a: bench_interactive_torch.run(a, params4, model, dev)),
+        "spec": (bench_spec_torch, lambda a: bench_spec_torch.run(a, models, model, dev)),
+        "spec_ring": (bench_spec_ring_torch, lambda a: bench_spec_ring_torch.run(
+            a, models["params"], models["lora"], model.llama, BF16, dev)),
+        "chat": (bench_chat_torch, lambda a: bench_chat_torch.run(a, models, model, dev)),
+        "train_flash": (bench_train_torch,
+                        lambda a: bench_train_torch.bench_lora(a, model, dev)),
+        "train_stage1": (bench_train_torch,
+                         lambda a: bench_train_torch.bench_stage1(a, model, dev)),
+        "pipeline": (bench_pipeline_torch, lambda a: bench_pipeline_torch.run(a, dev)),
+        "loader": (bench_loader_torch, lambda a: bench_loader_torch.run(a, dev)),
+    }
+    out = {}
+    for name, (argv, kernels, keys) in BENCH_TOOLS.items():
+        module, run = runs[name]
+        args = module.build_parser().parse_args(argv)
+        _zero(counted)
+        buf = io.StringIO()
+        t1 = time.time()
+        with contextlib.redirect_stdout(buf):
+            run(args)
+        torch.cuda.synchronize()
+        secs = time.time() - t1
+        launches = _read(counted)
+        lines = [json.loads(x) for x in buf.getvalue().splitlines() if x.strip()]
+        got = [set(x) - {"device", "runs_s"} for x in lines]
+        keys_ok = (got == keys if keys is not None else
+                   got[0] == {"n", "jpeg_side", "host_cores", "device_rate_to_beat"}
+                   and all(k <= {"mode", "images_s", "note"} for k in got[1:]))
+        card = smi()
+        ok = (bool(lines) and keys_ok and all(_bench_numbers_ok(x) for x in lines)
+              and all(x["device"] == card for x in lines)
+              and all(launches[k] > 0 for k in kernels))
+        emit("bench", tool=name, argv=argv, cuts=BENCH_CUTS[name], seconds=secs, lines=lines,
+             kernels_expected=list(kernels), launches=launches, keys_ok=keys_ok, ok=ok)
+        if not ok:
+            raise AssertionError(f"bench tool {name}: a line, key, number or launch failed")
+        out[name] = launches
+        bench_torch.free(dev)
+    emit("bench", tools=len(out), build_s=build_s, seconds=time.time() - t0,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, ok=True)
+    del models, models4, params4
+    bench_torch.free(dev)
+    return out
 
 
 def phase_qa(torch, tq8, tfd, tfa, sl):
@@ -2264,8 +2491,8 @@ def phase_eval(torch, pipeline_mod, tq8, tfd, tfa):
     """The evaluation harness at Vicuna-7B width through the port's eval
     command line (apps/evaluate.py main, the root test.py's counterpart):
     synthetic W8A8 weights, int8 KV, image embeddings, the report pass over
-    the first EVAL_STUDIES test studies of tests/fixtures (one batch, 300 new
-    tokens), the batch-1 correction pass (256 new tokens a study), the
+    the first EVAL_STUDIES test studies of tests/fixtures (one batch, EVAL_NEW
+    new tokens), the batch-1 correction pass (256 new tokens a study), the
     binary-QA and all-QA passes, CheXbert labels, the four files. Launches of
     K1, K2 and K3 over the whole run; K3 exactly as models/llama.py
     _use_flash predicts from the prompts that reached generate_texts.
@@ -2309,7 +2536,7 @@ def phase_eval(torch, pipeline_mod, tq8, tfd, tfa):
     k3 = _Kept(tfa.flash_attention_kernel, tfa.flash_attention_plain, state,
                lambda st, i, a: st["corr"] in held_studies and i % 8 == 0)
     counted = {"q8_matmul": k1, "flash_decode_int8": k2, "flash_attention": k3}
-    argv = _eval_argv(["--synthetic", "--int8"], out_dir, EVAL_STUDIES, NEW)
+    argv = _eval_argv(["--synthetic", "--int8"], out_dir, EVAL_STUDIES, EVAL_NEW)
     tq8.q8_matmul_int32, tfd.flash_decode_int8_kernel, tfa.flash_attention_kernel = k1, k2, k3
     try:
         with _eval_pipelines(ev, timed):
@@ -2325,18 +2552,18 @@ def phase_eval(torch, pipeline_mod, tq8, tfd, tfa):
     pipe = made[0]
     held = _eval_holds(torch, counted)
     gens = [c for c in calls if "new" in c]
-    by = {n: [c for c in gens if c["new"] == n] for n in (NEW, ev.CORRECTION_NEW, 10, 30)}
+    by = {n: [c for c in gens if c["new"] == n] for n in (EVAL_NEW, ev.CORRECTION_NEW, 10, 30)}
     k3_want = pipe.llama_cfg.num_layers * sum(_k3_forwards(pipeline_mod, pipe, c["prompts"],
                                                            c["embs"]) for c in gens)
     corr_tokens = [len(pipe.tokenizer(c["prompts"][0])["input_ids"]) for c in by[ev.CORRECTION_NEW]]
     files_ok, files = _eval_outputs(out_dir, results, EVAL_STUDIES)
-    per_pass = {"report": sum(c["s"] for c in by[NEW]),
+    per_pass = {"report": sum(c["s"] for c in by[EVAL_NEW]),
                 "correction_per_study": [c["s"] for c in by[ev.CORRECTION_NEW]],
                 "binary_qa": sum(c["s"] for c in by[10]), "all_qa": sum(c["s"] for c in by[30]),
                 "labels": sum(c["s"] for c in calls if "labels" in c)}
     kinds = {(h["kernel"], h["study"]) for h in held}
     ok = (files_ok and len(gens) == sum(len(x) for x in by.values())
-          and len(by[NEW]) == 1 and len(by[ev.CORRECTION_NEW]) == EVAL_STUDIES
+          and len(by[EVAL_NEW]) == 1 and len(by[ev.CORRECTION_NEW]) == EVAL_STUDIES
           and len(by[10]) == EVAL_STUDIES
           and all(o.startswith(p) for c in gens for o, p in zip(c["out"], c["prompts"]))
           and launches["q8_matmul"] > 0 and launches["flash_decode_int8"] > 0
@@ -2349,7 +2576,8 @@ def phase_eval(torch, pipeline_mod, tq8, tfd, tfa):
                             "binary_qa": per_pass["binary_qa"] / EVAL_STUDIES,
                             "all_qa": per_pass["all_qa"] / EVAL_STUDIES},
          studies=EVAL_STUDIES, argv=argv, launches=launches, k3_predicted=k3_want,
-         report_prompt_tokens=[len(pipe.tokenizer(p)["input_ids"]) for p in by[NEW][0]["prompts"]],
+         report_prompt_tokens=[len(pipe.tokenizer(p)["input_ids"])
+                               for p in by[EVAL_NEW][0]["prompts"]],
          correction_prompt_tokens=corr_tokens,
          correction_prefill_rows=[-(-n // 8) * 8 for n in corr_tokens],
          held_on_the_run_s_inputs=held, metrics=results, ok=ok, **files)
@@ -2359,7 +2587,7 @@ def phase_eval(torch, pipeline_mod, tq8, tfd, tfa):
     # the spec phase runs on this pipeline and these prompts: its batch-1
     # correction loop is the plain run the speculative decoders are put beside
     return launches, {"pipe": made.pop(), "argv": argv,
-                      "report": by[NEW][0], "corrections": by[ev.CORRECTION_NEW]}
+                      "report": by[EVAL_NEW][0], "corrections": by[ev.CORRECTION_NEW]}
 
 
 class _VerifyRecorder:
@@ -2679,7 +2907,7 @@ def phase_spec(torch, te, tq8, tfd, tfa, ev_state):
     report = ev_state["report"]
 
     def report_replay(prompts, img_embs=None, max_new_tokens=None, **kw):
-        assert (list(prompts), max_new_tokens) == (report["prompts"], NEW)
+        assert (list(prompts), max_new_tokens) == (report["prompts"], EVAL_NEW)
         assert torch.equal(img_embs, report["embs"])
         return report["out"]
 
@@ -3157,8 +3385,9 @@ def _tree_bytes(tree) -> int:
 
 
 def _float_report(torch, pipe, counted):
-    """The float report pass: BATCH images, PROMPT-token prompts, NEW greedy
-    tokens with EOS disabled, after a warm-up. Returns (numbers, ok, embs)."""
+    """The float report pass: BATCH images, PROMPT-token prompts,
+    FLOAT_REPORT_NEW greedy tokens with EOS disabled, after a warm-up.
+    Returns (numbers, ok, embs)."""
     from radialog_tpu_torch.decode.engine import default_cache_len
     cfg = pipe.llama_cfg
     _, ids, report_step = _report_batch(torch, pipe)
@@ -3167,13 +3396,13 @@ def _float_report(torch, pipe, counted):
     torch.cuda.reset_peak_memory_stats()
     _zero(counted)
     t0 = time.time()
-    findings, embs, res = report_step(NEW)
+    findings, embs, res = report_step(FLOAT_REPORT_NEW)
     tokens = res.tokens.cpu()
     dt = time.time() - t0
     launches = _read(counted)
-    cache_len = default_cache_len(PROMPT, pipe.decode_params(max_new_tokens=NEW))
-    ok = (tokens.shape == (BATCH, NEW) and int(tokens.min()) >= 0
-          and int(tokens.max()) < cfg.vocab_size and all(res.lengths.cpu() == NEW)
+    cache_len = default_cache_len(PROMPT, pipe.decode_params(max_new_tokens=FLOAT_REPORT_NEW))
+    ok = (tokens.shape == (BATCH, FLOAT_REPORT_NEW) and int(tokens.min()) >= 0
+          and int(tokens.max()) < cfg.vocab_size and all(res.lengths.cpu() == FLOAT_REPORT_NEW)
           and bool(torch.isfinite(embs).all()) and embs.shape == (BATCH, 32, 768)
           and len(findings) == BATCH and all(v == 0 for v in launches.values())
           and isinstance(pipe.llama["layers"], dict)
@@ -3184,8 +3413,8 @@ def _float_report(torch, pipe, counted):
     # whole cache, once
     step_bytes = _tree_bytes({k: v for k, v in pipe.llama.items() if k != "embed"}) + cache_bytes
     numbers = {"reports_per_s": BATCH / dt, "seconds": dt, "batch": BATCH, "prompt": PROMPT,
-               "new_tokens": NEW, "cache_len": cache_len, "launches": launches,
-               "ms_per_token_all_stages": dt / NEW * 1e3, "cache_gb": cache_bytes / 1e9,
+               "new_tokens": FLOAT_REPORT_NEW, "cache_len": cache_len, "launches": launches,
+               "ms_per_token_all_stages": dt / FLOAT_REPORT_NEW * 1e3, "cache_gb": cache_bytes / 1e9,
                "decode_step_bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3,
                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
                "distinct_tokens": int(tokens.unique().numel())}
@@ -3297,7 +3526,7 @@ def _float_eval(torch, pipeline_mod, tfa, counted):
                              lambda new, n: (passes[new], n) if new in passes else None)
     k3 = _Kept(tfa.flash_attention_kernel, tfa.flash_attention_plain, state,
                lambda st, i, a: st["corr"] is not None and i % 8 == 0)
-    argv = _eval_argv(["--synthetic"], out_dir, FLOAT_STUDIES, NEW)
+    argv = _eval_argv(["--synthetic"], out_dir, FLOAT_STUDIES, EVAL_NEW)
     tfa.flash_attention_kernel = k3
     try:
         with _eval_pipelines(ev, timed):
@@ -3313,11 +3542,11 @@ def _float_eval(torch, pipeline_mod, tfa, counted):
     pipe = made[0]
     held = _eval_holds(torch, {"flash_attention": k3})
     gens = [c for c in calls if "new" in c]
-    by = {n: [c for c in gens if c["new"] == n] for n in (NEW, ev.CORRECTION_NEW, 10, 30)}
+    by = {n: [c for c in gens if c["new"] == n] for n in (EVAL_NEW, ev.CORRECTION_NEW, 10, 30)}
     k3_want = pipe.llama_cfg.num_layers * sum(_k3_forwards(pipeline_mod, pipe, c["prompts"],
                                                            c["embs"]) for c in gens)
     files_ok, files = _eval_outputs(out_dir, results, FLOAT_STUDIES)
-    per_pass = {"report": sum(c["s"] for c in by[NEW]),
+    per_pass = {"report": sum(c["s"] for c in by[EVAL_NEW]),
                 "correction": sum(c["s"] for c in by[ev.CORRECTION_NEW]),
                 "binary_qa": sum(c["s"] for c in by[10]), "all_qa": sum(c["s"] for c in by[30]),
                 "labels": sum(c["s"] for c in calls if "labels" in c)}
@@ -3328,7 +3557,7 @@ def _float_eval(torch, pipeline_mod, tfa, counted):
                                  for n in by},
                "held_on_the_run_s_inputs": held, "metrics": results, **files}
     ok = (files_ok and not pipe.cfg.quantize and isinstance(pipe.llama["layers"], dict)
-          and len(gens) == sum(len(x) for x in by.values()) and len(by[NEW]) == 1
+          and len(gens) == sum(len(x) for x in by.values()) and len(by[EVAL_NEW]) == 1
           and len(by[ev.CORRECTION_NEW]) == FLOAT_STUDIES and len(by[10]) == FLOAT_STUDIES
           and all(o.startswith(p) for c in gens for o, p in zip(c["out"], c["prompts"]))
           and launches["flash_attention"] == k3_want > 0
@@ -3512,9 +3741,9 @@ def phase_train(torch, tfa):
 
 
 # the stage1 phase: full width (configs/stage1_pretrain.yaml: batch 32 at 448 px,
-# captions padded to max_txt_len 256), the fixtures cycled to 64 paths, 8 BF16 steps;
+# captions padded to max_txt_len 256), the fixtures cycled to 64 paths, STAGE1_STEPS BF16 steps;
 # the small part's batch, trunk size and caption length (pretrain.py run_mock_raw's)
-STAGE1_BATCH, STAGE1_PATHS, STAGE1_STEPS, STAGE1_PROFILED = 32, 64, 8, 2
+STAGE1_BATCH, STAGE1_PATHS, STAGE1_STEPS, STAGE1_PROFILED = 32, 64, 4, 2   # steps cut from 8
 STAGE1_SMALL_B, STAGE1_SMALL_RESIZE, STAGE1_SMALL_CROP, STAGE1_SMALL_TXT = 4, 72, 64, 16
 # card against CPU (tiny model, FP32, TF32 off): sums in another order, ~1e-6 of
 # a loss and of a gradient leaf's largest entry; FP32 against float64 at full width
@@ -3747,7 +3976,7 @@ def _stage1_full(torch, tb, steps, root):
     all_grad_err = max(_leaf_err(torch, g32, g64).values())
     del runs, g32, g64
 
-    # the timed run: 8 BF16 steps, then 2 under the profiler
+    # the timed run: STAGE1_STEPS BF16 steps, then 2 under the profiler
     tx = make_adamw(1e-4, weight_decay=0.05)
     train_state = steps.TrainState.create(params, tx)
     step = steps.make_stage1_raw_train_step(tx, cfg, policy=BF16, itm_chunks=1)
@@ -4504,7 +4733,8 @@ def phase_datatools(torch, sl, counted):
     (one row per dicom, the walk's order, the header's columns, the sections
     of the formatted reports), create_data --mode RG over tests/fixtures,
     and --mode INS over those fixtures with each train study repeated
-    INS_REPS times, with the slice's Vicuna-7B-width W8A8 pipeline as the
+    INS_REPS times, with ``sl["pipe"]`` (the slice's Vicuna-7B-width W8A8
+    pipeline, or one built as it) as the
     teacher through generate_texts_ring (12 lanes, the int8 ring: K1, and
     K2 only under per-lane intervals, K2') and with --teacher batch through
     generate_texts (K1, and K2 only under the static-slot mask), 64 new
@@ -5905,17 +6135,9 @@ def _fill(torch, spec, dtype):
     return {k: _draw(torch, k, shape, kind, dtype) for k, shape, kind in spec}
 
 
-def _rss_reset():
-    """Reset the peak resident set size (Linux: 5 into clear_refs)."""
-    try:
-        with open("/proc/self/clear_refs", "w") as f:
-            f.write("5")
-    except OSError:
-        pass
-
-
 def _rss_peak_gb() -> float:
-    """The peak resident set size since the last reset, else of the process."""
+    """The process's peak resident set size so far (the ckpt phase runs in a
+    process of its own, so it is the phase's up to the call)."""
     try:
         with open("/proc/self/status") as f:
             for line in f:
@@ -6007,7 +6229,6 @@ def _ckpt_w8a8(torch, pipeline_mod, paths, small, counted):
     from radialog_tpu_torch.apps.pipeline import move_tree
     from radialog_tpu_torch.decode import engine as te
     gc.collect()
-    _rss_reset()
     torch.cuda.synchronize()
     mem0 = torch.cuda.memory_allocated()
     t0 = time.time()
@@ -6112,7 +6333,6 @@ def _ckpt_bf16(torch, pipeline_mod, paths):
     layers 0 and 31 against the checkpoint's fp16 tensors cast to bf16."""
     gc.collect()
     torch.cuda.empty_cache()
-    _rss_reset()
     mem0 = torch.cuda.memory_allocated()
     t0 = time.time()
     pipe = pipeline_mod.RaDialogPipeline(pipeline_mod.PipelineConfig(
@@ -6155,7 +6375,7 @@ def _ckpt_eval(torch, paths, counted):
             "--blip2_checkpoint", str(paths["blip2"]), "--chexbert_checkpoint", str(paths["chexbert"]),
             "--emb_cache", str(paths["emb_cache"]), "--use_embs", "--num_beams", str(CKPT_BEAMS),
             "--do_corr", "--do_cp_bin_qa", "--fixture-dir", "tests/fixtures", "--truncate", "1",
-            "--output_dir", str(out_dir)]
+            "--max_new_tokens", str(EVAL_NEW), "--output_dir", str(out_dir)]
     made, calls, state = [], [], {"corr": None}
     _zero(counted)
     t0 = time.time()
@@ -6167,7 +6387,7 @@ def _ckpt_eval(torch, paths, counted):
     pipe = made[0]
     files_ok, files = _eval_outputs(out_dir, results, 1)
     gens = [c for c in calls if "new" in c]
-    per_pass = {"report_beams": sum(c["s"] for c in gens if c["new"] == NEW),
+    per_pass = {"report_beams": sum(c["s"] for c in gens if c["new"] == EVAL_NEW),
                 "correction": sum(c["s"] for c in gens if c["new"] == ev.CORRECTION_NEW),
                 "binary_qa": sum(c["s"] for c in gens if c["new"] == 10),
                 "labels": sum(c["s"] for c in calls if "labels" in c)}
@@ -6205,7 +6425,6 @@ def _ckpt_train(torch, tfa, root, paths):
                             max_steps=CKPT_TRAIN_STEPS, data_path=str(data), val_set_size=2,
                             use_embs=True, output_dir=str(Path(root) / "lora-out"))
     _zero(counted)
-    _rss_reset()
     t0 = time.time()
 
     def on_step(step, metrics):
@@ -6292,6 +6511,106 @@ def phase_ckpt(torch, pipeline_mod, tq8, tfd, tfa):
             "w4_pack_seconds_per_layer": w4_s}
 
 
+# the ckpt phase, then datatools (on its own W8A8 pipeline, the slice's
+# weights from the same seed), run in a process of their own
+# (``--phase-process ckpt,datatools``), started after bench and waited for
+# before stage1: their disk writes, host reads and host loops overlap the
+# parent's decode phases, whose host loops leave the card idle most of the
+# time. The process holds up to ~16 GB of the card beside their peaks of up
+# to ~47 GB (tptrain beside stage1 and trainers ran out of the card's
+# 80 GB). Its lines follow the phases it ran beside. It is killed at
+# CHILD_TIMEOUT_S from its start
+CHILD_TIMEOUT_S = 900
+CHILD_PHASES = ("ckpt", "datatools")
+
+
+def _child_start(names):
+    """Start the process of the phases ``names``, run in that order;
+    returns what _child_join takes."""
+    name = ",".join(names)
+    root = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(root, "build", "phase_process")
+    os.makedirs(out_dir, exist_ok=True)
+    result, out = (os.path.join(out_dir, f"{name}.{n}") for n in ("json", "log"))
+    for old in (result, out):
+        if os.path.exists(old):
+            os.remove(old)
+    log = open(out, "w")
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--phase-process", name,
+                             result, repr(_START)], stdout=log, cwd=root,
+                            env=dict(os.environ, PYTHONPATH=root))
+    return {"name": name, "proc": proc, "log": log, "result": result, "out": out,
+            "t0": time.time()}
+
+
+def _child_stop(run) -> None:
+    proc = run["proc"]
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+    run["log"].close()
+
+
+def _child_join(run):
+    """Wait for a phase's process (killed at CHILD_TIMEOUT_S from its
+    start), print its lines and return its result; a failure raises (its
+    stderr is this script's)."""
+    proc = run["proc"]
+    try:
+        proc.wait(timeout=max(1.0, CHILD_TIMEOUT_S - (time.time() - run["t0"])))
+    except subprocess.TimeoutExpired:
+        pass
+    _child_stop(run)
+    with open(run["out"]) as f:
+        for line in f:
+            if line.startswith("{"):
+                print(line.rstrip("\n"), flush=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"the {run['name']} phase's process failed (rc {proc.returncode})")
+    with open(run["result"]) as f:
+        return json.load(f)
+
+
+def phase_process(names: str, result: str, start: str) -> int:
+    """The phases ``names`` (comma-separated, of CHILD_PHASES), in the
+    process _child_start starts: the kernels the parent built, the phases'
+    lines on stdout on the parent's clock, {phase: its return value} into
+    ``result``."""
+    global _START
+    _START = float(start)
+    _watchdog()
+    import torch
+    from radialog_tpu_torch.apps import pipeline as pipeline_mod
+    from radialog_tpu_torch.ops import _build
+    from radialog_tpu_torch.ops import flash_attention as tfa
+    from radialog_tpu_torch.ops import flash_decode as tfd
+    from radialog_tpu_torch.ops import q8_matmul as tq8
+    from radialog_tpu_torch.ops.layers import set_precision
+    set_precision()
+    torch.set_num_threads(4)        # the host's other cores run the parent's phases
+    _build.build()
+    out = {}
+    for name in names.split(","):
+        _begin(f"{name} (in its own process)")
+        if name == "ckpt":
+            out[name] = phase_ckpt(torch, pipeline_mod, tq8, tfd, tfa)
+        elif name == "datatools":
+            pipe = pipeline_mod.RaDialogPipeline(pipeline_mod.PipelineConfig(synthetic=True,
+                                                                             seed=0))
+            out[name] = phase_datatools(torch, {"pipe": pipe}, {
+                "q8_matmul": tq8.q8_matmul_int32,
+                "flash_decode_int8": tfd.flash_decode_int8_kernel,
+                "flash_attention": tfa.flash_attention_kernel})
+            del pipe
+        else:
+            raise ValueError(f"no phase {name} runs in a process of its own")
+        gc.collect()
+        torch.cuda.empty_cache()
+    with open(result, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
 def main() -> int:
     try:
         import torch
@@ -6318,6 +6637,8 @@ def main() -> int:
 
     card = smi()
     set_precision()
+    _watchdog()
+    _begin("device")
     t0 = time.time()
     reports = _build.build()
     regs = {n: [ln.strip() for ln in r.splitlines() if "registers" in ln or "spill" in ln]
@@ -6336,42 +6657,24 @@ def main() -> int:
     warm = torch.randn((8192, 8192), device="cuda", dtype=torch.bfloat16)
     timed_ms(lambda: warm @ warm, 50, flush)
     del warm
+    _begin("k1")
     k1 = phase_k1(torch, tq8, flush)
+    _begin("k2")
     k2, k2_ring, k2c = phase_k2(torch, tfd, flush)
+    _begin("k3")
     k3 = phase_k3(torch, tfa, flush)
+    _begin("k4")
     k4 = phase_k4(torch, tq4, flush)
+    _begin("k5")
     k5 = phase_k5(torch, tfa, flush)
+    _begin("tproto")
     t1, t2, t3 = phase_tproto(torch, tfd, tw, flush)
+    _begin("small")
     phase_small(torch, te, pipeline_mod, tq8, tfd, tfa, tq4)
     del flush_buf
     torch.cuda.empty_cache()
+    _begin("slice")
     launches, defer_launches, sl = phase_slice(torch, te, pipeline_mod, tq8, tfd)
-    qa_launches = phase_qa(torch, tq8, tfd, tfa, sl)
-    eval_launches, ev_state = phase_eval(torch, pipeline_mod, tq8, tfd, tfa)
-    gc.collect()
-    torch.cuda.empty_cache()
-    spec_launches = phase_spec(torch, te, tq8, tfd, tfa, ev_state)
-    del ev_state
-    gc.collect()                            # the eval run's pipeline
-    torch.cuda.empty_cache()
-    chat_launches = phase_chat(torch, te, tq8, tfd, tfa, sl)
-    gc.collect()
-    torch.cuda.empty_cache()
-    serve_launches, serve4_launches = phase_serve(torch, tq8, tfd, tfa, tq4, sl)
-    gc.collect()
-    torch.cuda.empty_cache()
-    datatools_launches = phase_datatools(torch, sl, {
-        "q8_matmul": tq8.q8_matmul_int32, "flash_decode_int8": tfd.flash_decode_int8_kernel,
-        "flash_attention": tfa.flash_attention_kernel})
-    del sl                                  # the W8A8 weights make room for the float ones
-    gc.collect()                            # the servers' reference cycles hold their params
-    torch.cuda.empty_cache()
-    float_launches = phase_float(torch, te, pipeline_mod, tq8, tfd, tfa, tq4)
-    gc.collect()                            # the float pipelines make room for the trainer
-    torch.cuda.empty_cache()
-    train_launches = phase_train(torch, tfa)
-    gc.collect()
-    torch.cuda.empty_cache()
     every_kernel = {"q8_matmul": tq8.q8_matmul_int32,
                     "flash_decode_int8": tfd.flash_decode_int8_kernel,
                     "flash_decode_int8_current": tfd.flash_decode_int8_current_kernel,
@@ -6381,9 +6684,53 @@ def main() -> int:
                     "flash_attention_dkv": tfa.flash_attention_dkv_kernel,
                     "q4_matmul": tq4.q4_matmul_acc, "w4_int32_split": tw.w4_int32_split,
                     "w4_int32": tw.w4_int32}
+    _begin("bench")
+    bench_launches = phase_bench(torch, every_kernel)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _begin("ckpt and datatools (their own process, beside the phases up to stage1)")
+    child = _child_start(CHILD_PHASES)
+    try:
+        _begin("qa")
+        qa_launches = phase_qa(torch, tq8, tfd, tfa, sl)
+        _begin("eval")
+        eval_launches, ev_state = phase_eval(torch, pipeline_mod, tq8, tfd, tfa)
+        gc.collect()
+        torch.cuda.empty_cache()
+        _begin("spec")
+        spec_launches = phase_spec(torch, te, tq8, tfd, tfa, ev_state)
+        del ev_state
+        gc.collect()                            # the eval run's pipeline
+        torch.cuda.empty_cache()
+        _begin("chat")
+        chat_launches = phase_chat(torch, te, tq8, tfd, tfa, sl)
+        gc.collect()
+        torch.cuda.empty_cache()
+        _begin("serve")
+        serve_launches, serve4_launches = phase_serve(torch, tq8, tfd, tfa, tq4, sl)
+        gc.collect()
+        torch.cuda.empty_cache()
+        del sl                                  # the W8A8 weights make room for the float ones
+        gc.collect()                            # the servers' reference cycles hold their params
+        torch.cuda.empty_cache()
+        _begin("float")
+        float_launches = phase_float(torch, te, pipeline_mod, tq8, tfd, tfa, tq4)
+        gc.collect()                            # the float pipelines make room for the trainer
+        torch.cuda.empty_cache()
+        _begin("train")
+        train_launches = phase_train(torch, tfa)
+        gc.collect()
+        torch.cuda.empty_cache()
+        _begin("ckpt and datatools: waiting for their process")
+        done = _child_join(child)
+    finally:
+        _child_stop(child)
+    ckpt, datatools_launches = done["ckpt"], done["datatools"]
+    _begin("stage1")
     stage1_launches = phase_stage1(torch, pipeline_mod, every_kernel)
     gc.collect()
     torch.cuda.empty_cache()
+    _begin("trainers")
     trainers_launches = phase_trainers(torch, every_kernel)
     gc.collect()
     torch.cuda.empty_cache()
@@ -6395,7 +6742,9 @@ def main() -> int:
     if torch.cuda.device_count() >= 2:
         started["nccl2"] = _tp_start("nccl2", 2, "nccl", ("int8_prefix",))
     try:
+        _begin("quality")
         quality, w4_ref = phase_quality(torch, every_kernel)
+        _begin("tp")
         tp_launches = phase_tp(torch, started, quality, w4_ref)
     finally:
         for _, procs in started.values():
@@ -6407,10 +6756,8 @@ def main() -> int:
     del w4_ref
     gc.collect()
     torch.cuda.empty_cache()
+    _begin("tptrain")
     tptrain_launches = phase_tptrain(torch, every_kernel)
-    gc.collect()
-    torch.cuda.empty_cache()
-    ckpt = phase_ckpt(torch, pipeline_mod, tq8, tfd, tfa)
 
     kernels = [
         {"name": "q8_matmul", "route": "cuda", "source": "radialog_tpu_torch/csrc/q8_matmul.cu",
@@ -6546,6 +6893,17 @@ def main() -> int:
          "replaces": "tools/microbench_w4.py:153", **t3,
          "work": "as w4_int32_split with whole activation rows"},
     ]
+    # the bench phase's: K2's counter splits by mode, the ring's per-lane
+    # intervals (K2') in the int8 ring runs, the static slot elsewhere
+    ring_tools = {"interactive_int8", "spec_ring"}
+    for k in kernels:
+        counter = {"flash_decode_int8_intervals": "flash_decode_int8"}.get(k["name"], k["name"])
+        tools = [t for t in bench_launches
+                 if counter != "flash_decode_int8"
+                 or (t in ring_tools) == (k["name"] == "flash_decode_int8_intervals")]
+        k["launches_bench"] = sum(bench_launches[t][counter] for t in tools)
+        k["launches_bench_by_tool"] = {t: bench_launches[t][counter] for t in tools
+                                       if bench_launches[t][counter]}
     for k in kernels:       # the stage1 and trainers phases' launches (the intervals mode is K2's counter)
         counter = {"flash_decode_int8_intervals": "flash_decode_int8"}.get(k["name"], k["name"])
         k["launches_stage1"] = stage1_launches[counter]
@@ -6652,6 +7010,8 @@ if __name__ == "__main__":
         sys.exit(_tp_rank(sys.argv[2]))
     if sys.argv[1:2] == ["--tptrain-rank"] and len(sys.argv) == 3:
         sys.exit(_tptrain_rank(sys.argv[2]))
+    if sys.argv[1:2] == ["--phase-process"] and len(sys.argv) == 5:
+        sys.exit(phase_process(*sys.argv[2:]))
     if sys.argv[1:2] == ["--time-report"]:
         sys.exit(time_report(sys.argv[2:]))
     if sys.argv[1:2] == ["--time-report-one"] and len(sys.argv) == 3:

@@ -19,6 +19,10 @@ bf16 cache) with every weight bridged from JAX's, REPLY new tokens a turn.
     the root demo.py's on the same inputs; ``python -m
     radialog_tpu_torch.apps.demo --cli --mock --device cpu`` runs a
     conversation from stdin.
+
+Every image turn of this module loads the same PNG, so each pipeline
+classifies and embeds it once and later turns reuse that result
+(``_once_per_image``).
 """
 import copy
 import io
@@ -69,13 +73,33 @@ class RoundTrip(WhitespaceTokenizer):
                         if not (skip_special_tokens and int(i) == self.eos_token_id))
 
 
+def _once_per_image(pipe):
+    """The pipeline's ``classify_findings`` and ``embed_images``, each run
+    once per distinct input for the whole module: every session of these
+    tests loads the same PNG, and each image turn would otherwise run the
+    classifier's and BioViL-T's ResNet-50 on it again on both sides. A
+    repeated call returns a copy of the first call's result."""
+    for name in ("classify_findings", "embed_images"):
+        real, seen = getattr(pipe, name), {}
+
+        def once(images, *args, _real=real, _seen=seen, **kw):
+            arr = np.asarray(images.cpu() if torch.is_tensor(images) else images)
+            key = (arr.dtype.str, arr.shape, arr.tobytes(), repr(args), repr(sorted(kw.items())))
+            if key not in _seen:
+                _seen[key] = _real(images, *args, **kw)
+            out = _seen[key]
+            return out.clone() if torch.is_tensor(out) else copy.deepcopy(out)
+        setattr(pipe, name, once)
+    return pipe
+
+
 @pytest.fixture(scope="module")
 def pipelines():
     jp = jpipe.RaDialogPipeline(jpipe.PipelineConfig(mock=True, seed=0, max_new_tokens=REPLY))
     tp = RaDialogPipeline(PipelineConfig(mock=True, quantize=False, device="cpu", seed=0,
                                          max_new_tokens=REPLY))
     trees = {n: jax.tree_util.tree_map(np.array, getattr(jp, n)) for n in TREES}
-    return jp, bridge.pipeline_weights(tp, trees)
+    return _once_per_image(jp), _once_per_image(bridge.pipeline_weights(tp, trees))
 
 
 @pytest.fixture(scope="module")

@@ -11,7 +11,8 @@ so here, at each seed:
   * the JAX mock pipeline's LLM and CheXbert weights (quantize=True: the
     same keys, ``llama_init``, ``quantize_llama_host``, ``lora_init``,
     ``chexbert_init``; checked equal to the pipeline's at seed 0) go
-    through the bridge into the port's mock pipeline;
+    through the bridge into the port's mock pipeline (one for the module:
+    each seed replaces these weights, and no other weight of it is read);
   * the port's ``run_eval`` builds the three correction prompts of the
     fixtures' first 3 studies (its report pass of 8 tokens with image
     embeddings, CheXbert labels and ``correction_prompts``, each held equal
@@ -89,7 +90,12 @@ def setting():
                        sectioned_csv=str(FIXTURES / "sectioned.csv"),
                        chexpert_csv=str(FIXTURES / "chexpert.csv"),
                        predicted_findings_json=str(FIXTURES / "preds.json"))
-    yield jp.llama_cfg, jp.chexbert_cfg, ReportGenData(paths, truncate=STUDIES).records()
+    # one port pipeline for every seed: each case puts its seed's LLM, LoRA
+    # and CheXbert weights in; nothing else of it is read here (the report
+    # pass takes the mock embeddings and the fixtures' predicted findings)
+    tp = RaDialogPipeline(PipelineConfig(mock=True, device="cpu", seed=0))
+    yield (jp.llama_cfg, jp.chexbert_cfg, ReportGenData(paths, truncate=STUDIES).records(),
+           tp)
     os.environ.pop("RADIALOG_FLASH_DECODE_FORCE", None)
     torch.set_num_threads(threads)
 
@@ -145,9 +151,13 @@ def _correction_prompts(tp, records, out_dir):
         return real(prompts, img_embs=img_embs, max_new_tokens=max_new_tokens, **kw)
     tp.generate_texts = generate_texts
     cfg = tp.llama_cfg
-    tev.run_eval(tp, records, tev.EvalOptions(use_embs=True, do_corr=True,
-                                              max_new_tokens=REPORT_NEW, output_dir=str(out_dir)),
-                 emb_provider=tev.mock_emb_provider(cfg.num_img_tokens, cfg.qformer_dim))
+    try:
+        tev.run_eval(tp, records, tev.EvalOptions(use_embs=True, do_corr=True,
+                                                  max_new_tokens=REPORT_NEW,
+                                                  output_dir=str(out_dir)),
+                     emb_provider=tev.mock_emb_provider(cfg.num_img_tokens, cfg.qformer_dim))
+    finally:
+        del tp.generate_texts
     return turns
 
 
@@ -167,9 +177,8 @@ def _port_logits(tp, tok, lens, embs, cache_len, forced):
 
 @pytest.mark.parametrize("seed", SEEDS)
 def test_correction_logits_match_jax_at_every_seed(setting, seed, tmp_path):
-    cfg, bert_cfg, records = setting
+    cfg, bert_cfg, records, tp = setting
     qp, lora, chexbert = _jax_weights(seed, cfg, bert_cfg)
-    tp = RaDialogPipeline(PipelineConfig(mock=True, device="cpu", seed=seed))
     tp.llama = bridge.llama_serving(tll.packed_tree(qp), tp.llama_cfg, device="cpu")
     tp.lora = bridge.lora(jax.tree_util.tree_map(np.asarray, lora), device="cpu")
     tp.chexbert = bridge.chexbert(jax.tree_util.tree_map(np.asarray, chexbert), device="cpu")

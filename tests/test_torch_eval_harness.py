@@ -30,8 +30,14 @@ What is held, and how:
     test.py's ``main``, each given these pipelines, print the same lines and
     write the same files. JAX's generate_texts answers there from the calls recorded in
     the run above (the same arguments, asserted), so its decode runs once
-    in this file.
+    in this file; so does the port's, whose outputs of the run above answer
+    its calls there.
+
+The port's own decode of a correction turn keeps its logits; where it fed
+exactly JAX's tokens (its greedy picks are JAX's at every step), those are
+the teacher-forced logits, and only a turn that parts is forced anew.
 """
+import contextlib
 import importlib.util
 import json
 import os
@@ -129,19 +135,54 @@ class _Recording:
 class _Port:
     """The port's generate_texts, held call by call against JAX's recorded
     ones: the same arguments; its own output kept; JAX's texts passed on
-    downstream for the correction turns (held by teacher forcing)."""
+    downstream for the correction turns (held by teacher forcing). Given
+    ``own`` (an earlier run's outputs for the same calls), it answers from
+    them instead of decoding again. With ``logits``, each call's prefill
+    and decode-step logits of a batch of one are kept there, a list a call."""
 
-    def __init__(self, pipe, calls):
-        self.real, self.calls, self.i, self.own = pipe.generate_texts, calls, 0, []
+    def __init__(self, pipe, calls, own=None, logits=None):
+        self.real, self.calls, self.i = pipe.generate_texts, calls, 0
+        self.replay, self.own, self.logits = own, [], logits
 
     def __call__(self, prompts, img_embs=None, max_new_tokens=None, **kw):
         want = self.calls[self.i]
         self.i += 1
         assert (list(prompts), max_new_tokens, kw) == want[:1] + want[2:4]
         np.testing.assert_array_equal(_np(img_embs), want[1])
-        out = self.real(prompts, img_embs=img_embs, max_new_tokens=max_new_tokens, **kw)
+        if self.replay is not None:
+            out = self.replay[self.i - 1]
+        elif self.logits is not None:
+            self.logits.append([])
+            with _kept_logits(self.logits[-1]):
+                out = self.real(prompts, img_embs=img_embs, max_new_tokens=max_new_tokens, **kw)
+        else:
+            out = self.real(prompts, img_embs=img_embs, max_new_tokens=max_new_tokens, **kw)
         self.own.append(out)
         return want[4] if max_new_tokens == tev.CORRECTION_NEW else out
+
+
+@contextlib.contextmanager
+def _kept_logits(kept):
+    """The engine's ``prefill`` and ``decode_step`` for the block, each
+    batch-of-one call's logits (V,) appended to ``kept`` in call order."""
+    real_prefill, real_step = te.prefill, te.decode_step
+
+    def prefill(*args, **kw):
+        cache, logits = real_prefill(*args, **kw)
+        if logits.shape[0] == 1:
+            kept.append(logits[0].clone())
+        return cache, logits
+
+    def decode_step(*args, **kw):
+        logits = real_step(*args, **kw)
+        if logits.shape[0] == 1:
+            kept.append(logits[0].clone())
+        return logits
+    te.prefill, te.decode_step = prefill, decode_step
+    try:
+        yield
+    finally:
+        te.prefill, te.decode_step = real_prefill, real_step
 
 
 @pytest.fixture(scope="module")
@@ -157,14 +198,15 @@ def runs(pipelines, tmp_path_factory):
                            emb_provider=provider)
     finally:
         del jp.generate_texts
-    tp.generate_texts = port = _Port(tp, rec.calls)
+    logits = []
+    tp.generate_texts = port = _Port(tp, rec.calls, logits=logits)
     try:
         got = tev.run_eval(tp, trec, tev.EvalOptions(output_dir=str(root / "port"), **OPTS),
                            emb_provider=provider)
     finally:
         del tp.generate_texts
     return {"ref": ref, "got": got, "root": root, "calls": rec.calls, "own": port.own,
-            "provider": provider}
+            "provider": provider, "logits": logits}
 
 
 def test_run_eval_calls_the_pipeline_as_jax(runs):
@@ -228,16 +270,31 @@ def _forced_verify_margins(tp, prompt, embs, forced, k=4):
     return margins
 
 
+def _own_margins(kept, forced):
+    """``_forced_margins`` from the logits the port's own decode of the turn
+    kept (``_kept_logits``: the prefill's, then each decode step's), where
+    that decode fed exactly JAX's tokens ``forced``: its greedy pick at every
+    step is JAX's token, and the prefill and the decode steps are the calls
+    ``_forced_margins`` makes, with the same arguments. None where it
+    parted from them (or stopped early): then the turn is forced anew."""
+    if len(kept) < len(forced) or any(int(torch.argmax(kept[i])) != t
+                                      for i, t in enumerate(forced)):
+        return None
+    return [float(kept[i].max() - kept[i][t]) for i, t in enumerate(forced)]
+
+
 def test_correction_turns_differ_from_jax_only_at_near_ties(runs, pipelines):
     _, tp = pipelines
     equal, worst = 0, 0.0
-    for c, own in zip(runs["calls"], runs["own"]):
+    for c, own, kept in zip(runs["calls"], runs["own"], runs["logits"]):
         if c[2] != tev.CORRECTION_NEW:
             continue
         (prompt,), embs, (forced,) = c[0], c[1], c[5]
         equal += own == c[4]
         assert len(forced) > 200
-        margins = _forced_margins(tp, prompt, embs, forced)
+        margins = _own_margins(kept, forced)
+        if margins is None:
+            margins = _forced_margins(tp, prompt, embs, forced)
         worst = max(worst, max(margins))
         assert max(margins) < TIE, (int(np.argmax(margins)), max(margins))
     assert equal >= 2, equal
@@ -265,7 +322,7 @@ def _root_test_py():
 def test_cli_matches_root_test_py(runs, pipelines, monkeypatch, capsys, tmp_path):
     jp, tp = pipelines
     jp.generate_texts = _Recording(jp, runs["calls"])
-    tp.generate_texts = _Port(tp, runs["calls"])
+    tp.generate_texts = _Port(tp, runs["calls"], own=runs["own"])
     monkeypatch.setattr(jpipe, "RaDialogPipeline", lambda cfg: jp)
     monkeypatch.setattr(tev, "RaDialogPipeline", lambda cfg: tp)
     try:

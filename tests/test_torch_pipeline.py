@@ -202,6 +202,12 @@ def test_mock_label_reports():
     assert np.isnan(labels[:, 13]).any() or (labels[:, 13] == 1).any()
 
 
+BENCH_TOOLS = ("bench_torch", "bench_sweep_torch", "bench_qa_pass_torch",
+               "bench_allqa_pass_torch", "bench_interactive_torch", "bench_train_torch",
+               "bench_spec_torch", "bench_spec_ring_torch", "bench_chat_torch",
+               "spec_acceptance_torch", "bench_pipeline_torch", "bench_loader_torch")
+
+
 def test_entry_points_default_to_the_card():
     """Every entry point that makes or moves parameters or tensors runs on
     the card unless the caller asks for the CPU."""
@@ -218,9 +224,17 @@ def test_entry_points_default_to_the_card():
            SpecRingBatcher.__init__, SpecCompactBatcher.__init__, InteractiveSession.__init__,
            bridge.llama_serving, bridge.llama, bridge.lora, bridge.biovil_t,
            bridge.qformer, bridge.chexpert, bridge.chexbert]
+    from tools import bench_torch
+    fns.append(bench_torch.build_serving_params)
     for fn in fns:
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
     assert PipelineConfig().device == "cuda"
+    # the measurement entry points (tools/bench_torch.py and the other
+    # tools/bench_*_torch.py, spec_acceptance_torch.py): --device cuda
+    import importlib
+    for name in BENCH_TOOLS:
+        parser = importlib.import_module(f"tools.{name}").build_parser()
+        assert parser.get_default("device") == "cuda", name
 
 
 def test_port_imports_no_jax():
@@ -248,7 +262,8 @@ def test_port_imports_no_jax():
             "create_sections.py", "create_data.py", "mesh.py", "tp_serving.py", "tp_ring.py",
             "measure_kv_logit_err_torch.py", "measure_quant_torch.py",
             "measure_kv_int8_torch.py", "tp_cards_torch.py", "torch_tp_ranks.py",
-            "partition.py", "collectives.py", "dryrun.py"} <= \
+            "partition.py", "collectives.py", "dryrun.py",
+            *(f"{name}.py" for name in BENCH_TOOLS)} <= \
         {f.name for f in files}
     for f in files:
         for node in ast.walk(ast.parse(f.read_text())):
