@@ -271,7 +271,14 @@ each; any failing phase exits non-zero:
           mean and variance at ResNet-50 widths, LayerNorm at 768, RMSNorm
           at 4096: ulps card against CPU, the card's own mean against an
           IEEE division of its sum, recorded; the outputs within NORM_Y_TOL
-          and dropout's division bitwise, held); full width: the
+          and dropout's division bitwise, held); the softmax audit
+          (softmax and log-softmax at each site's path shape: mha at the
+          float decode, mha_shared_prefix at the report prefill, the int8
+          verify, the sampling nucleus, beams, the LoRA, Q-Former, ITC, ITM
+          and CheXbert losses: ulps of the softmax alone card against CPU,
+          the kept nuclei and beam orders apart, recorded; each site's
+          output within SOFTMAX_TOL and the sampling temperature's division
+          bitwise, held); full width: the
           classifier (ResNet-50 trunk, 488 px, batch 32, FP32) and CheXbert
           (BERT-base, 16 x 512, FP32, dropout on), 2 warm and 5 timed steps
           and 1 profiled on one batch each (s/step, images or reports/s,
@@ -324,9 +331,9 @@ each; any failing phase exits non-zero:
           the collectives a micro-step issues and their ms
 
 
-  ckpt    (in a process of its own with datatools, started after bench
-          and waited for before stage1: CHILD_TIMEOUT_S; their lines are
-          printed then)
+  ckpt    (in a process of its own with datatools and warmup, started
+          after bench and waited for before stage1: CHILD_TIMEOUT_S; their
+          lines are printed then)
           checkpoints on disk at full size, loaded back through the port's
           loaders (ROADMAP queue 1 item 3) with both tokenizer loaders
           replaced by the WhitespaceTokenizer at the Vicuna layout: Vicuna-7B
@@ -349,6 +356,19 @@ each; any failing phase exits non-zero:
           the trainer from the files (int8 base, the adapter, flash, 2
           micro-steps: K3, K5a, K5b); pack_q4's seconds for the o_proj and by
           weights for a layer
+  warmup  (in that process after datatools) cold and warm boot:
+          tools/bench_warmup_torch.py at full width (Vicuna-7B W8A8, bf16
+          LoRA and session cache, --max-new 32: WARMUP_CUTS), each run a
+          process of its own with its launches counted there (--warmup-tool):
+          cold with --cache-dir an empty directory under build/ (removed
+          after), warm with the default build/kernels/. Held: each line has
+          the JAX tool's keys and device, every number finite and positive,
+          the card's name and power limit; the cold directory empty before
+          and holding one library for each kernel the run loaded after; the
+          default directory's listing unchanged by the warm run; K1 launched
+          in both. Recorded: each run's seconds, the card's free memory
+          before, the cold warm-up's seconds over the warm one's (nvcc's
+          share)
 
 ``python3 chip_smoke.py --time-report ROOT [ROOT ...]`` runs only the slice
 phase's report batch, of each checkout at ROOT in turn (its own package and
@@ -4162,6 +4182,18 @@ NORM_LN_SHAPE, NORM_RMS_SHAPE = (BERT_BATCH, BERT_T, 768), (56, 128, 4096)
 # the norms' outputs card against CPU: 5x the largest of PR 16's readings,
 # 1.9e-6 (LayerNorm) and 1.4e-6 (BatchNorm), as the card-only tests hold them
 NORM_Y_TOL = 1e-5
+# the softmax audit's bars, card against CPU, each site's function output
+# (the losses relative to their value): 4x the first reading on an H100
+# 80GB HBM3 at 700 W, where it was not 0: mha at the float decode 9.8e-4 and
+# at the report prefill 3.9e-3 (one bf16 step of an output: the sums of
+# exp and of p . v round per device), beam's log-probabilities 2.9e-6, the
+# LoRA loss 1.3e-7, ITM's weights 6.0e-8. Where the reading was 0 the bar
+# is that of the same kind of site: the int8 verify's bf16 output mha's at
+# the decode, the Q-Former, ITC and CheXbert losses the LoRA loss's. The
+# nucleus' kept logits are the tempered logits themselves: bitwise
+SOFTMAX_TOL = {"mha_float_decode": 3.9e-3, "mha_shared_prefix_report": 1.6e-2,
+               "int8_verify": 3.9e-3, "top_p": 0.0, "beam": 1.2e-5, "lora_ce": 5.1e-7,
+               "qformer_lm": 5.1e-7, "itc": 5.1e-7, "itm_weights": 2.4e-7, "chexbert": 5.1e-7}
 REPORTS_LABELED = 16
 
 
@@ -4388,6 +4420,148 @@ def _norms_audit(torch, dev="cuda"):
     return out, held
 
 
+def _ulp_stats(torch, a, b, dev="cuda"):
+    """Distances in f32 ulps between two f32 tensors of one shape (on the
+    card): the largest, its 99th percentile and the entries that differ."""
+    def ordered(x):
+        i = x.detach().float().contiguous().to(dev).view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    d = (ordered(a) - ordered(b)).abs().flatten()
+    counts = torch.bincount(d.clamp(max=1 << 20))
+    q99 = int(torch.searchsorted(counts.cumsum(0), math.ceil(0.99 * d.numel())))
+    return {"max_ulps": int(d.max()), "q99_ulps": q99, "entries_apart": int((d != 0).sum()),
+            "entries": d.numel()}
+
+
+def _softmax_audit(torch, dev="cuda"):
+    """Softmax and log-softmax on the card against the CPU (ROADMAP queue
+    3), at the shapes of the paths that reach each site, from seeded
+    inputs on the host: each site's softmax alone on the same f32 scores
+    (ulps: the largest, the 99th percentile, the entries apart), and the
+    site's function on the same inputs (its largest absolute error, relative
+    for a loss, held within SOFTMAX_TOL); for sampling also the rows whose
+    kept nucleus differs, for beams the rows whose top-k order differs.
+    Held as well: the sampling temperature's division (``sampling_logits``
+    through ``div_scalar``) bitwise the CPU's, beside the count of entries
+    the card's own division by the Python scalar leaves apart. The losses'
+    divisions of a sum by a count are means, which cannot be bitwise
+    across devices (the norms audit): they stay."""
+    import torch.nn.functional as F
+    from radialog_tpu_torch.decode import engine as te
+    from radialog_tpu_torch.models import blip2 as tb
+    from radialog_tpu_torch.models import llama as tl
+    from radialog_tpu_torch.models.qformer import lm_loss
+    from radialog_tpu_torch.ops import attention as ta
+    from radialog_tpu_torch.train.chexbert_train import chexbert_loss
+    from radialog_tpu_torch.train.steps import IGNORE_INDEX, masked_ce
+    g = torch.Generator().manual_seed(31)
+    out, held = {}, True
+
+    def on(x):
+        if torch.is_tensor(x):
+            return x.to(dev)
+        return type(x)(on(t) for t in x) if isinstance(x, (list, tuple)) else x
+
+    def site(name, op_in, op, fn_args, fn, rel=False):
+        """Record the softmax alone on ``op_in``, hold ``fn`` on ``fn_args``
+        (where both outputs are finite: the nucleus' filtered entries are
+        NEG_INF)."""
+        nonlocal held
+        y = fn(*fn_args)
+        yc = fn(*(on(a) for a in fn_args)).cpu()
+        both = (y > ta.NEG_INF) & (yc > ta.NEG_INF)
+        e = float((yc.double() - y.double()).abs()[both].max())
+        if rel:
+            e /= float(y.double().abs().max())
+        ok = e <= SOFTMAX_TOL[name]
+        held &= ok
+        out[name] = {**_ulp_stats(torch, op(op_in.to(dev)), op(op_in), dev),
+                     "rel_err" if rel else "max_abs_err": e, "tol": SOFTMAX_TOL[name],
+                     "held": ok}
+        return y, yc
+
+    def randn(*shape, std=1.0):
+        return torch.randn(shape, generator=g) * std
+
+    soft = lambda x: torch.softmax(x, dim=-1)           # noqa: E731
+    logsoft = lambda x: torch.log_softmax(x, dim=-1)    # noqa: E731
+    h, d = 32, 128
+    # ops/attention.py mha: the float report pass's decode step, 56 lanes
+    # over 448 slots of the bf16 cache, 160-448 live
+    lens = torch.randint(160, 449, (56,), generator=g)
+    bias = torch.where(torch.arange(448)[None] < lens[:, None], 0.0, ta.NEG_INF)[:, None, None]
+    q, k, v = (randn(*sh).bfloat16() for sh in ((56, 1, h, d), (56, 448, h, d),
+                                                (56, 448, h, d)))
+    site("mha_float_decode", randn(56, h, 1, 448) + bias, soft, (q, k, v, bias), ta.mha)
+    # mha_shared_prefix: the report prefill, 56 lanes of 80 tokens after
+    # the 48 shared ones, causal within the lanes' own rows
+    q, k1, v1 = (randn(56, 80, h, d).bfloat16() for _ in range(3))
+    k0, v0 = (randn(48, h, d).bfloat16() for _ in range(2))
+    causal = ta.causal_mask_bias(80, 80)
+    site("mha_shared_prefix_report", randn(56, h, 80, 128), soft,
+         (q, k0, v0, k1, v1, causal), ta.mha_shared_prefix)
+    # models/llama.py _attention_int8_verify: a batch-1 verify block of
+    # k + 1 = 5 rows over 1,280 slots of the int8 cache
+    s = VERIFY_S
+    cache = (torch.randint(-127, 128, (1, 1, s, h * d), generator=g, dtype=torch.int8),
+             torch.randint(-127, 128, (1, 1, s, h * d), generator=g, dtype=torch.int8),
+             (torch.rand(1, 1, s, h, generator=g) * 0.02 + 0.005).bfloat16(),
+             (torch.rand(1, 1, s, h, generator=g) * 0.02 + 0.005).bfloat16())
+    vbias = ta.causal_mask_bias(5, s, offset=s - 5)
+    site("int8_verify", randn(1, h, 5, s, std=3.0), soft,
+         (randn(1, 5, h, d).bfloat16(), cache, vbias),
+         lambda q_, c_, b_: tl._attention_int8_verify(q_, tl.KVCache(*c_), 0, b_, d))
+    # decode/engine.py sampling: the nucleus over the report batch's logits
+    # (56 x 32,001) at temperature 0.7, top_p 0.9
+    logits = randn(56, 32001, std=3.0)
+    dp = te.DecodeParams(do_sample=True, temperature=0.7, top_p=0.9)
+    sorted_logits = torch.sort(logits / 0.7, dim=-1, descending=True).values
+    y, yc = site("top_p", sorted_logits, soft, (logits, dp), te.sampling_logits)
+    out["top_p"]["rows_kept_set_apart"] = int(
+        ((yc > ta.NEG_INF) != (y > ta.NEG_INF)).any(-1).sum())
+    # the temperature's division: IEEE on both (div_scalar), and the card's
+    # own product with the reciprocal for the record
+    native = int(((logits.to(dev) / 0.7).cpu() != logits / 0.7).sum())
+    bitwise = torch.equal(te.sampling_logits(logits.to(dev), te.DecodeParams(
+        do_sample=True, temperature=0.7)).cpu(), te.sampling_logits(
+        logits, te.DecodeParams(do_sample=True, temperature=0.7)))
+    held &= bitwise
+    out["temperature_division"] = {"bitwise": bitwise, "native_division_entries_apart": native}
+    # decode/beam.py: log-softmax over the vocabulary, 2 prompts x 4 beams
+    beam_logits = randn(8, 32001, std=3.0)
+    y, yc = site("beam", beam_logits, logsoft, (beam_logits,), logsoft)
+    out["beam"]["rows_topk_order_apart"] = int(
+        (torch.topk(yc, 4, dim=-1).indices != torch.topk(y, 4, dim=-1).indices)
+        .any(-1).sum())
+    # train/steps.py masked_ce (F.cross_entropy): the LoRA micro-batch, 2 x
+    # 600 tokens, the first 100 of each prompt masked
+    lora_logits = randn(2, 600, 32001, std=3.0)
+    labels = torch.randint(0, 32001, (2, 600), generator=g)
+    labels[:, :100] = IGNORE_INDEX
+    site("lora_ce", lora_logits[:, :-1].reshape(-1, 32001), logsoft, (lora_logits, labels),
+         masked_ce, rel=True)
+    # models/qformer.py lm_loss: stage 1's captions, 32 x 128 text tokens
+    # over BERT's 30,522 words
+    qf_logits = randn(32, 128, 30522, std=3.0)
+    qf_labels = torch.randint(0, 30522, (32, 128), generator=g)
+    qf_labels[:, 100:] = -100
+    site("qformer_lm", qf_logits, logsoft, (qf_logits, qf_labels), lm_loss, rel=True)
+    del lora_logits, qf_logits
+    # models/blip2.py: ITC's smoothed cross entropy over the (32, 32)
+    # similarities, and the softmax weights of the hard negatives
+    sim = randn(32, 32, std=10.0)
+    targets = torch.arange(32)
+    site("itc", sim, logsoft, (sim, targets, 0.1), tb._smoothed_ce, rel=True)
+    site("itm_weights", sim, soft, (sim,), soft)
+    # train/chexbert_train.py: 13 four-way heads and one two-way head, 16 reports
+    heads = [randn(16, 4, std=2.0) for _ in range(13)] + [randn(16, 2, std=2.0)]
+    cb_labels = torch.cat([torch.randint(0, 4, (16, 13), generator=g),
+                           torch.randint(0, 2, (16, 1), generator=g)], dim=1)
+    site("chexbert", torch.cat(heads[:13]), logsoft, (heads, cb_labels), chexbert_loss,
+         rel=True)
+    return out, held
+
+
 def _timed_steps(torch, run_step, n_warm, n_timed):
     """n_warm + n_timed steps of ``run_step() -> loss`` (synchronized), then
     one under torch.profiler: (losses, seconds of each timed step, device
@@ -4573,6 +4747,10 @@ def phase_trainers(torch, counted):
     t0 = time.time()
     audit, held = _norms_audit(torch)
     emit("trainers", part="norms_audit", seconds=time.time() - t0, **audit, ok=held)
+    t0 = time.time()
+    softmax, soft_held = _softmax_audit(torch)
+    held &= soft_held
+    emit("trainers", part="softmax_audit", seconds=time.time() - t0, **softmax, ok=soft_held)
     gc.collect()
     torch.cuda.empty_cache()
     cls = _classifier_full(torch)
@@ -6511,17 +6689,145 @@ def phase_ckpt(torch, pipeline_mod, tq8, tfd, tfa):
             "w4_pack_seconds_per_layer": w4_s}
 
 
+def _kernel_counters():
+    """Every kernel wrapper with a launch counter, by the kernels line's names."""
+    from radialog_tpu_torch.ops import flash_attention as tfa
+    from radialog_tpu_torch.ops import flash_decode as tfd
+    from radialog_tpu_torch.ops import q4_matmul as tq4
+    from radialog_tpu_torch.ops import q8_matmul as tq8
+    from radialog_tpu_torch.ops import w4_colscale as tw
+    return {"q8_matmul": tq8.q8_matmul_int32,
+            "flash_decode_int8": tfd.flash_decode_int8_kernel,
+            "flash_decode_int8_current": tfd.flash_decode_int8_current_kernel,
+            "flash_decode_int8_fused": tfd.flash_decode_int8_fused_kernel,
+            "flash_attention": tfa.flash_attention_kernel,
+            "flash_attention_dq": tfa.flash_attention_dq_kernel,
+            "flash_attention_dkv": tfa.flash_attention_dkv_kernel,
+            "q4_matmul": tq4.q4_matmul_acc, "w4_int32_split": tw.w4_int32_split,
+            "w4_int32": tw.w4_int32}
+
+
+# the warmup phase (after datatools, in their process): cold boot is a
+# process's boot, so tools/bench_warmup_torch.py runs as a process of its
+# own (``--warmup-tool``), twice at full width: cold, its --cache-dir an
+# empty directory under build/ (removed after), and warm, the default
+# build/kernels/ that the device phase built. Both cut in depth only.
+# WARMUP_KERNELS: the kernels its path runs, K1 in every projection of the
+# session (its prefill goes through the verify forward, its decode over the
+# bf16 cache: neither reaches K2 or K3)
+WARMUP_ARGV = ("--max-new", "32")
+WARMUP_CUTS = "new tokens 300 -> 32 (the warm-up's reply and the first turn's)"
+WARMUP_KEYS = {"weights_s", "warmup_s", "first_turn_s", "tokens", "cache_dir", "device"}
+WARMUP_KERNELS = ("q8_matmul",)
+WARMUP_TIMEOUT_S = 300
+
+
+def warmup_tool(result: str, argv) -> int:
+    """The tool's main in this process (``--warmup-tool RESULT ARGS``), its
+    line on stdout; {launches by kernel, the kernels loaded, peak memory}
+    into ``result``."""
+    import torch
+    from radialog_tpu_torch.ops import _build
+    from tools import bench_warmup_torch
+    counted = _kernel_counters()
+    _zero(counted)
+    bench_warmup_torch.main(list(argv))
+    with open(result, "w") as f:
+        json.dump({"launches": _read(counted), "loaded": sorted(_build._loaded),
+                   "peak_gb": torch.cuda.max_memory_allocated() / 1e9}, f)
+    return 0
+
+
+def _listing(path):
+    """{file name: (size, mtime_ns)} of a directory ({} if it is missing)."""
+    if not os.path.isdir(path):
+        return {}
+    return {e.name: (e.stat().st_size, e.stat().st_mtime_ns) for e in os.scandir(path)}
+
+
+def _warmup_run(cache_dir=None):
+    """One run of the tool in a process of its own (``cache_dir`` None: its
+    default): (its printed lines, the counts it wrote, the process's
+    seconds)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    result = os.path.join(root, "build", "phase_process", "warmup.json")
+    os.makedirs(os.path.dirname(result), exist_ok=True)
+    if os.path.exists(result):
+        os.remove(result)
+    argv = [*WARMUP_ARGV, *(["--cache-dir", cache_dir] if cache_dir else [])]
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--warmup-tool", result,
+                           *argv], capture_output=True, text=True, cwd=root,
+                          env=dict(os.environ, PYTHONPATH=root), timeout=WARMUP_TIMEOUT_S)
+    secs = time.time() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"bench_warmup_torch {argv} failed (rc {proc.returncode}):\n"
+                             f"{proc.stderr[-3000:]}")
+    with open(result) as f:
+        counts = json.load(f)
+    return [json.loads(x) for x in proc.stdout.splitlines() if x.startswith("{")], counts, secs
+
+
+def phase_warmup(torch):
+    """Cold and warm boot through tools/bench_warmup_torch.py (module
+    docstring). Returns {"cold": launches, "warm": launches}."""
+    import shutil
+    import tempfile
+    from radialog_tpu_torch.ops import _build
+    card = smi()
+    free_gb = torch.cuda.mem_get_info()[0] / 1e9    # the card's, beside the other processes
+    default = str(_build.DEFAULT_BUILD_DIR)
+    os.makedirs("build", exist_ok=True)
+    cold_dir = os.path.abspath(tempfile.mkdtemp(prefix="warmup-cold-", dir="build"))
+    try:
+        cold_before = _listing(cold_dir)
+        cold = _warmup_run(cold_dir)
+        cold_after = _listing(cold_dir)
+    finally:
+        shutil.rmtree(cold_dir, ignore_errors=True)
+    warm_before = _listing(default)
+    warm = _warmup_run()
+    warm_after = _listing(default)
+    out, ok = {}, True
+    for run, (lines, counts, secs), dir_ok in (
+            ("cold", cold, not cold_before and {n for n in cold_after if n.endswith(".so")}
+             == {_build.library_path(k).name for k in cold[1]["loaded"]}),
+            ("warm", warm, warm_before == warm_after and all(
+                _build.library_path(k).name in warm_after for k in warm[1]["loaded"]))):
+        line = lines[0] if len(lines) == 1 else {}
+        run_ok = (set(line) == WARMUP_KEYS and _bench_numbers_ok(line)
+                  and line["device"] == card and line["tokens"] == int(WARMUP_ARGV[1])
+                  and dir_ok and bool(counts["loaded"])
+                  and all(counts["launches"][k] > 0 for k in WARMUP_KERNELS))
+        emit("warmup", run=run, argv=[*WARMUP_ARGV] + (["--cache-dir", cold_dir]
+                                                     if run == "cold" else []),
+             cuts=WARMUP_CUTS, line=line, process_s=secs, launches=counts["launches"],
+             loaded=counts["loaded"], peak_gb=counts["peak_gb"],
+             built=sorted(n for n in cold_after if n.endswith(".so")) if run == "cold" else [],
+             build_dir_unchanged=warm_before == warm_after if run == "warm" else None,
+             ok=run_ok)
+        out[run] = counts["launches"]
+        ok &= run_ok
+    # recorded, not held: the cold boot's warm-up over the warm one's, nvcc's share
+    emit("warmup", card=card, card_free_gb_before=free_gb,
+         nvcc_share_s=cold[0][0]["warmup_s"] - warm[0][0]["warmup_s"] if ok else None, ok=ok)
+    if not ok:
+        raise AssertionError("the warmup phase failed a check")
+    return out
+
+
 # the ckpt phase, then datatools (on its own W8A8 pipeline, the slice's
-# weights from the same seed), run in a process of their own
-# (``--phase-process ckpt,datatools``), started after bench and waited for
-# before stage1: their disk writes, host reads and host loops overlap the
-# parent's decode phases, whose host loops leave the card idle most of the
-# time. The process holds up to ~16 GB of the card beside their peaks of up
-# to ~47 GB (tptrain beside stage1 and trainers ran out of the card's
-# 80 GB). Its lines follow the phases it ran beside. It is killed at
-# CHILD_TIMEOUT_S from its start
+# weights from the same seed), then warmup, run in a process of their own
+# (``--phase-process ckpt,datatools,warmup``), started after bench and
+# waited for before stage1: their disk writes, host reads and host loops
+# overlap the parent's decode phases, whose host loops leave the card idle
+# most of the time. The process holds up to ~16 GB of the card beside their
+# peaks of up to ~47 GB (tptrain beside stage1 and trainers ran out of the
+# card's 80 GB); warmup's tool processes, after the process freed its own,
+# ~8 GB each, one at a time. Its lines follow the phases it ran beside. It
+# is killed at CHILD_TIMEOUT_S from its start
 CHILD_TIMEOUT_S = 900
-CHILD_PHASES = ("ckpt", "datatools")
+CHILD_PHASES = ("ckpt", "datatools", "warmup")
 
 
 def _child_start(names):
@@ -6602,6 +6908,8 @@ def phase_process(names: str, result: str, start: str) -> int:
                 "flash_decode_int8": tfd.flash_decode_int8_kernel,
                 "flash_attention": tfa.flash_attention_kernel})
             del pipe
+        elif name == "warmup":
+            out[name] = phase_warmup(torch)
         else:
             raise ValueError(f"no phase {name} runs in a process of its own")
         gc.collect()
@@ -6675,20 +6983,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     _begin("slice")
     launches, defer_launches, sl = phase_slice(torch, te, pipeline_mod, tq8, tfd)
-    every_kernel = {"q8_matmul": tq8.q8_matmul_int32,
-                    "flash_decode_int8": tfd.flash_decode_int8_kernel,
-                    "flash_decode_int8_current": tfd.flash_decode_int8_current_kernel,
-                    "flash_decode_int8_fused": tfd.flash_decode_int8_fused_kernel,
-                    "flash_attention": tfa.flash_attention_kernel,
-                    "flash_attention_dq": tfa.flash_attention_dq_kernel,
-                    "flash_attention_dkv": tfa.flash_attention_dkv_kernel,
-                    "q4_matmul": tq4.q4_matmul_acc, "w4_int32_split": tw.w4_int32_split,
-                    "w4_int32": tw.w4_int32}
+    every_kernel = _kernel_counters()
     _begin("bench")
     bench_launches = phase_bench(torch, every_kernel)
     gc.collect()
     torch.cuda.empty_cache()
-    _begin("ckpt and datatools (their own process, beside the phases up to stage1)")
+    _begin("ckpt, datatools and warmup (their own process, beside the phases up to stage1)")
     child = _child_start(CHILD_PHASES)
     try:
         _begin("qa")
@@ -6721,11 +7021,11 @@ def main() -> int:
         train_launches = phase_train(torch, tfa)
         gc.collect()
         torch.cuda.empty_cache()
-        _begin("ckpt and datatools: waiting for their process")
+        _begin("ckpt, datatools and warmup: waiting for their process")
         done = _child_join(child)
     finally:
         _child_stop(child)
-    ckpt, datatools_launches = done["ckpt"], done["datatools"]
+    ckpt, datatools_launches, warmup_launches = done["ckpt"], done["datatools"], done["warmup"]
     _begin("stage1")
     stage1_launches = phase_stage1(torch, pipeline_mod, every_kernel)
     gc.collect()
@@ -6915,6 +7215,9 @@ def main() -> int:
         k["launches_tp"] = tp_launches.get(counter, 0) if static else 0
         # the tptrain phase's: rank 0's timed TP = 2 and DP = 2 micro-steps
         k["launches_tptrain"] = tptrain_launches.get(counter, 0) if static else 0
+        # the warmup phase's: its cold and warm runs of bench_warmup_torch
+        k["launches_warmup"] = sum(warmup_launches[run].get(counter, 0)
+                                   for run in ("cold", "warm")) if static else 0
     # the datatools phase's teacher: the ring (K2' is K2's counter there, every
     # launch checked to be under per-lane intervals) and the batch
     by_name = {k["name"]: k for k in kernels}
@@ -7012,6 +7315,8 @@ if __name__ == "__main__":
         sys.exit(_tptrain_rank(sys.argv[2]))
     if sys.argv[1:2] == ["--phase-process"] and len(sys.argv) == 5:
         sys.exit(phase_process(*sys.argv[2:]))
+    if sys.argv[1:2] == ["--warmup-tool"] and len(sys.argv) >= 3:
+        sys.exit(warmup_tool(sys.argv[2], sys.argv[3:]))
     if sys.argv[1:2] == ["--time-report"]:
         sys.exit(time_report(sys.argv[2:]))
     if sys.argv[1:2] == ["--time-report-one"] and len(sys.argv) == 3:

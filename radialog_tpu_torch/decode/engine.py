@@ -39,7 +39,7 @@ import torch.nn.functional as F
 from ..models.llama import (KVCache, LlamaConfig, PrefixKV, decode_bias_static_slot,
                             find_img_start, init_cache, llama_apply, prefill_bias, quantize_kv)
 from ..ops.attention import NEG_INF
-from ..ops.layers import DTypePolicy, FP32
+from ..ops.layers import DTypePolicy, FP32, div_scalar
 from .kvcache import bucket_length, install_prefill
 
 # at this batch and above the prompt is prefilled straight into the int8
@@ -81,16 +81,15 @@ def gumbel_noise(shape, gen: torch.Generator, device) -> torch.Tensor:
     return -torch.log(-torch.log(torch.clamp(u, min=torch.finfo(torch.float32).tiny)))
 
 
-def _select_token(logits: torch.Tensor, dp: DecodeParams,
-                  gen: Optional[torch.Generator] = None) -> torch.Tensor:
-    """Greedy, or sampling as the JAX engine samples: temperature, then the
-    top-k filter, then the nucleus filter (it keeps the tokens whose
-    preceding mass in descending order is < top_p, so the first always
-    stays), then argmax(filtered + Gumbel noise), which is what
-    jax.random.categorical computes. (B, V) -> (B,) int32, on the device."""
-    if not dp.do_sample:
-        return torch.argmax(logits, dim=-1).to(torch.int32)
-    logits = logits.float() / max(dp.temperature, 1e-6)
+def sampling_logits(logits: torch.Tensor, dp: DecodeParams) -> torch.Tensor:
+    """The logits sampling draws from, as the JAX engine filters them:
+    divided by the temperature (an IEEE division, ``div_scalar``: CUDA's
+    division by a Python scalar multiplies by its reciprocal, which rounds
+    apart from the CPU's and JAX's), then the top-k filter, then the nucleus
+    filter (it keeps the tokens whose preceding mass in descending order is
+    < top_p, so the first always stays); what is filtered out is NEG_INF.
+    (B, V) -> (B, V) f32."""
+    logits = div_scalar(logits.float(), max(dp.temperature, 1e-6))
     if dp.top_k and dp.top_k > 0:
         kth = torch.topk(logits, dp.top_k, dim=-1).values[..., -1:]
         logits = torch.where(logits < kth, NEG_INF, logits)
@@ -100,6 +99,17 @@ def _select_token(logits: torch.Tensor, dp: DecodeParams,
         keep = (torch.cumsum(probs, dim=-1) - probs) < dp.top_p
         cutoff = torch.where(keep, sorted_logits, torch.inf).amin(dim=-1, keepdim=True)
         logits = torch.where(logits < cutoff, NEG_INF, logits)
+    return logits
+
+
+def _select_token(logits: torch.Tensor, dp: DecodeParams,
+                  gen: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Greedy, or sampling as the JAX engine samples: argmax of
+    ``sampling_logits`` plus Gumbel noise, which is what
+    jax.random.categorical computes. (B, V) -> (B,) int32, on the device."""
+    if not dp.do_sample:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    logits = sampling_logits(logits, dp)
     noise = gumbel_noise(logits.shape, gen, logits.device)
     return torch.argmax(logits + noise, dim=-1).to(torch.int32)
 

@@ -1,11 +1,14 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Each ``csrc/<name>.cu`` has a plain C interface. It is compiled with
-``nvcc`` for ``sm_90a`` into ``build/kernels/lib<name>-<hash>.so`` at the
-repository root, at first use, and loaded with ``ctypes``. The hash of the
-source is part of the file name, so an edited source is rebuilt. Nothing
-here runs at import time: the CPU tests import every module of the port and
-never build or load a kernel.
+``nvcc`` for ``sm_90a`` into ``lib<name>-<hash>.so`` in the build directory
+(``build/kernels/`` at the repository root unless ``set_build_dir`` names
+another), at first use, and loaded with ``ctypes``. The hash of the source
+is part of the file name, so an edited source is rebuilt. The directory is
+the port's counterpart of JAX's compilation cache: an empty one makes the
+first use of each kernel run nvcc (a cold boot), a populated one is reused
+(a warm boot). Nothing here runs at import time: the CPU tests import every
+module of the port and never build or load a kernel.
 """
 from __future__ import annotations
 
@@ -18,13 +21,26 @@ from pathlib import Path
 from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
+DEFAULT_BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 KERNELS = ("q8_matmul", "flash_decode", "flash_attention", "flash_attention_bwd",
            "q4_matmul", "w4_colscale")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_build_dir = DEFAULT_BUILD_DIR
+
+
+def set_build_dir(path) -> None:
+    """Build into and load from ``path``. Once a library is loaded the
+    directory is fixed: ctypes cannot unload a library, so a switch would
+    leave the old one in use; naming another directory then raises."""
+    global _build_dir
+    path = Path(path).resolve()
+    if _loaded and path != _build_dir:
+        raise RuntimeError(f"kernels already loaded from {_build_dir} "
+                           f"({', '.join(sorted(_loaded))}); cannot switch to {path}")
+    _build_dir = path
 
 
 def nvcc() -> str:
@@ -44,16 +60,16 @@ def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
     src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    return _build_dir / f"lib{name}-{digest}.so"
 
 
 def _start(name: str):
     out = library_path(name)
     if out.exists():
         return None
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    log = open(BUILD_DIR / f"{name}.log", "w")
+    log = open(out.parent / f"{name}.log", "w")
     proc = subprocess.Popen([nvcc(), *NVCC_FLAGS, "-o", str(tmp),
                              str(CSRC / f"{name}.cu")],
                             stdout=log, stderr=subprocess.STDOUT)
@@ -68,7 +84,7 @@ def _finish(name: str, started) -> None:
         rc = proc.wait()
     finally:
         log.close()
-    text = (BUILD_DIR / f"{name}.log").read_text()
+    text = (out.parent / f"{name}.log").read_text()
     if rc != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu (rc {rc}):\n{text}")
     os.replace(tmp, out)
@@ -83,7 +99,7 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
         _finish(n, started[n])
     reports = {}
     for n in names:
-        log = BUILD_DIR / f"{n}.log"
+        log = _build_dir / f"{n}.log"
         reports[n] = log.read_text() if log.exists() else ""
     return reports
 

@@ -7,11 +7,14 @@ against their JAX originals, on the CPU:
     ``build_parser()`` with the same name and default, and the port adds
     ``--device`` (default cuda). The only defaults that differ are
     spec_acceptance's ``--ms-plain`` and ``--ms-verify``: the JAX tool's are
-    a TPU's milliseconds, the port's the card's own;
+    a TPU's milliseconds, the port's the card's own; and bench_warmup's
+    ``--cache-dir``: the JAX tool's names its compilation cache, the
+    port's the kernels' build directory (ops/_build.py's default);
   * each port tool's ``main([..., "--device", "cpu"])`` runs in-process at
     a tiny model (passed as an argument, not a flag) and prints lines whose
     keys are the JAX original's plus ``device`` and ``runs_s``
-    (bench_interactive's also ``ignored``); spec_acceptance's lines carry
+    (bench_interactive's also ``ignored``; bench_warmup's ``device``
+    alone); spec_acceptance's lines carry
     the JAX tool's keys alone, since its output is the JAX tool's byte for
     byte;
   * whole tools: ``spec_acceptance_torch`` prints what the JAX tool prints
@@ -52,9 +55,13 @@ TOOLS = {   # the port's tool: its JAX original
     "spec_acceptance_torch": "tools/spec_acceptance.py",
     "bench_pipeline_torch": "tools/bench_pipeline.py",
     "bench_loader_torch": "tools/bench_loader.py",
+    "bench_warmup_torch": "tools/bench_warmup.py",
 }
-CARD_DEFAULTS = {"spec_acceptance_torch": {"ms_plain", "ms_verify"}}
+# the JAX tools' defaults that name a TPU's figures or JAX's own cache
+CARD_DEFAULTS = {"spec_acceptance_torch": {"ms_plain", "ms_verify"},
+                 "bench_warmup_torch": {"cache_dir"}}
 EXTRA = {"device", "runs_s"}
+EXTRA_OF = {"bench_warmup_torch": {"device"}}    # one boot: no runs to list
 
 
 def _port(name):
@@ -143,6 +150,8 @@ RUNS = {   # argv, the keys of each printed line
                            [LOADER_HEAD, LOADER_ROW] + (
                                [LOADER_ROW] * 5 if native_available() else
                                [LOADER_ROW | {"note"}] + [LOADER_ROW] * 4)),
+    "bench_warmup_torch": (["--max-new", "3", "--cache-len", "288", "--spec"],
+                           [{"weights_s", "warmup_s", "first_turn_s", "tokens", "cache_dir"}]),
 }
 
 
@@ -162,8 +171,9 @@ def test_each_main_prints_the_jax_keys(name, capsys):
     argv, keys = RUNS[name]
     _call_main(name, argv)
     lines = _lines(capsys.readouterr().out)
-    assert [set(line) - EXTRA for line in lines] == keys
-    assert all(EXTRA <= set(line) and line["device"] == "cpu" for line in lines)
+    extra = EXTRA_OF.get(name, EXTRA)
+    assert [set(line) - extra for line in lines] == keys
+    assert all(extra <= set(line) and line["device"] == "cpu" for line in lines)
 
 
 def test_sweep_mem_and_stage1_lines(capsys):

@@ -18,12 +18,20 @@ policy, EOS off. Tokens must be equal:
     with the JAX tool's oracle; the oracle accepts every draft on both sides
     (k + 1 tokens a verify);
   * tools/bench_chat_torch.py's session turns (``run_session``) over the
-    port's ``InteractiveSession`` and over JAX's.
+    port's ``InteractiveSession`` and over JAX's;
+  * tools/bench_warmup_torch.py's warm-up (``warm``: a 128-token turn and
+    its reply, then a reset) followed by its first turn (``first_turn``:
+    120 ids and a reply) against JAX's ``InteractiveSession.warmup`` with
+    the JAX tool's arguments followed by the same turn. TINY_LLAMA's 128
+    positions are widened to 512 on both sides (the warm-up turn alone
+    fills 128).
 
 The JAX side is jitted. SEED crosses no int8 rounding edge near a greedy tie
 in these runs (ROADMAP.md section 3: JAX's own eager and jitted W8A8 runs
 part at such edges).
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -39,7 +47,7 @@ from radialog_tpu.ops.quant import quantize_llama_host
 from radialog_tpu_torch import bridge
 from radialog_tpu_torch.decode.session import InteractiveSession
 from tools import (bench_chat_torch, bench_interactive_torch, bench_qa_pass_torch,
-                   bench_spec_torch, bench_sweep_torch, bench_torch)
+                   bench_spec_torch, bench_sweep_torch, bench_torch, bench_warmup_torch)
 
 import test_torch_llama as tll
 
@@ -207,3 +215,23 @@ def test_chat_session_turns_match_jax(weights):
     assert [len(r) for r in got[0]] == [5, 4]
     assert got == want
 
+
+# ------------------------------------------------------------- the warm-up
+def test_warmup_then_first_turn_matches_jax(weights):
+    qp, lora, models = weights
+    cfg = dataclasses.replace(CFG, max_position=512)
+    args = _args(bench_warmup_torch, ["--max-new", "6", "--cache-len", "288"])
+    sess = InteractiveSession(models["params"], cfg, lora=models["lora"],
+                              cache_len=args.cache_len, device="cpu")
+    bench_warmup_torch.warm(sess, args)
+    assert sess.cur_len == 0 and sess.token_ids == []
+    got = bench_warmup_torch.first_turn(sess, args, cfg)
+    jsess = JSession(qp, cfg, lora=lora, cache_len=args.cache_len)
+    dp = je.DecodeParams(max_new_tokens=args.max_new, eos_token_id=-1)
+    jsess.warmup(dp, turn_lengths=(128,), spec_k=0)        # the JAX tool's call
+    assert jsess.cur_len == 0 and jsess.token_ids == []
+    ids = np.random.default_rng(0).integers(3, min(30000, cfg.vocab_size), 120)
+    jsess.append_tokens([int(x) for x in ids])
+    want = jsess.generate(dp)
+    assert len(got) == args.max_new
+    assert got == [int(x) for x in want]

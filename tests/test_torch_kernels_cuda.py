@@ -824,3 +824,18 @@ def test_dropout_on_the_card(card):
     assert torch.equal(y.cpu()[kept], x[kept] / torch.tensor(0.9))
     again = tl.dropout(x.to(card), 0.1, True, torch.Generator(device=card).manual_seed(1))
     assert torch.equal(again, y)
+
+
+@pytest.mark.parametrize("temperature", [0.7, 0.3])
+def test_sampling_temperature_on_the_card_is_the_cpus_division(card, temperature):
+    """decode/engine.py ``sampling_logits`` on the card at the report
+    batch's sampled logits (56 x 32,001): bitwise the CPU's, an IEEE
+    division by the temperature. A CUDA division by the Python scalar
+    multiplies by its reciprocal and leaves entries an ulp apart (counted
+    here first, so the test shows what it guards)."""
+    from radialog_tpu_torch.decode import engine as te
+    x = torch.randn(56, 32001, generator=torch.Generator().manual_seed(5)) * 3
+    dp = te.DecodeParams(do_sample=True, temperature=temperature)
+    native = int(((x.to(card) / temperature).cpu() != x / temperature).sum())
+    assert native > 0
+    assert torch.equal(te.sampling_logits(x.to(card), dp).cpu(), te.sampling_logits(x, dp))

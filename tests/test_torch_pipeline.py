@@ -205,7 +205,8 @@ def test_mock_label_reports():
 BENCH_TOOLS = ("bench_torch", "bench_sweep_torch", "bench_qa_pass_torch",
                "bench_allqa_pass_torch", "bench_interactive_torch", "bench_train_torch",
                "bench_spec_torch", "bench_spec_ring_torch", "bench_chat_torch",
-               "spec_acceptance_torch", "bench_pipeline_torch", "bench_loader_torch")
+               "spec_acceptance_torch", "bench_pipeline_torch", "bench_loader_torch",
+               "bench_warmup_torch")
 
 
 def test_entry_points_default_to_the_card():

@@ -62,6 +62,33 @@ def test_select_token_matches_jax(monkeypatch, top_k, top_p):
         np.testing.assert_array_equal(got.numpy(), logits.argmax(-1))
 
 
+@pytest.mark.parametrize("temperature", [0.7, 0.3, 1.3])
+def test_sampling_logits_divide_as_jax(temperature):
+    """``sampling_logits`` divides by the temperature as an IEEE f32
+    division (``div_scalar``), bitwise JAX's ``logits / temperature`` and
+    numpy's, and keeps exactly the top-k and nucleus sets (held on the card
+    against the CPU by tests/test_torch_kernels_cuda.py, where a division by
+    a Python scalar multiplies by its reciprocal)."""
+    logits = (np.random.default_rng(3).normal(size=(B, V)) * 3).astype(np.float32)
+    want = np.asarray(jnp.asarray(logits) / temperature)
+    np.testing.assert_array_equal(want, logits / np.float32(temperature))
+    got = te.sampling_logits(torch.from_numpy(logits),
+                             te.DecodeParams(do_sample=True, temperature=temperature))
+    np.testing.assert_array_equal(got.numpy(), want)
+    top5 = te.sampling_logits(torch.from_numpy(logits), te.DecodeParams(
+        do_sample=True, temperature=temperature, top_k=5)).numpy()
+    np.testing.assert_array_equal(np.sort(np.argsort(-top5, -1)[:, :5], -1),
+                                  np.sort(np.argsort(-logits, -1)[:, :5], -1))
+    assert ((top5 > te.NEG_INF).sum(-1) == 5).all()
+    nucleus = te.sampling_logits(torch.from_numpy(logits), te.DecodeParams(
+        do_sample=True, temperature=temperature, top_p=0.9)).numpy()
+    x = np.sort(want, -1)[:, ::-1].astype(np.float64)
+    p = np.exp(x - x[:, :1])
+    p /= p.sum(-1, keepdims=True)
+    kept = ((np.cumsum(p, -1) - p) < 0.9).sum(-1)
+    np.testing.assert_array_equal((nucleus > te.NEG_INF).sum(-1), kept)
+
+
 def _jax_noise(seed: int, steps: int):
     """The JAX engine's noise: key0 for the first token, then one split per
     decode step (radialog_tpu/decode/engine.py decode loop)."""
