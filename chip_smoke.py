@@ -160,7 +160,7 @@ each; any failing phase exits non-zero:
   spec    speculative decoding at full width on the eval phase's pipeline
           and prompts: the int8 verify attention card against CPU at S=1280
           (integer sums bitwise past 2^24, where an f32 product misses);
-          generate_spec (k 4) on the first correction prompt, 32 tokens
+          generate_spec (k 4) on the first correction prompt, 24 tokens
           over each cache (verifies, tokens per verify,
           seconds, stream waits per verify, where the tokens part from the
           eval phase's batch-1 loop); the eval command line with --corr_spec
@@ -233,7 +233,19 @@ each; any failing phase exits non-zero:
           them); losses, gradient norms, the LoRA tree, the untouched base,
           the checkpoint read back; tokens/s (the sequences' own tokens, padding
           not counted, over the whole timed span), the mean and the median
-          ms/step and peak memory of both
+          ms/step and peak memory of both. Then its optim part: make_adamw at
+          finetune_lora's settings (clip 1.0, no decay, its warm-up-cosine
+          schedule) and at stage 1's (decay 0.05, no clip, warm-up 1,000
+          from 1e-6), each at accumulation 3, OPTIM_UPDATES updates of the
+          LoRA tree at Vicuna-7B width on the card and on the CPU from the
+          same seeded gradients: entries apart in mu, nu, the update and the
+          parameters (none at stage 1's settings; within OPTIM_CLIP_TOL with
+          the clip, whose norm sums in another order on each device), the
+          bits of Adam's divisors and the schedule's rate on both; the same
+          in the arithmetic before optax's, for the record; pack_q4c at
+          tools/microbench_w4_torch.py's spot-check weight on the card
+          against the tool's numpy packer, bit for bit (and what a division
+          by the Python scalar 7.0 left apart)
 
   stage1  Q-Former stage-1 training from raw JPEGs (the fixtures under
           tests/fixtures/cxr): at the mock's size (TINY_QFORMER, BioViL-T at
@@ -464,15 +476,15 @@ CKPT_NEW = 32
 # 1,280 passes 2^24
 VERIFY_M = (5, 6, 48)
 SPEC_K, CORR_SPEC_K, CHAT_K, CHAT_NEW, CHAT_CHUNK = 4, 5, 5, 48, 16
-SPEC_BF16_NEW = 32      # the bf16-cache batch-1 run, cut from 256 (then 128, 64) for
-SPEC_INT8_NEW = 32      # the script's time; the int8-cache one the same
+SPEC_BF16_NEW = 24      # the bf16-cache batch-1 run, cut from 256 (then 128, 64, 32) for
+SPEC_INT8_NEW = 24      # the script's time; the int8-cache one the same
 RING_LANES, RING_NEW, RING_K, RING_CHUNK, RING_LEN = 4, 64, 4, 8, 325
 VERIFY_S = 1280
 # tokens of each speculative run teacher-forced through the plain steps (cut
-# from 128, then 64, for the script's time); generated rows of the batch-1
+# from 128, then 64 and 32, for the script's time); generated rows of the batch-1
 # runs held bitwise against one row at a time (_tf_verify one_row), and
 # against the control
-SPEC_TF_N, ONE_ROW_N = 32, 16
+SPEC_TF_N, ONE_ROW_N = 24, 16
 # the bound of the speculative runs' rows against the plain decode steps fed
 # the same tokens (teacher forcing). LOGIT_TOL cannot hold there at 32
 # layers: over the int8 cache the verify attention is another function than
@@ -3728,6 +3740,148 @@ def _train_run(torch, tfa, ft, base, data, out_dir, flash):
             "checkpoint_step": meta.get("step"), "ok": ok}, ok
 
 
+# the train phase's optim part: apps/finetune_lora.py's make_adamw (clip 1.0,
+# no decay, warm-up 100 at lr 3e-4, then cosine to lr / 10) and stage 1's
+# (configs/stage1_pretrain.yaml: decay 0.05, no clip, warm-up 1,000 from 1e-6
+# to 1e-4, cosine to 1e-5), each at accumulation 3; the clip's norm sums each
+# leaf in another order on the card and on the CPU, so with the clip on the
+# parameters are held within the CPU tests' bound against optax
+# (tests/test_torch_optim.py CLIP_TOL), without it bit for bit
+OPTIM_UPDATES, OPTIM_ACCUM = 10, 3
+OPTIM_CONFIGS = {
+    "finetune": {"schedule": (3e-4, 3e-5, 100, 1000), "weight_decay": 0.0, "grad_clip": 1.0},
+    "stage1": {"schedule": (1e-4, 1e-5, 1000, 100000, 1e-6), "weight_decay": 0.05,
+               "grad_clip": None}}
+OPTIM_CLIP_TOL = 2.5e-7
+
+
+def _f32_hex(x) -> str:
+    import numpy as np
+    return np.asarray(x, np.float32).reshape(()).view(np.uint32).item().to_bytes(4, "big").hex()
+
+
+def _trees_apart(torch, card, cpu):
+    """(entries apart, largest |difference|) of a tree on the card against
+    the same tree on the CPU (f32 leaves a few ulps apart: their difference
+    is exact in f32)."""
+    from radialog_tpu_torch.train.optim import tree_leaves
+    apart, diff = 0, 0.0
+    for a, b in zip(tree_leaves(card), tree_leaves(cpu)):
+        a = a.cpu()
+        apart += int((a != b).sum())
+        diff = max(diff, float((a - b).abs().max()))
+    return apart, diff
+
+
+@contextlib.contextmanager
+def _pre_optax_arithmetic(torch, to):
+    """The optimizer's arithmetic before it took optax's, for the record of
+    what that changed on the card: Adam's divisors in Python double,
+    divisions by Python scalars (the card multiplies by their reciprocal),
+    PyTorch's own f32 sqrt."""
+    saved = to._bias_correction, to.div_scalar, to._sqrt
+    to._bias_correction = lambda b, count: 1 - b ** count
+    to.div_scalar = lambda x, value: x / value
+    to._sqrt = torch.sqrt
+    try:
+        yield
+    finally:
+        to._bias_correction, to.div_scalar, to._sqrt = saved
+
+
+def _optim_run(torch, to, cfg, updates=OPTIM_UPDATES):
+    """``updates`` updates of make_adamw at ``cfg`` of the LoRA tree at
+    Vicuna-7B width (lora_init: r 8, wq and wv, 32 layers, img_proj_layer),
+    on the card and on the CPU from the same seeded gradients (drawn on the
+    card; the odd updates' large enough for a clip at 1.0 to bite, their
+    mean's norm ~1.6, the even ones' ~0.16): per update the entries apart
+    and the largest difference in mu, nu, the update and the parameters,
+    and the bits of the divisors and the rate on both."""
+    from radialog_tpu_torch.models.llama import VICUNA_7B, lora_init
+    from radialog_tpu_torch.ops.layers import _scalar
+    cpu = lora_init(torch.Generator().manual_seed(0), VICUNA_7B, "cpu")
+    card = to.tree_map(lambda x: x.to("cuda"), cpu)
+    sched = to.linear_warmup_cosine(*cfg["schedule"])
+    tx = to.make_adamw(sched, weight_decay=cfg["weight_decay"], grad_clip=cfg["grad_clip"],
+                       accum_steps=OPTIM_ACCUM)
+    st_cpu, st_card = tx.init(cpu), tx.init(card)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator(device=dev).manual_seed(1)
+    rows = []
+    for micro in range(updates * OPTIM_ACCUM):
+        scale = 1e-3 if (micro // OPTIM_ACCUM) % 2 == 0 else 1e-4
+        grads = to.tree_map(lambda p: torch.randn(p.shape, generator=gen, device=dev) * scale,
+                            card)
+        up_card, st_card = tx.update(grads, st_card, card)
+        up_cpu, st_cpu = tx.update(to.tree_map(lambda g: g.cpu(), grads), st_cpu, cpu)
+        cpu, card = to.apply_updates(cpu, up_cpu), to.apply_updates(card, up_card)
+        if up_cpu is None:
+            continue
+        count = st_cpu["inner"]["count"]
+        divisors = [to._bias_correction(b, count) for b in (0.9, 0.999)]
+        row = {"count": count, "grad_scale": scale}
+        for what, a, b in (("mu", st_card["inner"]["mu"], st_cpu["inner"]["mu"]),
+                           ("nu", st_card["inner"]["nu"], st_cpu["inner"]["nu"]),
+                           ("update", up_card, up_cpu), ("params", card, cpu)):
+            row[what + "_apart"], row[what + "_max_diff"] = _trees_apart(torch, a, b)
+        row["divisors_cpu"] = [_f32_hex(c) for c in divisors]
+        row["divisors_card"] = [_f32_hex(_scalar(c, dev, torch.float32).cpu()) for c in divisors]
+        row["lr"] = _f32_hex(sched(count - 1))
+        rows.append(row)
+    return rows
+
+
+def _optim_pack_q4c(torch):
+    """pack_q4c on the card at tools/microbench_w4_torch.py's spot-check
+    weight ((4096, 4096), std 0.02, drawn after its activations from its
+    seed) against the tool's numpy packer (tools/microbench_w4.py pack_q4's
+    codes and scales): entries apart now, and left apart by the division by
+    the Python scalar 7.0 that it replaced."""
+    import numpy as np
+    from radialog_tpu_torch.ops.w4_colscale import pack_q4c, unpack_q4
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    torch.randn((32, 4096), generator=gen, device="cuda")
+    w = torch.randn((4096, 4096), generator=gen, device="cuda") * 0.02
+    packed = pack_q4c(w)
+    wn = w.cpu().numpy()
+    scale = np.maximum(np.abs(wn).max(axis=0) / 7.0, 1e-8).astype(np.float32)
+    codes = np.clip(np.round(wn / scale[None, :]), -7, 7).astype(np.int8).T
+    old_scale = torch.clamp(w.abs().amax(dim=0) / 7.0, min=1e-8)
+    old_codes = torch.clamp(torch.round(w / old_scale[None, :]), -7, 7).to(torch.int8).t()
+    return {"shape": [4096, 4096],
+            "scales_apart": int((packed.scale.cpu().numpy() != scale).sum()),
+            "codes_apart": int((unpack_q4(packed.w).cpu().numpy() != codes).sum()),
+            "scales_apart_python_scalar": int((old_scale.cpu().numpy() != scale).sum()),
+            "codes_apart_python_scalar": int((old_codes.cpu().numpy() != codes).sum())}
+
+
+def _phase_optim(torch):
+    """The train phase's optim part (module docstring); raises if the card
+    parts from the CPU beyond the CPU tests' bars."""
+    from radialog_tpu_torch.train import optim as to
+    t0 = time.time()
+    out, ok = {}, True
+    for name, cfg in OPTIM_CONFIGS.items():
+        rows = _optim_run(torch, to, cfg)
+        if cfg["grad_clip"] is None:
+            held = all(r[k] == 0 for r in rows for k in r if k.endswith("_apart"))
+        else:
+            held = all(r["params_max_diff"] <= OPTIM_CLIP_TOL for r in rows)
+        held = held and all(r["divisors_cpu"] == r["divisors_card"] for r in rows)
+        emit("train", optim=name, **cfg, accum_steps=OPTIM_ACCUM, updates=rows, held=held)
+        out[name], ok = held, ok and held
+    with _pre_optax_arithmetic(torch, to):
+        before = _optim_run(torch, to, OPTIM_CONFIGS["stage1"], updates=3)
+    emit("train", optim="stage1 in the arithmetic before optax's (for the record)",
+         updates=before)
+    pack = _optim_pack_q4c(torch)
+    pack_ok = pack["scales_apart"] == 0 and pack["codes_apart"] == 0
+    emit("train", optim="pack_q4c", **pack, held=pack_ok, optim_s=time.time() - t0)
+    if not (ok and pack_ok):
+        raise AssertionError(f"the optim part: the card parts from the CPU ({out}, "
+                             f"pack_q4c {pack})")
+
+
 def phase_train(torch, tfa):
     """LoRA finetuning of Vicuna-7B over the int8 base, with flash attention
     and then without, on the same base and batches."""
@@ -3757,6 +3911,10 @@ def phase_train(torch, tfa):
             if not ok:
                 raise AssertionError(f"the full-width train phase (flash={flash}) failed a check")
             out[flash] = numbers
+    del base
+    gc.collect()
+    torch.cuda.empty_cache()
+    _phase_optim(torch)
     return out[True]["launches"]
 
 

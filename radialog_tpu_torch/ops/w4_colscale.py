@@ -32,6 +32,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
+from .layers import div_scalar
 # the ring that T2/T3 share with K4 (csrc/w4_tma.cuh), and its limits
 from .q4_matmul import KTILE, SLOTS_PER_SM, SMEM_PER_SM, STAGES, WNS, unpack_q4
 from .q8_matmul import SM_COUNT, _split, quantize_act
@@ -66,11 +67,13 @@ def pack_nibbles(codes: torch.Tensor) -> torch.Tensor:
 
 def pack_q4c(w: torch.Tensor) -> PackedQ4C:
     """(K, N) float, on any device -> PackedQ4C there, with the tool's codes
-    and scales (its ``pack_q4``). K must be even."""
+    and scales (its ``pack_q4``) bit for bit: the scale is an IEEE division
+    by 7 (``div_scalar``; the card would multiply by the reciprocal of a
+    Python scalar). K must be even."""
     if w.shape[0] % 2:
         raise ValueError(f"pack_q4c packs two K rows per byte: K={w.shape[0]} is odd")
     wf = w.float()
-    scale = torch.clamp(wf.abs().amax(dim=0) / 7.0, min=1e-8)
+    scale = torch.clamp(div_scalar(wf.abs().amax(dim=0), 7.0), min=1e-8)
     codes = torch.clamp(torch.round(wf / scale[None, :]), -7, 7).to(torch.int8)
     return PackedQ4C(pack_nibbles(codes.t()), scale)
 

@@ -20,7 +20,9 @@ flash-attention backward) each of dq, dk and dv at 8e-3 of its own largest
 reference value in bf16 (one bf16 step of that value at most; the spread of
 the plain version between block sizes reaches a quarter of it: a gradient
 rounds to bf16 once, and ds and p round before the second product) and 1e-5
-in f32, and bitwise against their own second run."""
+in f32, and bitwise against their own second run. Beside the kernels: the
+optimizer (train/optim.py) and ops/w4_colscale.py pack_q4c on the card
+bitwise the CPU (the optimizer with the clip within CLIP_TOL)."""
 import dataclasses
 
 import pytest
@@ -757,7 +759,7 @@ def test_w4_colscale_kernels_refuse_what_they_do_not_take(card):
 
 
 
-@pytest.mark.parametrize("s,b,t", [(1280, 1, 5), (2048, 1, 16), (736, 8, 6)])
+@pytest.mark.parametrize("s,b,t", [(1280, 1, 5), (2048, 1, 16), (1536, 8, 6)])
 def test_int8_verify_attention_on_the_card_matches_the_cpu(card, s, b, t):
     """The speculative verify's int8 attention (models/llama.py
     ``_attention_int8_verify``, plain PyTorch, no kernel of its own) on the
@@ -839,3 +841,54 @@ def test_sampling_temperature_on_the_card_is_the_cpus_division(card, temperature
     native = int(((x.to(card) / temperature).cpu() != x / temperature).sum())
     assert native > 0
     assert torch.equal(te.sampling_logits(x.to(card), dp).cpu(), te.sampling_logits(x, dp))
+
+
+@pytest.mark.parametrize("clip", [None, 1.0])
+def test_adamw_on_the_card_matches_the_cpu(card, clip):
+    """train/optim.py make_adamw (accumulation 3, decay 0.05, a warm-up-cosine
+    schedule) over 30 updates of a LoRA-shaped tree on the card against the
+    CPU from the same gradients: without the clip the moments, the update
+    and the parameters bit for bit (the divisions by Adam's divisors and by
+    the accumulation's count are IEEE divisions by 0-dim tensors on both
+    devices, the square roots correctly rounded on both); with it the
+    parameters within tests/test_torch_optim.py's CLIP_TOL, since the
+    clip's norm sums each leaf in another order on each device."""
+    from radialog_tpu_torch.train import optim as to
+    g = torch.Generator().manual_seed(7)
+    cpu = {"layers": {"wq": {"a": torch.randn(4, 512, 8, generator=g) * 0.04,
+                             "b": torch.zeros(4, 8, 512)}},
+           "img_proj": {"w": torch.randn(768, 512, generator=g) * 0.04, "b": torch.zeros(512)},
+           "scale": torch.tensor(2.0)}
+    tx = to.make_adamw(to.linear_warmup_cosine(3e-4, 3e-5, 10, 30), weight_decay=0.05,
+                       grad_clip=clip, accum_steps=3)
+    gpu = to.tree_map(lambda x: x.to(card), cpu)
+    st_cpu, st_gpu = tx.init(cpu), tx.init(gpu)
+    for micro in range(90):
+        scale = 1e-2 if (micro // 3) % 2 == 0 else 1e-4
+        grads = to.tree_map(lambda p: torch.randn(p.shape, generator=g) * scale, cpu)
+        up_cpu, st_cpu = tx.update(grads, st_cpu, cpu)
+        up_gpu, st_gpu = tx.update(to.tree_map(lambda x: x.to(card), grads), st_gpu, gpu)
+        cpu, gpu = to.apply_updates(cpu, up_cpu), to.apply_updates(gpu, up_gpu)
+        if up_cpu is None:
+            continue
+        pairs = [(gpu, cpu)] if clip else [(gpu, cpu), (up_gpu, up_cpu),
+                                           (st_gpu["inner"]["mu"], st_cpu["inner"]["mu"]),
+                                           (st_gpu["inner"]["nu"], st_cpu["inner"]["nu"])]
+        for a, b in pairs:
+            for x, y in zip(to.tree_leaves(a), to.tree_leaves(b)):
+                if clip:
+                    torch.testing.assert_close(x.cpu(), y, atol=2.5e-7, rtol=0)
+                else:
+                    assert torch.equal(x.cpu(), y), f"count {st_cpu['inner']['count']}"
+    assert st_cpu["inner"]["count"] == 30
+
+
+def test_pack_q4c_on_the_card_matches_the_cpu(card):
+    """ops/w4_colscale.py pack_q4c at tools/microbench_w4_torch.py's
+    spot-check shape: the codes and scales bit for bit (the scale is an IEEE
+    division by 7 on both devices), where a division by the Python scalar
+    7.0, a product with its reciprocal on the card, leaves scales apart."""
+    w = torch.randn(4096, 4096, generator=torch.Generator().manual_seed(0)) * 0.02
+    got, want = tw.pack_q4c(w.to(card)), tw.pack_q4c(w)
+    assert torch.equal(got.scale.cpu(), want.scale) and torch.equal(got.w.cpu(), want.w)
+    assert int(((w.to(card).abs().amax(dim=0) / 7.0).cpu() != want.scale).sum()) > 0

@@ -85,6 +85,18 @@ def test_pack_q4c_matches_the_tool(mw4):
     assert int(codes.min()) >= -7 and int(codes.max()) <= 7
 
 
+def test_pack_q4c_matches_the_tool_at_its_default_shape(mw4):
+    """tools/microbench_w4_torch.py's spot-check weight, (4096, 4096) of std
+    0.02 drawn from its seed: the codes and scales bit for bit."""
+    w = torch.randn((4096, 4096), generator=torch.Generator().manual_seed(0)) * 0.02
+    p = mw4.pack_q4(w.numpy())
+    kt, nt, bk2, bn = p.w_t.shape
+    mine = tw.pack_q4c(w)
+    assert mine.w.numpy().tobytes() == p.w_t.transpose(0, 2, 1, 3).reshape(
+        kt * bk2, nt * bn)[:, :4096].T.tobytes()
+    assert mine.scale.numpy().tobytes() == p.scale[:4096].tobytes()
+
+
 @pytest.mark.parametrize("m", [8, 5])
 def test_int32_products_match_the_tool_kernels(mw4, m):
     rng = np.random.default_rng(m)

@@ -2,10 +2,11 @@
 training layout, the stacked layout of models/llama.py) against the JAX
 package on the same numpy inputs and weights, FP32 policy unless stated.
 
-Tolerances: schedules rtol 1e-6 (the JAX ones compute in f32, the port in
-Python floats). The optimizer against optax: params within 1e-6 after 7
-micro-steps (the same f32 operations in the same order; bias corrections
-differ in the last f32 bit). Loss 1e-5 and LoRA gradients atol 2e-5 of
+Tolerances: schedules bit for bit (both compute in f32 in the same order;
+JAX run op by op). The optimizer against optax's jitted chain: params
+within 2.5e-7 after 7 micro-steps (op by op it is bitwise without the clip,
+tests/test_torch_optim.py; jitted, XLA contracts multiply-adds into FMAs and
+sums the clip's norm in its own order). Loss 1e-5 and LoRA gradients atol 2e-5 of
 gradients up to ~1 (sums in another order). With the int8 base the policy
 is BF16 on both sides: bf16 rounds at other places in the two frameworks, so
 the loss is held at 2e-2 and gradients at 5e-2 of the largest one. Three
@@ -71,16 +72,30 @@ def test_masked_ce_matches_jax():
     ("linear_warmup_cosine", dict(init_lr=1e-4, min_lr=1e-5, warmup_steps=10, total_steps=50,
                                   warmup_start_lr=1e-6)),
     ("linear_warmup_cosine", dict(init_lr=1e-3, min_lr=0.0, warmup_steps=0, total_steps=4)),
+    # configs/stage1_pretrain.yaml's rates; apps/finetune_lora.py's (lr 3e-4,
+    # min lr / 10, warm-up 100); a min-lr-0 tail, where 1 + cos(pi t) cancels
+    ("linear_warmup_cosine", dict(init_lr=1e-4, min_lr=1e-5, warmup_steps=2000,
+                                  total_steps=100000, warmup_start_lr=1e-6)),
+    ("linear_warmup_cosine", dict(init_lr=3e-4, min_lr=3e-4 / 10, warmup_steps=100,
+                                  total_steps=20000)),
+    ("linear_warmup_cosine", dict(init_lr=3e-5, min_lr=0.0, warmup_steps=0, total_steps=5000)),
     ("linear_warmup_step", dict(init_lr=1e-4, min_lr=1e-5, warmup_steps=20, decay_rate=0.9,
                                 steps_per_epoch=30)),
     ("linear_warmup_step", dict(init_lr=1e-4, min_lr=5e-5, warmup_steps=5, decay_rate=0.5,
                                 steps_per_epoch=7, warmup_start_lr=1e-6)),
 ])
 def test_schedules_match_jax(name, kw):
+    """Bit for bit at the edges of each phase and at 200 steps spread over
+    the schedule's length, the tail of the cosine included."""
     js, ts = getattr(joptim, name)(**kw), getattr(toptim, name)(**kw)
-    for step in (0, 1, 4, 5, 9, 10, 11, 19, 20, 21, 49, 50, 99, 100, 101, 250, 399, 400, 1000):
-        np.testing.assert_allclose(ts(step), float(js(step)), rtol=1e-6, atol=1e-12,
-                                   err_msg=f"step {step}")
+    total = kw.get("total_steps", 3000)
+    steps = sorted({0, 1, 4, 5, 9, 10, 11, 19, 20, 21, 49, 50, 99, 100, 101, 250, 399, 400, 1000,
+                    1999, 2000, 2001, *np.linspace(0, total + 10, 200).astype(int).tolist(),
+                    *range(total - 20, total + 2)})
+    for step in steps:
+        got, want = ts(step), np.asarray(js(step))
+        assert isinstance(got, np.float32)
+        assert got.tobytes() == want.tobytes(), f"step {step}: {got!r} vs {want!r}"
 
 
 # ----------------------------------------------------------------- optimizer
@@ -96,8 +111,14 @@ def small_tree(rng):
                                            (1, 0.5, 0.01)])
 def test_adamw_matches_optax(accum, clip, wd):
     """AdamW + clip + accumulation over 7 micro-steps on a tree with 0-d,
-    1-d, 2-d and 3-d leaves; the gradients are large enough for the clip to
-    bite on some steps and not on others."""
+    1-d, 2-d and 3-d leaves, against optax's chain jitted as the JAX train
+    step runs it; the gradients are large enough for the clip to bite on
+    some steps and not on others. Not bitwise: under jit XLA contracts the
+    moment updates' multiply-adds into FMAs (eager optax does not; the port
+    is bitwise eager optax, tests/test_torch_optim.py) and sums the clip's
+    norm in its fused order. The largest gap measured is 2.4e-7, one ulp of
+    a parameter in [2, 4); the bar was 1e-6 before the port took optax's
+    divisors and square roots."""
     rng = np.random.default_rng(1)
     params = small_tree(rng)
     kw = dict(weight_decay=wd, grad_clip=clip, accum_steps=accum)
@@ -118,7 +139,7 @@ def test_adamw_matches_optax(accum, clip, wd):
         tp = toptim.apply_updates(tp, tup)
         assert moved == ((step + 1) % accum == 0)
         for got, want in zip(leaves_np(tp), jax_leaves(jp)):
-            np.testing.assert_allclose(got, want, rtol=0, atol=1e-6, err_msg=f"step {step}")
+            np.testing.assert_allclose(got, want, rtol=0, atol=2.5e-7, err_msg=f"step {step}")
     inner = tstate["inner"] if accum > 1 else tstate
     assert inner["count"] == 7 // accum
 
