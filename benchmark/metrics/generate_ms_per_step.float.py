@@ -1,0 +1,5 @@
+"""generate_ms_per_step.report's reader on the float cell (its own end-to-end metric,
+``float_reports_per_s``)."""
+from benchmark.metrics._read import reader
+
+read = reader("generate_ms_per_step.report")
